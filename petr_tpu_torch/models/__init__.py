@@ -1,0 +1,5 @@
+from petr_tpu_torch.models.detector import PETRDetector, init_weights
+from petr_tpu_torch.models.fpn import CPFPN
+from petr_tpu_torch.models.petr_head import PETRHead
+from petr_tpu_torch.models.transformer import PETRTransformer, PETRTransformerDecoder
+from petr_tpu_torch.models.vovnet import VoVNet

@@ -1,0 +1,142 @@
+"""PETR3D detector assembly: backbone -> neck -> head (PyTorch).
+
+Counterpart of `petr_tpu/models/detector.py` (reference
+`models/detectors/petr3d.py:68-99`, sty61010/PETR): views fold into the
+batch for the backbone and unfold after the neck; the head consumes one FPN
+level. Inputs keep petr_tpu's layout: images (B, N, H, W, 3), img2lidar
+(B, N, 4, 4), img_hw (B, N, 2). Submodules carry the reference checkpoint's
+names: ``img_backbone``, ``img_neck``, ``pts_bbox_head``.
+
+Serving is deterministic, so there is no grid mask.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from petr_tpu_torch.configs.config import ModelConfig
+from petr_tpu_torch.models.fpn import CPFPN
+from petr_tpu_torch.models.layers import (
+    AttentionProjections,
+    Conv2d,
+    FrozenBatchNorm,
+    LayerNorm,
+    Linear,
+    PointwiseConv2d,
+)
+from petr_tpu_torch.models.petr_head import FOCAL_PRIOR_BIAS, PETRHead
+from petr_tpu_torch.models.vovnet import SPECS, VoVNet
+
+
+def _unsupported(cfg: ModelConfig) -> str:
+    """The ROADMAP.md item that ports what ``cfg`` needs, or '' if supported."""
+    if cfg.backbone.kind != "vovnet":
+        return f"backbone kind {cfg.backbone.kind!r}: ROADMAP.md §1, item 7 (r50dcn family)"
+    head = cfg.head
+    if head.kind == "petrv2" or head.with_fpe or head.with_time or head.with_multi_reg:
+        return "the PETRv2 head: ROADMAP.md §1, item 8"
+    if head.kind == "depthr":
+        return "the Depthr head: ROADMAP.md §1, item 9"
+    if not head.shared_branches:
+        return "unshared cls/reg branches: ROADMAP.md §1, item 8"
+    if cfg.backbone.quant != "none":
+        return f"backbone.quant={cfg.backbone.quant!r}: ROADMAP.md §1, item 11 (quant/ptq.py)"
+    if cfg.backbone.bn_mode != "frozen":
+        return (
+            f"bn_mode={cfg.backbone.bn_mode!r} (training BN): ROADMAP.md §1, item 6; "
+            "eval_model_config() gives the frozen-BN serving config"
+        )
+    if not cfg.backbone.with_fpn:
+        return "a backbone without the CPFPN neck: ROADMAP.md §1, item 7"
+    return ""
+
+
+class PETRDetector(nn.Module):
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        reason = _unsupported(config)
+        if reason:
+            raise NotImplementedError(f"not ported yet: {reason}")
+        self.config = config
+        self.dtype = getattr(torch, config.compute_dtype)
+        bb, hc = config.backbone, config.head
+        self.img_backbone = VoVNet(bb.spec, bb.out_indices)
+        stage_out = SPECS[bb.spec]["stage_out_ch"]
+        self.img_neck = CPFPN(
+            [stage_out[i] for i in bb.out_indices], bb.fpn_out_channels, bb.fpn_num_outs
+        )
+        self.pts_bbox_head = PETRHead(
+            num_classes=hc.num_classes,
+            in_channels=bb.fpn_out_channels,
+            embed_dim=hc.embed_dim,
+            num_query=hc.num_query,
+            num_layers=hc.num_layers,
+            num_heads=hc.num_heads,
+            ffn_dim=hc.ffn_dim,
+            code_size=hc.code_size,
+            depth_num=hc.depth_num,
+            depth_start=hc.depth_start,
+            depth_mode=hc.depth_mode,
+            with_multiview=hc.with_multiview,
+            position_range=hc.position_range,
+            pc_range=hc.pc_range,
+            use_flash=config.use_flash_attention,
+            dtype=self.dtype,
+        )
+
+    def forward(
+        self,
+        images: torch.Tensor,  # (B, N, H, W, 3) normalized
+        img2lidar: torch.Tensor,  # (B, N, 4, 4)
+        img_hw: torch.Tensor,  # (B, N, 2)
+    ) -> Dict[str, torch.Tensor]:
+        B, N, H, W, C = images.shape
+        x = images.reshape(B * N, H, W, C).permute(0, 3, 1, 2).contiguous().to(self.dtype)
+        feats = self.img_neck(self.img_backbone(x))
+        f = feats[self.config.head_feat_level]  # (B*N, fc, fh, fw)
+        fc, fh, fw = f.shape[1:]
+        f = f.permute(0, 2, 3, 1).reshape(B, N, fh, fw, fc)
+        return self.pts_bbox_head(f, img2lidar, img_hw, (H, W))
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int) -> nn.Module:
+    """Re-draw every parameter of ``model`` from ``seed`` (random weights for
+    runs without a checkpoint), with one torch.Generator in module order.
+
+    Convs: He-uniform (variance 2 / fan_in, keeping activations at scale
+    through the deep ReLU backbone); linears and all biases: torch's
+    U(+-1/sqrt(fan_in)); norms: identity; reference points: U(0, 1); the
+    final cls bias: the focal prior. BN running statistics stay 0 / 1.
+    """
+    gen = torch.Generator().manual_seed(seed)
+
+    def uniform_(t: torch.Tensor, bound: float) -> None:
+        t.copy_(torch.rand(t.shape, generator=gen) * (2 * bound) - bound)
+
+    for module in model.modules():
+        if isinstance(module, (Conv2d, Linear, PointwiseConv2d)):
+            fan_in = module.weight[0].numel()
+            if isinstance(module, Conv2d):
+                uniform_(module.weight, (6.0 / fan_in) ** 0.5)
+            else:
+                uniform_(module.weight, fan_in ** -0.5)
+            if module.bias is not None:
+                uniform_(module.bias, fan_in ** -0.5)
+        elif isinstance(module, (FrozenBatchNorm, LayerNorm)):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+    for module in model.modules():
+        if isinstance(module, PETRHead):
+            module.reference_points.weight.copy_(
+                torch.rand(module.reference_points.weight.shape, generator=gen)
+            )
+            module.cls_branches[0][-1].bias.fill_(FOCAL_PRIOR_BIAS)
+        elif isinstance(module, AttentionProjections):
+            fan = module.in_proj_weight.shape[1] + module.in_proj_weight.shape[0]
+            uniform_(module.in_proj_weight, (6.0 / fan) ** 0.5)
+            module.in_proj_bias.zero_()
+    return model

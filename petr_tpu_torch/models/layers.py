@@ -1,0 +1,222 @@
+"""Shared NN building blocks (PyTorch), counterpart of `petr_tpu/models/layers.py`.
+
+Conventions:
+  * parameters stay fp32; every layer casts them to the dtype of the
+    activation it receives, and the activations enter the compute dtype at
+    the same points where petr_tpu calls ``.astype(self.dtype)`` (the
+    detector's input, the head's positional embeddings and queries). So a
+    bf16 model computes in bf16 with fp32 parameters, as petr_tpu does.
+  * convolutions run NCHW; the head's 1x1 convolutions act on channels-last
+    tokens as per-pixel linear maps (``PointwiseConv2d``).
+  * module and parameter names follow the reference mmdet3d checkpoint
+    (`img_backbone.*`, `img_neck.*`, `pts_bbox_head.*`), so that a port
+    ``state_dict`` maps onto a petr_tpu param tree through
+    `petr_tpu/utils/torch_convert.py` and a released checkpoint loads as is.
+  * BN is always frozen: the reference evaluates every config with BN in
+    eval mode, so it is one affine map per channel.
+"""
+
+from __future__ import annotations
+
+import math
+from collections import OrderedDict
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from petr_tpu_torch.ops.cross_attention import flash_cross_attention
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in the dtype of its input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d (NCHW) computing in the dtype of its input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(
+            x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+            self.dilation, self.groups,
+        )
+
+
+class PointwiseConv2d(nn.Conv2d):
+    """A 1x1 nn.Conv2d applied to channels-last input (..., C) as a linear map.
+
+    Keeps the reference's conv parameter layout (O, I, 1, 1) for the head's
+    ``input_proj`` / ``position_encoder`` / ``adapt_pos3d``, which petr_tpu
+    computes as Dense layers on channels-last tokens.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight[:, :, 0, 0].to(x.dtype), self.bias.to(x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with flax's eps (1e-6), statistics in fp32, output in the input dtype."""
+
+    def __init__(self, normalized_shape: int, eps: float = 1e-6):
+        super().__init__(normalized_shape, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(
+            x.float(), self.normalized_shape, self.weight, self.bias, self.eps
+        ).to(x.dtype)
+
+
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm with frozen running statistics, folded to one mul/add.
+
+    Holds ``weight``/``bias`` and the ``running_mean``/``running_var``
+    buffers of nn.BatchNorm2d, so a reference checkpoint loads as is (its
+    ``num_batches_tracked`` is dropped).
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        state_dict.pop(prefix + "num_batches_tracked", None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, C, H, W)
+        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
+        add = self.bias - self.running_mean * mul
+        return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]
+
+
+class ConvBNReLU(nn.Sequential):
+    """conv (no bias) + frozen BN + optional ReLU, the backbone workhorse.
+
+    Children are named ``{name}/conv``, ``{name}/norm``, ``{name}/relu`` as in
+    the reference VoVNet's ``conv3x3``/``conv1x1`` helpers.
+    """
+
+    def __init__(
+        self, name: str, in_channels: int, out_channels: int, kernel: int = 3,
+        stride: int = 1, relu: bool = True,
+    ):
+        layers = [
+            (f"{name}/conv", Conv2d(in_channels, out_channels, kernel, stride, kernel // 2, bias=False)),
+            (f"{name}/norm", FrozenBatchNorm(out_channels)),
+        ]
+        if relu:
+            layers.append((f"{name}/relu", nn.ReLU(inplace=True)))
+        super().__init__(OrderedDict(layers))
+
+
+class MLP(nn.Sequential):
+    """Linear stack with ReLU between layers (no final activation).
+
+    ``pointwise=True`` makes each layer a 1x1 conv acting on channels-last
+    input (the reference's conv-MLPs); either way the children are indexed
+    0, 2, 4, ... as in the reference's nn.Sequential.
+    """
+
+    def __init__(self, in_features: int, features: Sequence[int], pointwise: bool = False):
+        layers = []
+        for i, f in enumerate(features):
+            layers.append(PointwiseConv2d(in_features, f) if pointwise else Linear(in_features, f))
+            if i < len(features) - 1:
+                layers.append(nn.ReLU())
+            in_features = f
+        super().__init__(*layers)
+
+
+class FFN(nn.Module):
+    """Transformer feed-forward block (no residual; the caller adds it).
+
+    mmcv FFN layout: ``layers.0.0`` and ``layers.1`` are the two Linears.
+    Inference only: no dropout.
+    """
+
+    def __init__(self, embed_dim: int, hidden_dim: int):
+        super().__init__()
+        self.layers = nn.Sequential(
+            nn.Sequential(Linear(embed_dim, hidden_dim), nn.ReLU()),
+            Linear(hidden_dim, embed_dim),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layers(x)
+
+
+class AttentionProjections(nn.Module):
+    """The parameters of torch's nn.MultiheadAttention: packed q/k/v
+    ``in_proj_weight`` (3C, C) and ``in_proj_bias`` (3C,), and ``out_proj``."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+        self.out_proj = Linear(embed_dim, embed_dim)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+
+class MultiheadAttention(nn.Module):
+    """Batch-first multi-head attention, the reference's mmcv wrapper around
+    nn.MultiheadAttention (`petr_transformer.py:227-367`): the caller adds
+    the positional embeddings to query/key and the residual to the output.
+
+    ``use_flash`` routes the attention itself to ``flash_cross_attention``
+    (the hand-written kernel on CUDA); otherwise it is the plain branch of
+    petr_tpu (`layers.py:353-361`): fp32 logits, finfo.min masking, softmax.
+    """
+
+    def __init__(self, embed_dim: int, num_heads: int, use_flash: bool = False):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.use_flash = use_flash
+        self.attn = AttentionProjections(embed_dim)
+
+    def forward(
+        self,
+        query: torch.Tensor,  # (B, Q, C)
+        key: torch.Tensor,  # (B, L, C)
+        value: torch.Tensor,  # (B, L, C)
+        key_padding_mask: Optional[torch.Tensor] = None,  # (B, L) True = pad
+    ) -> torch.Tensor:
+        C, H = self.embed_dim, self.num_heads
+        D = C // H
+        w = self.attn.in_proj_weight.to(query.dtype)
+        b = self.attn.in_proj_bias.to(query.dtype)
+        q = F.linear(query, w[:C], b[:C])
+        k = F.linear(key, w[C:2 * C], b[C:2 * C])
+        v = F.linear(value, w[2 * C:], b[2 * C:])
+        B, Q, _ = q.shape
+        L = k.shape[1]
+        q = q.view(B, Q, H, D)
+        k = k.view(B, L, H, D)
+        v = v.view(B, L, H, D)
+        if self.use_flash:
+            out, _ = flash_cross_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), key_padding_mask
+            )
+            out = out.transpose(1, 2)
+        else:
+            scale = 1.0 / math.sqrt(D)
+            logits = torch.einsum("bqhd,blhd->bhql", q, k).float() * scale
+            if key_padding_mask is not None:
+                logits = logits.masked_fill(
+                    key_padding_mask[:, None, None, :], torch.finfo(torch.float32).min
+                )
+            attn = logits.softmax(-1)
+            out = torch.einsum("bhql,blhd->bqhd", attn.to(q.dtype), v)
+        return self.attn.out_proj(out.reshape(B, Q, C))

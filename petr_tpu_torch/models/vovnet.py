@@ -1,0 +1,128 @@
+"""VoVNetV2 backbone (OSA modules + eSE), NCHW, frozen BN.
+
+Counterpart of `petr_tpu/models/vovnet.py` (reference
+`models/backbones/vovnet.py`, sty61010/PETR), with the reference's module
+names: ``stem.stem_{i}/conv``, ``stage{s}.OSA{s}_{b}.layers.{i}``,
+``.concat``, ``.ese.fc``. V-99-eSE is the flagship backbone.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict, List, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from petr_tpu_torch.models.layers import Conv2d, ConvBNReLU
+
+SPECS: Dict[str, Dict] = {
+    "V-99-eSE": {
+        "stem": (64, 64, 128),
+        "stage_conv_ch": (128, 160, 192, 224),
+        "stage_out_ch": (256, 512, 768, 1024),
+        "layer_per_block": 5,
+        "block_per_stage": (1, 3, 9, 3),
+        "eSE": True,
+    },
+    "V-39-eSE": {
+        "stem": (64, 64, 128),
+        "stage_conv_ch": (128, 160, 192, 224),
+        "stage_out_ch": (256, 512, 768, 1024),
+        "layer_per_block": 5,
+        "block_per_stage": (1, 1, 2, 2),
+        "eSE": True,
+    },
+}
+
+
+def hsigmoid(x: torch.Tensor) -> torch.Tensor:
+    return (x + 3.0).clamp(0.0, 6.0) / 6.0
+
+
+class ESE(nn.Module):
+    """Effective squeeze-excite: hsigmoid(conv1x1(avgpool)) channel gate."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.fc = Conv2d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * hsigmoid(self.fc(x.mean(dim=(-2, -1), keepdim=True)))
+
+
+class OSABlock(nn.Module):
+    """One-shot aggregation: k sequential 3x3 convs, concat all, 1x1 project,
+    eSE gate, optional identity."""
+
+    def __init__(
+        self, name: str, in_ch: int, stage_ch: int, concat_ch: int,
+        layer_per_block: int, identity: bool = False, use_ese: bool = True,
+    ):
+        super().__init__()
+        self.identity = identity
+        self.layers = nn.ModuleList(
+            ConvBNReLU(f"{name}_{i}", in_ch if i == 0 else stage_ch, stage_ch)
+            for i in range(layer_per_block)
+        )
+        self.concat = ConvBNReLU(
+            f"{name}_concat", in_ch + layer_per_block * stage_ch, concat_ch, kernel=1
+        )
+        self.ese = ESE(concat_ch) if use_ese else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feats = [x]
+        y = x
+        for layer in self.layers:
+            y = layer(y)
+            feats.append(y)
+        y = self.concat(torch.cat(feats, dim=1))
+        if self.ese is not None:
+            y = self.ese(y)
+        if self.identity:
+            y = y + x
+        return y
+
+
+class VoVNet(nn.Module):
+    """VoVNetV2; returns features for ``out_indices`` (0..3 = stage2..stage5,
+    strides 4/8/16/32)."""
+
+    def __init__(self, spec: str = "V-99-eSE", out_indices: Sequence[int] = (2, 3)):
+        super().__init__()
+        s = SPECS[spec]
+        self.out_indices = tuple(out_indices)
+        s0, s1, s2 = s["stem"]
+        stem = [
+            ConvBNReLU("stem_1", 3, s0, stride=2),
+            ConvBNReLU("stem_2", s0, s1, stride=1),
+            ConvBNReLU("stem_3", s1, s2, stride=2),
+        ]
+        # one flat Sequential, as the reference's `stem.stem_{i}/conv` keys need
+        self.stem = nn.Sequential(
+            OrderedDict((n, m) for c in stem for n, m in c.named_children())
+        )
+        in_ch = s2
+        for stage in range(4):
+            blocks = OrderedDict()
+            for b in range(s["block_per_stage"][stage]):
+                name = f"OSA{stage + 2}_{b + 1}"
+                blocks[name] = OSABlock(
+                    name, in_ch, s["stage_conv_ch"][stage], s["stage_out_ch"][stage],
+                    s["layer_per_block"], identity=b > 0, use_ese=s["eSE"],
+                )
+                in_ch = s["stage_out_ch"][stage]
+            self.add_module(f"stage{stage + 2}", nn.Sequential(blocks))
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = self.stem(x)
+        outs = []
+        for stage in range(4):
+            if stage > 0:
+                # ceil-mode 3x3/2 max-pool (reference `vovnet.py:243`)
+                x = F.max_pool2d(x, 3, 2, ceil_mode=True)
+            x = getattr(self, f"stage{stage + 2}")(x)
+            if stage in self.out_indices:
+                outs.append(x)
+        return outs

@@ -1,0 +1,76 @@
+"""Serving step: forward + NMS-free decode of the last decoder layer.
+
+Counterpart of `petr_tpu/serve/export.py::make_serving_fn` together with
+`petr_tpu/train/train_step.py::make_eval_step`. petr_tpu exports the jitted
+step as a StableHLO artifact; PyTorch runs eagerly, so here the step is a
+plain function over a model that lives on the device. It takes and returns
+numpy arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Union
+
+import numpy as np
+import torch
+
+from petr_tpu_torch.configs.config import ExperimentConfig, eval_model_config
+from petr_tpu_torch.models.detector import PETRDetector, init_weights
+from petr_tpu_torch.ops.nms_free import nms_free_decode
+
+
+def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
+    """The device to run on; raises rather than fall back to the CPU when
+    CUDA is asked for and there is no card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' asked for but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+def build_detector(
+    cfg: ExperimentConfig, seed: int = 0, device: Union[str, torch.device] = "cuda"
+) -> PETRDetector:
+    """The serving (eval-config) detector of ``cfg`` with random weights drawn
+    from ``seed``, on ``device``, in eval mode."""
+    device = resolve_device(device)
+    model = init_weights(PETRDetector(eval_model_config(cfg.model)), seed)
+    return model.to(device).eval()
+
+
+def make_serving_fn(
+    cfg: ExperimentConfig,
+    model: PETRDetector,
+    device: Union[str, torch.device] = "cuda",
+) -> Callable[..., Dict[str, np.ndarray]]:
+    """``fn(images, img2lidar, img_hw)`` over batched numpy inputs in
+    petr_tpu's layout -> dict of numpy boxes (B, max_det, 9), scores,
+    labels and valid (B, max_det). Moves ``model`` to ``device``."""
+    if cfg.model.head.kind == "depthr":
+        raise NotImplementedError(
+            "the depthr head needs GT depth at test time (oracle); it has no serving path"
+        )
+    device = resolve_device(device)
+    model = model.to(device).eval()
+
+    def fn(images, img2lidar, img_hw) -> Dict[str, np.ndarray]:
+        with torch.inference_mode():
+            args = [
+                torch.as_tensor(np.asarray(a), dtype=torch.float32).to(device)
+                for a in (images, img2lidar, img_hw)
+            ]
+            out = model(*args)
+            dec = nms_free_decode(
+                out["cls_logits"][-1],
+                out["bbox_codes"][-1],
+                max_num=cfg.max_det,
+                num_classes=cfg.model.head.num_classes,
+                post_center_range=cfg.post_center_range,
+                score_threshold=cfg.score_threshold,
+            )
+            return {k: v.cpu().numpy() for k, v in dec.items()}
+
+    return fn

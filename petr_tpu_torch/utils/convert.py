@@ -1,0 +1,200 @@
+"""petr_tpu param tree -> port ``state_dict``.
+
+The inverse of `petr_tpu/utils/torch_convert.py::convert_state_dict` for the
+modules the port has: flax conv kernels HWIO -> OIHW, Dense kernels
+(in, out) -> (out, in) (or (out, in, 1, 1) where the reference has a 1x1
+conv), q/k/v Dense layers packed into ``in_proj_weight`` / ``in_proj_bias``,
+flax LayerNorm/BatchNorm leaf names -> torch names. The shared cls/reg
+branches appear once per decoder layer, as in the reference ``state_dict``.
+
+Parameter trees come as nested dicts of numpy arrays (``jax.device_get``
+of a petr_tpu ``params``); nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+_LN = {"scale": "weight", "bias": "bias"}
+_CLS_INDEX = {"fc0": 0, "ln0": 1, "fc1": 3, "ln1": 4, "out": 6}
+_REG_INDEX = {"fc0": 0, "fc1": 2, "out": 4}
+_MLP_INDEX = {"fc0": 0, "fc1": 2}
+_POSENC_INDEX = {"fc1": 0, "fc2": 2}
+
+
+def _conv(w):  # HWIO -> OIHW
+    return np.transpose(w, (3, 2, 0, 1))
+
+
+def _lin(w):  # (in, out) -> (out, in)
+    return np.transpose(w, (1, 0))
+
+
+def _pointwise(w):  # (in, out) -> (out, in, 1, 1)
+    return np.transpose(w, (1, 0))[:, :, None, None]
+
+
+def _same(w):
+    return w
+
+
+def _param(leaf: str, weight_fn) -> Tuple[str, Any]:
+    return ("weight", weight_fn) if leaf == "kernel" else ("bias", _same)
+
+
+def _backbone(p: str):
+    m = re.fullmatch(r"stem(\d)\.(conv|bn)\.(\w+)", p)
+    if m:
+        i, kind, leaf = m.groups()
+        if kind == "conv":
+            return f"stem.stem_{i}/conv.weight", _conv
+        return f"stem.stem_{i}/norm.{_BN[leaf]}", _same
+    m = re.fullmatch(r"stage(\d)_block(\d+)\.(conv\d+|concat)\.(conv|bn)\.(\w+)", p)
+    if m:
+        s, b, sub, kind, leaf = m.groups()
+        osa = f"OSA{s}_{int(b) + 1}"
+        inner = f"layers.{sub[4:]}.{osa}_{sub[4:]}" if sub != "concat" else f"concat.{osa}_concat"
+        if kind == "conv":
+            return f"stage{s}.{osa}.{inner}/conv.weight", _conv
+        return f"stage{s}.{osa}.{inner}/norm.{_BN[leaf]}", _same
+    m = re.fullmatch(r"stage(\d)_block(\d+)\.ese\.fc\.(kernel|bias)", p)
+    if m:
+        s, b, leaf = m.groups()
+        name, fn = _param(leaf, _conv)
+        return f"stage{s}.OSA{s}_{int(b) + 1}.ese.fc.{name}", fn
+    return None
+
+
+def _neck(p: str):
+    m = re.fullmatch(r"lateral(\d+)\.(kernel|bias)", p)
+    if m:
+        name, fn = _param(m.group(2), _conv)
+        return f"lateral_convs.{m.group(1)}.conv.{name}", fn
+    m = re.fullmatch(r"fpn_conv0\.(kernel|bias)", p)
+    if m:
+        name, fn = _param(m.group(1), _conv)
+        return f"fpn_convs.0.conv.{name}", fn
+    return None
+
+
+def _head(p: str):
+    """Head leaves except the branches and q/k/v, which need the whole tree."""
+    if p == "reference_points":
+        return "reference_points.weight", _same
+    m = re.fullmatch(r"input_proj\.(kernel|bias)", p)
+    if m:
+        name, fn = _param(m.group(1), _pointwise)
+        return f"input_proj.{name}", fn
+    m = re.fullmatch(r"(position_encoder|adapt_pos3d|query_embedding)\.(fc\d)\.(kernel|bias)", p)
+    if m:
+        mod, fc, leaf = m.groups()
+        index = (_POSENC_INDEX if mod == "position_encoder" else _MLP_INDEX)[fc]
+        name, fn = _param(leaf, _lin if mod == "query_embedding" else _pointwise)
+        return f"{mod}.{index}.{name}", fn
+    m = re.fullmatch(r"transformer\.decoder\.post_norm\.(scale|bias)", p)
+    if m:
+        return f"transformer.decoder.post_norm.{_LN[m.group(1)]}", _same
+    m = re.fullmatch(r"transformer\.decoder\.layer(\d+)\.(.*)", p)
+    if m:
+        lvl, rest = m.groups()
+        pre = f"transformer.decoder.layers.{lvl}."
+        m2 = re.fullmatch(r"(self_attn|cross_attn)\.out_proj\.(kernel|bias)", rest)
+        if m2:
+            att = 0 if m2.group(1) == "self_attn" else 1
+            name, fn = _param(m2.group(2), _lin)
+            return f"{pre}attentions.{att}.attn.out_proj.{name}", fn
+        m2 = re.fullmatch(r"ffn\.(fc1|fc2)\.(kernel|bias)", rest)
+        if m2:
+            name, fn = _param(m2.group(2), _lin)
+            sub = "layers.0.0" if m2.group(1) == "fc1" else "layers.1"
+            return f"{pre}ffns.0.{sub}.{name}", fn
+        m2 = re.fullmatch(r"norm([123])\.(scale|bias)", rest)
+        if m2:
+            return f"{pre}norms.{int(m2.group(1)) - 1}.{_LN[m2.group(2)]}", _same
+    return None
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key + "."))
+        else:
+            out[key] = np.asarray(v, dtype=np.float32)
+    return out
+
+
+def state_dict_from_jax(
+    params: Mapping[str, Any],
+    reference: Optional[Union[nn.Module, Mapping[str, torch.Tensor]]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Turn a petr_tpu ``PETRDetector`` param tree (``backbone``/``neck``/
+    ``head`` subtrees, any subset) into the port's ``state_dict``.
+
+    Raises on a leaf no rule maps. With ``reference`` (a port module or its
+    ``state_dict``), also raises on a key of the reference that nothing
+    filled, on a key the reference lacks, and on a shape that differs.
+    """
+    flat = _flatten(params)
+    sd: Dict[str, np.ndarray] = {}
+    qkv: Dict[Tuple[str, str], Dict[str, np.ndarray]] = {}
+    branches: Dict[str, np.ndarray] = {}
+    leftover = []
+    layers = {int(m.group(1)) for k in flat
+              if (m := re.match(r"head\.transformer\.decoder\.layer(\d+)\.", k))}
+    for key, val in flat.items():
+        top, _, p = key.partition(".")
+        if top == "head":
+            m = re.fullmatch(r"transformer\.decoder\.layer(\d+)\.(self_attn|cross_attn)\.([qkv])_proj\.(kernel|bias)", p)
+            if m:
+                lvl, att, which, leaf = m.groups()
+                qkv.setdefault((lvl, att), {})[f"{which}.{leaf}"] = val
+                continue
+            m = re.fullmatch(r"(cls|reg)_branch\.(\w+)\.(kernel|scale|bias)", p)
+            if m:
+                kind, sub, leaf = m.groups()
+                index = (_CLS_INDEX if kind == "cls" else _REG_INDEX)[sub]
+                name = "bias" if leaf == "bias" else "weight"
+                branches[f"{kind}_branches.{{}}.{index}.{name}"] = _lin(val) if leaf == "kernel" else val
+                continue
+        rule = {"backbone": _backbone, "neck": _neck, "head": _head}.get(top)
+        mapped = rule(p) if rule else None
+        if mapped is None:
+            leftover.append(key)
+            continue
+        name, fn = mapped
+        prefix = {"backbone": "img_backbone.", "neck": "img_neck.", "head": "pts_bbox_head."}[top]
+        sd[prefix + name] = fn(val)
+    if leftover:
+        raise KeyError(f"petr_tpu leaves with no port counterpart: {leftover}")
+
+    for (lvl, att), parts in qkv.items():
+        missing = [f"{w}.{leaf}" for leaf in ("kernel", "bias") for w in "qkv"
+                   if f"{w}.{leaf}" not in parts]
+        if missing:
+            raise KeyError(f"decoder layer {lvl} {att}: missing {missing}")
+        pre = f"pts_bbox_head.transformer.decoder.layers.{lvl}.attentions.{0 if att == 'self_attn' else 1}.attn."
+        sd[pre + "in_proj_weight"] = np.concatenate([_lin(parts[f"{w}.kernel"]) for w in "qkv"], 0)
+        sd[pre + "in_proj_bias"] = np.concatenate([parts[f"{w}.bias"] for w in "qkv"], 0)
+    for template, val in branches.items():
+        for lvl in sorted(layers):
+            sd["pts_bbox_head." + template.format(lvl)] = val
+
+    out = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    if reference is not None:
+        ref = reference.state_dict() if isinstance(reference, nn.Module) else reference
+        missing = sorted(set(ref) - set(out))
+        unexpected = sorted(set(out) - set(ref))
+        if missing or unexpected:
+            raise KeyError(f"state_dict mismatch: missing {missing}, unexpected {unexpected}")
+        for k, v in out.items():
+            if tuple(v.shape) != tuple(ref[k].shape):
+                raise ValueError(f"shape mismatch at {k}: {tuple(v.shape)} vs {tuple(ref[k].shape)}")
+    return out

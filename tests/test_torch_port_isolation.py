@@ -1,0 +1,49 @@
+"""The port stands alone: nothing under petr_tpu_torch/, and not
+chip_smoke.py, imports JAX, flax, petr_tpu, the graft entry point or triton,
+and importing the package loads no JAX and builds no kernel."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "petr_tpu", "__graft_entry__", "triton")
+PORT_FILES = sorted((ROOT / "petr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_nothing_forbidden(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax_and_builds_nothing():
+    code = (
+        "import sys\n"
+        "import petr_tpu_torch, petr_tpu_torch.configs, petr_tpu_torch.ops, "
+        "petr_tpu_torch.models, petr_tpu_torch.serve, petr_tpu_torch.utils\n"
+        "from petr_tpu_torch.ops import build\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "assert not build._libs, 'a kernel was loaded on import'\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
