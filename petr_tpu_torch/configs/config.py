@@ -4,8 +4,9 @@ SURVEY.md §2.8 and reproduced here as typed presets).
 
 The PyTorch port keeps its own copy of `petr_tpu/configs/config.py`, field
 for field and preset for preset, so that it imports nothing of the JAX
-package. Fields that only the JAX training path reads (remat, grid mask,
-optimizer) are kept so that one preset name means one model in both.
+package, so that one preset name means one model in both. The port's train
+step reads the training fields (dropout, remat, grid mask, optimizer) as
+petr_tpu does.
 
 Hyperparameters cited from `projects/configs/petr/*.py` (sty61010/PETR).
 """

@@ -7,7 +7,10 @@
 // padded). Returns out (B,H,Q,D) in the input type and the per-row fp32
 // logsumexp (B,H,Q). A row whose keys are all masked gets out = 0 and
 // lse = +1e30, the sentinel the backward and the sequence-parallel combine
-// rely on.
+// rely on. With dropout (the train step's attention dropout), the normalised
+// probabilities are dropped by the hashed keep mask of dropout_hash.cuh and
+// the kept ones divided by (1 - rate); the softmax denominator and lse are
+// taken before dropout, as in _kernel.
 //
 // What bounds it. At the flagship shape (B=1, H=8, Q=900, L=6000, D=32) one
 // call needs 5.5 GFLOP of products (5.6 us at 989 TFLOP/s bf16), 43.2 M
@@ -33,6 +36,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -62,12 +67,13 @@ constexpr size_t smem_floats() {
                                                      : (NSPLIT * BQ * (D + 2));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS, D <= 32 ? 2 : 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const uint8_t* __restrict__ mask,
                  T* __restrict__ out, float* __restrict__ lse,
-                 int H, int Q, int L, Strides st, float scale) {
+                 int H, int Q, int L, Strides st, float scale,
+                 uint32_t seed, uint32_t thresh, float keep_prob) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* ks = smem;            // [BK][D]
@@ -87,6 +93,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * st.k_b + h * st.k_h;
   const T* vb = v + b * st.v_b + h * st.v_h;
   const uint8_t* mb = mask ? mask + (long long)b * L : nullptr;
+  const uint32_t mix = dropout_mix(seed, (uint32_t)bh);
 
   // logits are kept in log2 units: exp(x) == exp2(x * log2(e))
   const float qscale = scale * LOG2E;
@@ -148,8 +155,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < KPT; ++jj) {
       const int j = split * KPT + jj;
-      const float p = mtile[j] != 0.f ? 0.f : exp2f(s[jj] - m_new);
-      psum += p;
+      float p = mtile[j] != 0.f ? 0.f : exp2f(s[jj] - m_new);
+      psum += p;  // the denominator is taken before dropout
+      if (DROPOUT) p = dropout_keep(mix, qi, k0 + j, thresh) ? p / keep_prob : 0.f;
       const float4* vr = reinterpret_cast<const float4*>(vs + j * D);
 #pragma unroll
       for (int d4 = 0; d4 < D / 4; ++d4) {
@@ -205,33 +213,47 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (split == 0) lse[(long long)bh * Q + qi] = (mmax + log2f(lsum)) * LN2;
 }
 
-template <typename T, int D>
+struct Dropout {
+  bool on;
+  uint32_t seed, thresh;
+  float keep_prob;
+};
+
+template <typename T, int D, bool DROPOUT>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            void* out, void* lse, int B, int H, int Q, int L, const Strides& st,
-           float scale, cudaStream_t stream) {
+           float scale, const Dropout& dr, cudaStream_t stream) {
   static_assert(D % NSPLIT == 0 && D % 4 == 0, "D must split evenly");
   constexpr size_t smem = smem_floats<D>() * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_fwd_kernel<T, D, DROPOUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((Q + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, D, DROPOUT><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(mask), static_cast<T*>(out),
-      static_cast<float*>(lse), H, Q, L, st, scale);
+      static_cast<float*>(lse), H, Q, L, st, scale, dr.seed, dr.thresh, dr.keep_prob);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int dispatch_dropout(const void* q, const void* k, const void* v, const void* mask,
+                     void* out, void* lse, int B, int H, int Q, int L,
+                     const Strides& st, float scale, const Dropout& dr, cudaStream_t stream) {
+  if (dr.on) return launch<T, D, true>(q, k, v, mask, out, lse, B, H, Q, L, st, scale, dr, stream);
+  return launch<T, D, false>(q, k, v, mask, out, lse, B, H, Q, L, st, scale, dr, stream);
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const void* mask,
                void* out, void* lse, int B, int H, int Q, int L, int D,
-               const Strides& st, float scale, cudaStream_t stream) {
+               const Strides& st, float scale, const Dropout& dr, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, mask, out, lse, B, H, Q, L, st, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, mask, out, lse, B, H, Q, L, st, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, mask, out, lse, B, H, Q, L, st, scale, stream);
+    case 16: return dispatch_dropout<T, 16>(q, k, v, mask, out, lse, B, H, Q, L, st, scale, dr, stream);
+    case 32: return dispatch_dropout<T, 32>(q, k, v, mask, out, lse, B, H, Q, L, st, scale, dr, stream);
+    case 64: return dispatch_dropout<T, 64>(q, k, v, mask, out, lse, B, H, Q, L, st, scale, dr, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -242,22 +264,26 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, for q, k, v
 // and out in turn, each (batch, head, row); the last axis is contiguous.
-// mask: (B, L) bytes or NULL. Returns cudaGetLastError() after the launch.
+// mask: (B, L) bytes or NULL. dropout: 0 = off; else seed (the int32 seed's
+// bits), thresh and keep_prob = 1 - rate drop the probabilities as
+// dropout_hash.cuh says. Returns cudaGetLastError() after the launch.
 int petr_flash_cross_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* mask, void* out, void* lse,
                                    int B, int H, int Q, int L, int D, int dtype,
                                    const long long* strides, float scale,
-                                   void* stream) {
+                                   int dropout, uint32_t seed, uint32_t thresh,
+                                   float keep_prob, void* stream) {
   Strides st;
   st.q_b = strides[0]; st.q_h = strides[1]; st.q_s = strides[2];
   st.k_b = strides[3]; st.k_h = strides[4]; st.k_s = strides[5];
   st.v_b = strides[6]; st.v_h = strides[7]; st.v_s = strides[8];
   st.o_b = strides[9]; st.o_h = strides[10]; st.o_s = strides[11];
+  const Dropout dr{dropout != 0, seed, thresh, keep_prob};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, mask, out, lse, B, H, Q, L, D, st, scale, s);
+    return dispatch_d<float>(q, k, v, mask, out, lse, B, H, Q, L, D, st, scale, dr, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, mask, out, lse, B, H, Q, L, D, st, scale, s);
+    return dispatch_d<__nv_bfloat16>(q, k, v, mask, out, lse, B, H, Q, L, D, st, scale, dr, s);
   return (int)cudaErrorInvalidValue;
 }
 

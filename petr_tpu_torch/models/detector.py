@@ -7,18 +7,26 @@ level. Inputs keep petr_tpu's layout: images (B, N, H, W, 3), img2lidar
 (B, N, 4, 4), img_hw (B, N, 2). Submodules carry the reference checkpoint's
 names: ``img_backbone``, ``img_neck``, ``pts_bbox_head``.
 
-Serving is deterministic, so there is no grid mask.
+In eval mode the forward is deterministic. In train mode it takes a
+``TrainNoise``, all the randomness of one training forward drawn up front
+from the train step's generator (``draw_train_noise``): the GridMask
+parameters, applied to the images before the backbone when
+``use_grid_mask`` holds (`petr_tpu/models/detector.py:187-188`), and the
+decoder layers' dropout seeds. The remat regions (OSA blocks, decoder
+layers) then recompute from their arguments alone.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from petr_tpu_torch.configs.config import ModelConfig
 from petr_tpu_torch.models.fpn import CPFPN
+from petr_tpu_torch.models.grid_mask import GridParams, draw_grid_params, grid_mask
 from petr_tpu_torch.models.layers import (
     AttentionProjections,
     Conv2d,
@@ -28,7 +36,35 @@ from petr_tpu_torch.models.layers import (
     PointwiseConv2d,
 )
 from petr_tpu_torch.models.petr_head import FOCAL_PRIOR_BIAS, PETRHead
+from petr_tpu_torch.models.transformer import LayerSeeds
 from petr_tpu_torch.models.vovnet import SPECS, VoVNet
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainNoise:
+    """The randomness of one training forward."""
+
+    grid: Optional[GridParams]  # None: no GridMask
+    layer_seeds: Tuple[LayerSeeds, ...]  # (flash seed, dropout seed) per decoder layer
+
+
+def draw_train_noise(config: ModelConfig, image_h: int, generator: torch.Generator) -> TrainNoise:
+    """Draw a training forward's randomness from ``generator`` (a CPU
+    generator: nothing here touches the device). The flash seeds are int32
+    in [0, 2^31 - 1), as petr_tpu draws them."""
+    grid = None
+    if config.use_grid_mask:
+        grid = draw_grid_params(generator, image_h, exact=config.grid_mask_exact)
+    n = config.head.num_layers
+    flash = torch.randint(0, 2**31 - 1, (n,), generator=generator).tolist()
+    other = torch.randint(0, 2**62, (n,), generator=generator).tolist()
+    return TrainNoise(grid, tuple(zip(flash, other)))
+
+
+def _remat_scope(cfg: ModelConfig) -> str:
+    if cfg.remat_scope not in ("all", "backbone", "decoder"):
+        raise ValueError(f"remat_scope must be all|backbone|decoder, got {cfg.remat_scope!r}")
+    return cfg.remat_scope
 
 
 def _unsupported(cfg: ModelConfig) -> str:
@@ -46,8 +82,8 @@ def _unsupported(cfg: ModelConfig) -> str:
         return f"backbone.quant={cfg.backbone.quant!r}: ROADMAP.md §1, item 11 (quant/ptq.py)"
     if cfg.backbone.bn_mode != "frozen":
         return (
-            f"bn_mode={cfg.backbone.bn_mode!r} (training BN): ROADMAP.md §1, item 6; "
-            "eval_model_config() gives the frozen-BN serving config"
+            f"bn_mode={cfg.backbone.bn_mode!r} (training BN): ROADMAP.md §1, item 6 "
+            "(what stays out of it); eval_model_config() gives the frozen-BN serving config"
         )
     if not cfg.backbone.with_fpn:
         return "a backbone without the CPFPN neck: ROADMAP.md §1, item 7"
@@ -63,7 +99,10 @@ class PETRDetector(nn.Module):
         self.config = config
         self.dtype = getattr(torch, config.compute_dtype)
         bb, hc = config.backbone, config.head
-        self.img_backbone = VoVNet(bb.spec, bb.out_indices)
+        scope = _remat_scope(config)
+        self.img_backbone = VoVNet(
+            bb.spec, bb.out_indices, remat=config.remat and scope in ("all", "backbone")
+        )
         stage_out = SPECS[bb.spec]["stage_out_ch"]
         self.img_neck = CPFPN(
             [stage_out[i] for i in bb.out_indices], bb.fpn_out_channels, bb.fpn_num_outs
@@ -85,6 +124,8 @@ class PETRDetector(nn.Module):
             pc_range=hc.pc_range,
             use_flash=config.use_flash_attention,
             dtype=self.dtype,
+            dropout_rate=hc.dropout_rate,
+            remat=config.remat and scope in ("all", "decoder"),
         )
 
     def forward(
@@ -92,14 +133,26 @@ class PETRDetector(nn.Module):
         images: torch.Tensor,  # (B, N, H, W, 3) normalized
         img2lidar: torch.Tensor,  # (B, N, 4, 4)
         img_hw: torch.Tensor,  # (B, N, 2)
+        noise: Optional[TrainNoise] = None,  # train mode only
     ) -> Dict[str, torch.Tensor]:
         B, N, H, W, C = images.shape
+        layer_seeds = None
+        if self.training:
+            if noise is None:
+                if self.config.use_grid_mask or self.config.head.dropout_rate > 0.0:
+                    raise ValueError("a training forward needs its TrainNoise (draw_train_noise)")
+            else:
+                layer_seeds = noise.layer_seeds
+                if self.config.use_grid_mask:
+                    images = grid_mask(images, noise.grid)
+        elif noise is not None:
+            raise ValueError("TrainNoise is for train mode; call model.train() first")
         x = images.reshape(B * N, H, W, C).permute(0, 3, 1, 2).contiguous().to(self.dtype)
         feats = self.img_neck(self.img_backbone(x))
         f = feats[self.config.head_feat_level]  # (B*N, fc, fh, fw)
         fc, fh, fw = f.shape[1:]
         f = f.permute(0, 2, 3, 1).reshape(B, N, fh, fw, fc)
-        return self.pts_bbox_head(f, img2lidar, img_hw, (H, W))
+        return self.pts_bbox_head(f, img2lidar, img_hw, (H, W), layer_seeds)
 
 
 @torch.no_grad()

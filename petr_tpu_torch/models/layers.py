@@ -12,8 +12,14 @@ Conventions:
     (`img_backbone.*`, `img_neck.*`, `pts_bbox_head.*`), so that a port
     ``state_dict`` maps onto a petr_tpu param tree through
     `petr_tpu/utils/torch_convert.py` and a released checkpoint loads as is.
-  * BN is always frozen: the reference evaluates every config with BN in
-    eval mode, so it is one affine map per channel.
+  * BN is always frozen: the reference trains and evaluates every shipped
+    config with BN in eval mode, so it is one affine map per channel whose
+    weight and bias may train while its running statistics stay buffers.
+  * dropout follows ``self.training``: a layer in train mode with a rate
+    above 0 drops, and takes its random bits from a ``torch.Generator`` (or,
+    for the flash attention, an int seed) that its caller passes in. The
+    caller draws those seeds before the forward, so that a checkpointed
+    layer draws the same masks again when it is recomputed.
 """
 
 from __future__ import annotations
@@ -27,6 +33,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from petr_tpu_torch.ops.cross_attention import flash_cross_attention
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, divide the kept
+    by it; the bits come from ``generator``, on ``x``'s device."""
+    if generator is None:
+        raise ValueError("a dropout in train mode needs a torch.Generator from its caller")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class Linear(nn.Linear):
@@ -143,18 +158,27 @@ class FFN(nn.Module):
     """Transformer feed-forward block (no residual; the caller adds it).
 
     mmcv FFN layout: ``layers.0.0`` and ``layers.1`` are the two Linears.
-    Inference only: no dropout.
+    In train mode, dropout after the ReLU and after the second Linear
+    (`petr_tpu/models/layers.py:391,396`).
     """
 
-    def __init__(self, embed_dim: int, hidden_dim: int):
+    def __init__(self, embed_dim: int, hidden_dim: int, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.layers = nn.Sequential(
             nn.Sequential(Linear(embed_dim, hidden_dim), nn.ReLU()),
             Linear(hidden_dim, embed_dim),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layers(x)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = self.layers[0](x)
+        drop = self.training and self.dropout_rate > 0.0
+        if drop:
+            y = dropout(y, self.dropout_rate, generator)
+        y = self.layers[1](y)
+        if drop:
+            y = dropout(y, self.dropout_rate, generator)
+        return y
 
 
 class AttentionProjections(nn.Module):
@@ -175,15 +199,20 @@ class MultiheadAttention(nn.Module):
     the positional embeddings to query/key and the residual to the output.
 
     ``use_flash`` routes the attention itself to ``flash_cross_attention``
-    (the hand-written kernel on CUDA); otherwise it is the plain branch of
-    petr_tpu (`layers.py:353-361`): fp32 logits, finfo.min masking, softmax.
+    (K1 forward and K2 backward on CUDA), which drops the probabilities in
+    the kernel by a hash of ``flash_seed``; otherwise it is the plain branch
+    of petr_tpu (`layers.py:353-361`): fp32 logits, finfo.min masking,
+    softmax, and dropout of the probabilities drawn from ``generator``.
+    Dropout acts in train mode only.
     """
 
-    def __init__(self, embed_dim: int, num_heads: int, use_flash: bool = False):
+    def __init__(self, embed_dim: int, num_heads: int, use_flash: bool = False,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.use_flash = use_flash
+        self.dropout_rate = dropout_rate
         self.attn = AttentionProjections(embed_dim)
 
     def forward(
@@ -192,8 +221,11 @@ class MultiheadAttention(nn.Module):
         key: torch.Tensor,  # (B, L, C)
         value: torch.Tensor,  # (B, L, C)
         key_padding_mask: Optional[torch.Tensor] = None,  # (B, L) True = pad
+        flash_seed: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         C, H = self.embed_dim, self.num_heads
+        rate = self.dropout_rate if self.training else 0.0
         D = C // H
         w = self.attn.in_proj_weight.to(query.dtype)
         b = self.attn.in_proj_bias.to(query.dtype)
@@ -206,8 +238,11 @@ class MultiheadAttention(nn.Module):
         k = k.view(B, L, H, D)
         v = v.view(B, L, H, D)
         if self.use_flash:
+            if rate > 0.0 and flash_seed is None:
+                raise ValueError("flash attention dropout in train mode needs a flash_seed")
             out, _ = flash_cross_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), key_padding_mask
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), key_padding_mask,
+                rate, flash_seed if rate > 0.0 else None,
             )
             out = out.transpose(1, 2)
         else:
@@ -218,5 +253,7 @@ class MultiheadAttention(nn.Module):
                     key_padding_mask[:, None, None, :], torch.finfo(torch.float32).min
                 )
             attn = logits.softmax(-1)
+            if rate > 0.0:
+                attn = dropout(attn, rate, generator)
             out = torch.einsum("bhql,blhd->bqhd", attn.to(q.dtype), v)
         return self.attn.out_proj(out.reshape(B, Q, C))

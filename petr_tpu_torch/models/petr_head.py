@@ -7,18 +7,20 @@ reference's module names (``input_proj``, ``position_encoder``,
 ``cls_branches``, ``reg_branches``, ``transformer``). Channels-last
 (B, N, H, W, C) features; padding masks come from an ``img_hw`` array. The
 3D PE stays fp32 up to ``position_encoder``; the decoder computes in
-``dtype``. Only the flagship's shared branches are ported.
+``dtype``. Only the flagship's shared branches are ported. The head has no
+dropout of its own: a training forward passes the decoder layers' seeds
+through to the transformer.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from petr_tpu_torch.models.layers import MLP, LayerNorm, Linear, PointwiseConv2d
-from petr_tpu_torch.models.transformer import PETRTransformer
+from petr_tpu_torch.models.transformer import LayerSeeds, PETRTransformer
 from petr_tpu_torch.ops.geometry import (
     inverse_sigmoid,
     pos2posemb3d,
@@ -81,6 +83,8 @@ class PETRHead(nn.Module):
         pc_range: Sequence[float] = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
         use_flash: bool = False,
         dtype: torch.dtype = torch.float32,
+        dropout_rate: float = 0.0,
+        remat: bool = False,
     ):
         super().__init__()
         self.embed_dim = embed_dim
@@ -99,7 +103,7 @@ class PETRHead(nn.Module):
         self.reference_points = nn.Embedding(num_query, 3)
         self.query_embedding = MLP(3 * QUERY_POS_FEATS, (embed_dim, embed_dim))
         self.transformer = PETRTransformer(
-            num_layers, embed_dim, num_heads, ffn_dim, use_flash, dtype
+            num_layers, embed_dim, num_heads, ffn_dim, use_flash, dtype, dropout_rate, remat
         )
         # the reference applies ONE branch module at every decoder layer
         # (`petr_head.py:244-247`); its state_dict lists it once per layer
@@ -114,6 +118,7 @@ class PETRHead(nn.Module):
         img2lidar: torch.Tensor,  # (B, N, 4, 4) fp32
         img_hw: torch.Tensor,  # (B, N, 2) valid (h, w) per view before padding
         pad_hw: Tuple[int, int],  # padded input (H, W)
+        layer_seeds: Optional[Sequence[LayerSeeds]] = None,  # training only
     ) -> Dict[str, torch.Tensor]:
         B, N, H, W, _ = feats.shape
         pad_h, pad_w = pad_hw
@@ -145,7 +150,7 @@ class PETRHead(nn.Module):
             pos2posemb3d(reference_points, QUERY_POS_FEATS).to(self.dtype)
         )
 
-        outs_dec = self.transformer(x, masks, query_embed, pos_embed)  # (L, B, Q, C)
+        outs_dec = self.transformer(x, masks, query_embed, pos_embed, layer_seeds)  # (L, B, Q, C)
         outs_dec = torch.nan_to_num(outs_dec)
 
         # the shared branches run once over the stacked (L, B, Q, C) outputs

@@ -3,7 +3,9 @@
 Counterpart of `petr_tpu/models/vovnet.py` (reference
 `models/backbones/vovnet.py`, sty61010/PETR), with the reference's module
 names: ``stem.stem_{i}/conv``, ``stage{s}.OSA{s}_{b}.layers.{i}``,
-``.concat``, ``.ese.fc``. V-99-eSE is the flagship backbone.
+``.concat``, ``.ese.fc``. V-99-eSE is the flagship backbone. With ``remat``
+each OSA block is a ``torch.utils.checkpoint`` region in training, as
+VoVNetCP's (`petr_tpu/models/vovnet.py:124`).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Dict, List, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from petr_tpu_torch.models.layers import Conv2d, ConvBNReLU
 
@@ -89,10 +92,12 @@ class VoVNet(nn.Module):
     """VoVNetV2; returns features for ``out_indices`` (0..3 = stage2..stage5,
     strides 4/8/16/32)."""
 
-    def __init__(self, spec: str = "V-99-eSE", out_indices: Sequence[int] = (2, 3)):
+    def __init__(self, spec: str = "V-99-eSE", out_indices: Sequence[int] = (2, 3),
+                 remat: bool = False):
         super().__init__()
         s = SPECS[spec]
         self.out_indices = tuple(out_indices)
+        self.remat = remat
         s0, s1, s2 = s["stem"]
         stem = [
             ConvBNReLU("stem_1", 3, s0, stride=2),
@@ -117,12 +122,14 @@ class VoVNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = self.stem(x)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         outs = []
         for stage in range(4):
             if stage > 0:
                 # ceil-mode 3x3/2 max-pool (reference `vovnet.py:243`)
                 x = F.max_pool2d(x, 3, 2, ceil_mode=True)
-            x = getattr(self, f"stage{stage + 2}")(x)
+            for block in getattr(self, f"stage{stage + 2}"):
+                x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
             if stage in self.out_indices:
                 outs.append(x)
         return outs

@@ -1,7 +1,9 @@
 from petr_tpu_torch.ops.boxes import decode_bbox, encode_bbox
 from petr_tpu_torch.ops.cross_attention import (
     flash_cross_attention,
+    flash_cross_attention_backward_reference,
     flash_cross_attention_reference,
+    flash_cross_attention_with_lse,
 )
 from petr_tpu_torch.ops.geometry import (
     backproject_frustum,
@@ -12,4 +14,11 @@ from petr_tpu_torch.ops.geometry import (
     position_coords_3d,
     sine_posemb_2d_multiview,
 )
+from petr_tpu_torch.ops.losses import (
+    bbox_l1_cost,
+    focal_loss_cost,
+    sigmoid_focal_loss,
+    weighted_l1_loss,
+)
+from petr_tpu_torch.ops.matcher import hungarian_match, lap_solve
 from petr_tpu_torch.ops.nms_free import nms_free_decode

@@ -2,8 +2,9 @@
 
 Each ``petr_tpu_torch/csrc/<name>.cu`` becomes a shared library with a plain
 C interface, ``build/<name>-<hash>.so`` at the repository root, where the
-hash is that of the source: an edited source builds anew, an unchanged one
-loads the library already there. A build writes to a temporary name and
+hash is that of the source and of the headers beside it (``csrc/*.cuh``):
+an edited source builds anew, an unchanged one loads the library already
+there. A build writes to a temporary name and
 renames it into place, so two processes building at once cannot leave a
 half-written library behind. Nothing is built when the package is imported:
 the first call of a kernel's wrapper on a CUDA tensor builds it.
@@ -39,8 +40,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    sha = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        sha.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{sha.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

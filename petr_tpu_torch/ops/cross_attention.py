@@ -1,16 +1,23 @@
-"""Flash cross-attention forward: the PETR decoder's hot op.
+"""Flash cross-attention, forward and backward: the PETR decoder's hot op.
 
 900 object queries attend over the N*H*W tokens of all views (6000 at
-800x320/p4) under a key-padding mask. On a CUDA tensor
-``flash_cross_attention`` launches the hand-written kernel of
-``petr_tpu_torch/csrc/flash_cross_attention.cu``, which replaces
-`petr_tpu/ops/pallas/cross_attention.py::_kernel`; on a CPU tensor it runs
-``flash_cross_attention_reference``, the dense fp32 version of the same
-function, which the tests and ``chip_smoke.py`` hold the kernel to.
+800x320/p4) under a key-padding mask. One ``torch.autograd.Function`` carries
+it both ways. On CUDA tensors its forward launches K1, the hand-written
+kernel of ``petr_tpu_torch/csrc/flash_cross_attention.cu`` (replacing
+`petr_tpu/ops/pallas/cross_attention.py::_kernel`), and its backward
+launches K2, the two kernels of ``csrc/flash_cross_attention_bwd.cu``
+(replacing `_bwd_kernel`). On CPU tensors it runs the plain versions,
+``flash_cross_attention_reference`` and
+``flash_cross_attention_backward_reference``: dense fp32 PyTorch with the
+same semantics, which the tests and ``chip_smoke.py`` hold the kernels to.
 
-Semantics of both: scale 1/sqrt(D), masked keys (True = padded) take no
-weight, fp32 softmax, output in the input dtype plus the per-row fp32
-logsumexp. A row whose keys are all masked gives output 0 and lse +1e30.
+Semantics: scale 1/sqrt(D), masked keys (True = padded) take no weight, fp32
+softmax, output in the input dtype plus the per-row fp32 logsumexp. A row
+whose keys are all masked gives output 0, lse +1e30 and zero gradients.
+Attention dropout (the train step's) drops the normalised probabilities by
+a keep mask hashed from the global (query, key) coordinates, the seed and
+b*H + h, bit for bit `_dropout_keep`; the softmax denominator and lse are
+taken before dropout, and the backward regenerates the mask from the hash.
 """
 
 from __future__ import annotations
@@ -27,28 +34,70 @@ from petr_tpu_torch.ops import build
 NEG = -1e30
 HEAD_DIMS = (16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_M32 = 0xFFFFFFFF
 
 # Kernel launches since the count was last set to 0; only the CUDA path adds.
-LAUNCHES = 0
+LAUNCHES = 0  # K1, the forward
+DKDV_LAUNCHES = 0  # K2's dK/dV kernel
+DQ_LAUNCHES = 0  # K2's dQ kernel
 
 
-def _check_dropout(dropout_rate: float) -> None:
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout needs petr_tpu's _dropout_keep hash ported bit for "
-            "bit (ROADMAP.md §2, K2: the train slice)"
-        )
+# ------------------------------------------------------------- dropout hash
+def dropout_threshold(rate: float) -> int:
+    """The uint32 threshold of the keep test ``hash >= threshold``."""
+    return min(int(rate * 4294967296.0), 4294967295)
 
 
+def _mul32(a, c: int):
+    """(a * c) mod 2^32 for int64 ``a`` in [0, 2^32) and a uint32 constant:
+    in 16-bit halves, so that no int64 product overflows."""
+    lo = a * (c & 0xFFFF)
+    hi = (a * (c >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _hash_keep(seed: int, bh, rows: torch.Tensor, cols: torch.Tensor, rate: float) -> torch.Tensor:
+    """The keep mask over broadcast int64 ``rows`` (global query indices),
+    ``cols`` (global key indices) and ``bh`` (b*H + h, int or int64 tensor):
+    `_dropout_keep`'s uint32 arithmetic in int64 masked to 32 bits."""
+    seed = int(seed) & _M32  # an int32 seed's bits, as uint32
+    mix = ((seed * 0x85EBCA6B) & _M32) + _mul32(torch.as_tensor(bh, dtype=torch.int64), 0xC2B2AE35)
+    h = (_mul32(rows, 0x9E3779B9) + cols + mix.to(rows.device)) & _M32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return h >= dropout_threshold(rate)
+
+
+def _dropout_keep(seed: int, bh: int, qi: int, ki: int, BQ: int, bk: int, rate: float) -> torch.Tensor:
+    """`petr_tpu`'s ``_dropout_keep`` with its arguments: the (BQ, bk) keep
+    mask of query block ``qi`` and key block ``ki`` of batch*head ``bh``."""
+    rows = ((qi * BQ) & _M32) + torch.arange(BQ, dtype=torch.int64)[:, None]
+    cols = ((ki * bk) & _M32) + torch.arange(bk, dtype=torch.int64)[None, :]
+    return _hash_keep(seed, bh, rows & _M32, cols & _M32, rate)
+
+
+def dropout_keep_mask(seed: int, B: int, H: int, Q: int, L: int, rate: float,
+                      device=None) -> torch.Tensor:
+    """The whole (B, H, Q, L) keep mask the kernels hash, as a bool tensor."""
+    bh = torch.arange(B * H, dtype=torch.int64, device=device).view(B, H, 1, 1)
+    rows = torch.arange(Q, dtype=torch.int64, device=device).view(1, 1, Q, 1)
+    cols = torch.arange(L, dtype=torch.int64, device=device).view(1, 1, 1, L)
+    return _hash_keep(seed, bh, rows, cols, rate)
+
+
+# ----------------------------------------------------------- plain versions
 def flash_cross_attention_reference(
     q: torch.Tensor,  # (B, H, Q, D)
     k: torch.Tensor,  # (B, H, L, D)
     v: torch.Tensor,  # (B, H, L, D)
     key_padding_mask: Optional[torch.Tensor] = None,  # (B, L) True = pad
     dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense fp32 attention with the kernel's exact semantics -> (out, lse)."""
-    _check_dropout(dropout_rate)
+    """Dense fp32 attention with K1's exact semantics -> (out, lse)."""
     B, H, Q, D = q.shape
     L = k.shape[2]
     if L == 0:
@@ -63,10 +112,105 @@ def flash_cross_attention_reference(
     if masked is not None:
         # a fully masked row has m == NEG and exp(0) == 1 everywhere: zero it
         p = p.masked_fill(masked, 0.0)
-    l = p.sum(-1, keepdim=True)
+    l = p.sum(-1, keepdim=True)  # the denominator is taken before dropout
+    if dropout_rate > 0.0:
+        keep = dropout_keep_mask(dropout_seed or 0, B, H, Q, L, dropout_rate, q.device)
+        p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
     out = torch.matmul(p, v.float()) / l.clamp(min=1e-20)
     lse = torch.where(m <= NEG * 0.5, torch.full_like(m, -NEG), m + torch.log(l))
     return out.to(q.dtype), lse[..., 0]
+
+
+def _delta(gout: torch.Tensor, out: torch.Tensor, glse: Optional[torch.Tensor]) -> torch.Tensor:
+    """rowsum(dO * O) - g_lse in fp32, from ``out`` as stored (`:371-373`):
+    the lse cotangent folds in here, since d lse / d s = p."""
+    delta = (gout.float() * out.float()).sum(-1)
+    if glse is not None:
+        delta = delta - glse.float()
+    return delta.contiguous()
+
+
+def _backward_plain(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, dropout_seed):
+    """`_bwd_kernel` as dense fp32 math -> fp32 (dq, dk, dv)."""
+    B, H, Q, D = q.shape
+    L = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), gout.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if key_padding_mask is not None:
+        s = s.masked_fill(key_padding_mask.to(torch.bool)[:, None, None, :], NEG)
+    # p <= 1: the clamp keeps a recomputed logit a rounding step above the
+    # saved lse from overflowing exp (`:235-242`); lse = +1e30 gives p = 0
+    p = torch.exp(torch.clamp(s - lse[..., None], max=0.0))
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    p_drop = p
+    if dropout_rate > 0.0:
+        keep = dropout_keep_mask(dropout_seed or 0, B, H, Q, L, dropout_rate, q.device)
+        p_drop = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+        dp = torch.where(keep, dp / (1.0 - dropout_rate), 0.0)
+    dv = torch.matmul(p_drop.transpose(-1, -2), gf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq, dk, dv
+
+
+def flash_cross_attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_padding_mask: Optional[torch.Tensor],
+    out: torch.Tensor,  # the forward's output, as stored
+    lse: torch.Tensor,  # (B, H, Q) fp32
+    gout: torch.Tensor,  # cotangent of out
+    glse: Optional[torch.Tensor] = None,  # cotangent of lse
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense fp32 K2 (`_flash_bwd_shared` + `_bwd_kernel`) -> (dq, dk, dv)
+    in the input dtype."""
+    delta = _delta(gout, out, glse)
+    grads = _backward_plain(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, dropout_seed)
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
+
+
+# --------------------------------------------------------------- autograd
+class _FlashCrossAttention(torch.autograd.Function):
+    """(q, k, v) -> (out, lse). Saves q, k, v, the mask, the seed, out and
+    lse; the backward recomputes the probabilities (and the keep mask)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_padding_mask, dropout_rate, dropout_seed, lse_grad, plain):
+        if plain or q.device.type == "cpu":
+            out, lse = flash_cross_attention_reference(q, k, v, key_padding_mask, dropout_rate, dropout_seed)
+        else:
+            out, lse = _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed)
+        ctx.save_for_backward(q, k, v, key_padding_mask, out, lse)
+        ctx.dropout = (dropout_rate, dropout_seed)
+        ctx.plain = plain
+        ctx.set_materialize_grads(False)
+        if not lse_grad:
+            ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, gout, glse):
+        q, k, v, key_padding_mask, out, lse = ctx.saved_tensors
+        if gout is None:
+            gout = torch.zeros_like(out)
+        delta = _delta(gout, out, glse)
+        rate, seed = ctx.dropout
+        if ctx.plain or q.device.type == "cpu":
+            grads = _backward_plain(q, k, v, key_padding_mask, gout, lse, delta, rate, seed)
+            dq, dk, dv = (g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
+        else:
+            dq, dk, dv = _backward_cuda(q, k, v, key_padding_mask, gout, lse, delta, rate, seed)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _check_device(q: torch.Tensor) -> None:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_cross_attention runs on cpu or cuda, not {q.device}")
 
 
 def flash_cross_attention(
@@ -75,24 +219,51 @@ def flash_cross_attention(
     v: torch.Tensor,  # (B, H, L, D)
     key_padding_mask: Optional[torch.Tensor] = None,  # (B, L) True = pad
     dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,  # int32 (train only)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked cross-attention -> (out (B, H, Q, D) in q's dtype, lse (B, H, Q) fp32).
 
-    q, k and v may be strided views (the last axis contiguous), such as the
-    (B, H, ., D) transposes of (B, ., H, D) projections. On CUDA the output
-    is a (B, H, Q, D) view of a (B, Q, H, D) buffer, so that merging the
-    heads back into (B, Q, H*D) copies nothing.
+    Differentiable in q, k and v (K2 on CUDA); lse is not (see
+    ``flash_cross_attention_with_lse``). q, k and v may be strided views
+    (the last axis contiguous), such as the (B, H, ., D) transposes of
+    (B, ., H, D) projections. On CUDA the output is a (B, H, Q, D) view of
+    a (B, Q, H, D) buffer, so that merging the heads copies nothing.
     """
-    _check_dropout(dropout_rate)
-    if q.device.type == "cpu":
-        return flash_cross_attention_reference(q, k, v, key_padding_mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_cross_attention runs on cpu or cuda, not {q.device}")
-    return _flash_forward_cuda(q, k, v, key_padding_mask)
+    _check_device(q)
+    return _FlashCrossAttention.apply(q, k, v, key_padding_mask, dropout_rate, dropout_seed, False, False)
 
 
-def _flash_forward_cuda(q, k, v, key_padding_mask):
-    global LAUNCHES
+def flash_cross_attention_with_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_padding_mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: like ``flash_cross_attention``, but differentiable in lse too, the
+    combiner of sequence-parallel attention (`flash_cross_attention_with_lse`,
+    `cross_attention.py:401`). The lse cotangent folds into delta."""
+    _check_device(q)
+    return _FlashCrossAttention.apply(q, k, v, key_padding_mask, dropout_rate, dropout_seed, True, False)
+
+
+def flash_cross_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_padding_mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+    lse_grad: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same Function on the plain versions both ways, on any device:
+    the yardstick ``chip_smoke.py`` holds the kernels' train step to."""
+    return _FlashCrossAttention.apply(q, k, v, key_padding_mask, dropout_rate, dropout_seed, lse_grad, True)
+
+
+# ------------------------------------------------------------ CUDA launches
+def _check_inputs(q, k, v):
     B, H, Q, D = q.shape
     L = k.shape[2]
     if k.shape != (B, H, L, D) or v.shape != (B, H, L, D):
@@ -105,14 +276,42 @@ def _flash_forward_cuda(q, k, v, key_padding_mask):
         raise ValueError("q, k, v must be on one device")
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the kernel's grid limit")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    mask_ptr = None
-    if key_padding_mask is not None:
-        if key_padding_mask.shape != (B, L):
-            raise ValueError(f"key_padding_mask must be (B, L) = {(B, L)}, got {tuple(key_padding_mask.shape)}")
-        key_padding_mask = key_padding_mask.to(device=q.device, dtype=torch.bool).contiguous()
-        mask_ptr = key_padding_mask.data_ptr()
+    return B, H, Q, L, D
 
+
+def _last_contiguous(*ts):
+    return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
+
+
+def _mask_ptr(key_padding_mask, B, L, device):
+    if key_padding_mask is None:
+        return None, None
+    if key_padding_mask.shape != (B, L):
+        raise ValueError(f"key_padding_mask must be (B, L) = {(B, L)}, got {tuple(key_padding_mask.shape)}")
+    mask = key_padding_mask.to(device=device, dtype=torch.bool).contiguous()
+    return mask, mask.data_ptr()
+
+
+def _dropout_args(dropout_rate: float, dropout_seed: Optional[int]):
+    """(on, seed bits, threshold, keep probability) for the C interface."""
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    if dropout_rate == 0.0:
+        return 0, 0, 0, 1.0
+    return 1, int(dropout_seed or 0) & _M32, dropout_threshold(dropout_rate), 1.0 - dropout_rate
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: " + lib.petr_cuda_error_string(err).decode())
+
+
+def _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed):
+    global LAUNCHES
+    B, H, Q, L, D = _check_inputs(q, k, v)
+    q, k, v = _last_contiguous(q, k, v)
+    _, mask_ptr = _mask_ptr(key_padding_mask, B, L, q.device)
+    drop = _dropout_args(dropout_rate, dropout_seed)
     out = torch.empty((B, Q, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, Q), dtype=torch.float32, device=q.device)
     if Q == 0:
@@ -120,30 +319,81 @@ def _flash_forward_cuda(q, k, v, key_padding_mask):
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
     )
-    lib = _library()
+    lib = _forward_library()
     err = lib.petr_flash_cross_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
         lse.data_ptr(), B, H, Q, L, D, _DTYPE_CODES[q.dtype], strides,
-        1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream,
+        1.0 / math.sqrt(D), *drop, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(
-            "flash_cross_attention kernel launch failed: "
-            + lib.petr_cuda_error_string(err).decode()
-        )
+    _raise_on(lib, err, "flash_cross_attention")
     LAUNCHES += 1
     return out, lse
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = build.load("flash_cross_attention")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.petr_flash_cross_attention_fwd.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, i,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, p,
-    ]
-    lib.petr_flash_cross_attention_fwd.restype = ctypes.c_int
+def _backward_cuda(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, dropout_seed,
+                   kernels=("dkdv", "dq")):
+    """K2: (dq, dk, dv) in q's dtype, from the dK/dV kernel and the dQ kernel.
+    ``kernels`` names the kernels to launch (a timing can take one alone;
+    the outputs of the other are then left unwritten)."""
+    global DKDV_LAUNCHES, DQ_LAUNCHES
+    B, H, Q, L, D = _check_inputs(q, k, v)
+    if gout.shape != q.shape or lse.shape != (B, H, Q) or delta.shape != (B, H, Q):
+        raise ValueError(f"gout {tuple(gout.shape)}, lse {tuple(lse.shape)}, delta {tuple(delta.shape)} "
+                         f"do not fit q {tuple(q.shape)}")
+    q, k, v, gout = _last_contiguous(q, k, v, gout.to(q.dtype))
+    lse = lse.to(torch.float32).contiguous()
+    delta = delta.to(torch.float32).contiguous()
+    _, mask_ptr = _mask_ptr(key_padding_mask, B, L, q.device)
+    drop = _dropout_args(dropout_rate, dropout_seed)
+    # (B, H, ., D) views of (B, ., H, D) buffers, like the projections' grads
+    dq = torch.empty((B, Q, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dk = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dv = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if Q == 0 or L == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    strides = (ctypes.c_longlong * 21)(*(s for t in (q, k, v, gout, dq, dk, dv) for s in t.stride()[:3]))
+    lib = _backward_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, gout.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    tail = (_DTYPE_CODES[q.dtype], strides, 1.0 / math.sqrt(D), *drop, stream)
+    if "dkdv" in kernels:
+        err = lib.petr_flash_cross_attention_bwd_dkdv(*common, dk.data_ptr(), dv.data_ptr(), B, H, Q, L, D, *tail)
+        _raise_on(lib, err, "flash_cross_attention dK/dV")
+        DKDV_LAUNCHES += 1
+    if "dq" in kernels:
+        err = lib.petr_flash_cross_attention_bwd_dq(*common, dq.data_ptr(), B, H, Q, L, D, *tail)
+        _raise_on(lib, err, "flash_cross_attention dQ")
+        DQ_LAUNCHES += 1
+    return dq, dk, dv
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_DROP = [_I, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float]
+
+
+def _bind(lib: ctypes.CDLL, fn: str, argtypes) -> None:
+    getattr(lib, fn).argtypes = argtypes
+    getattr(lib, fn).restype = ctypes.c_int
     lib.petr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.petr_cuda_error_string.restype = ctypes.c_char_p
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_library() -> ctypes.CDLL:
+    lib = build.load("flash_cross_attention")
+    _bind(lib, "petr_flash_cross_attention_fwd", [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, *_DROP, _P,
+    ])
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_library() -> ctypes.CDLL:
+    lib = build.load("flash_cross_attention_bwd")
+    head = [_P] * 7
+    tail = [_I, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, *_DROP, _P]
+    _bind(lib, "petr_flash_cross_attention_bwd_dkdv", head + [_P, _P, _I, _I, _I, _I, _I] + tail)
+    _bind(lib, "petr_flash_cross_attention_bwd_dq", head + [_P, _I, _I, _I, _I, _I] + tail)
     return lib

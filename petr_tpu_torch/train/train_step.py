@@ -1,0 +1,162 @@
+"""The train step over the PETR detector (PyTorch).
+
+Counterpart of `petr_tpu/train/train_step.py`: forward in the compute dtype
+with fp32 loss islands, Hungarian matching, AdamW with a global-norm clip,
+and a skip of every step whose gradients hold an inf or a NaN. PyTorch runs
+eagerly, so the state is updated in place: ``TrainState`` holds the model
+(an ``nn.Module`` in train mode), its ``torch.optim.AdamW`` and the step
+count, and a step returns the same state object.
+
+The step takes an explicit ``torch.Generator`` (on the CPU). All of a
+forward's randomness (GridMask, the decoder's dropout seeds) is drawn from
+it before the forward (``draw_train_noise``), so that the remat regions
+recompute with the same masks.
+
+Batch dict contract (tensors or numpy arrays, statically shaped):
+    images     (B, N, H, W, 3) float32, normalised
+    img2lidar  (B, N, 4, 4)    float32
+    img_hw     (B, N, 2)       float32 valid (h, w) before padding
+    gt_boxes   (B, G, 9)       float32, gravity-center z
+    gt_labels  (B, G)          int
+    gt_valid   (B, G)          bool
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from petr_tpu_torch.configs.config import ExperimentConfig
+from petr_tpu_torch.models.detector import PETRDetector, draw_train_noise, init_weights
+from petr_tpu_torch.serve.export import resolve_device
+from petr_tpu_torch.train.losses import petr_set_loss
+from petr_tpu_torch.train.optim import build_optimizer, clip_by_global_norm, global_norm, make_lr_schedule
+
+BATCH_KEYS = ("images", "img2lidar", "img_hw", "gt_boxes", "gt_labels", "gt_valid")
+Grads = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int  # steps taken, skipped ones included: the LR schedule's count
+    model: PETRDetector
+    optimizer: torch.optim.AdamW
+    lr_schedule: Callable[[int], float]
+
+    def trainable(self) -> Dict[str, torch.nn.Parameter]:
+        return {n: p for n, p in self.model.named_parameters() if p.requires_grad}
+
+    def apply_gradients(self, grads: Grads) -> None:
+        """One AdamW update with ``grads`` (already clipped) at lr(step)."""
+        lr = self.lr_schedule(self.step)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr * group["lr_mult"]
+        for name, p in self.trainable().items():
+            p.grad = grads[name]
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+
+
+def create_train_state(
+    cfg: ExperimentConfig, seed: int, total_steps: int, device: Union[str, torch.device] = "cuda"
+) -> TrainState:
+    """The detector of ``cfg`` with random weights drawn from ``seed``, on
+    ``device`` (the card unless the caller asks for the CPU), in train
+    mode, with its optimizer and LR schedule."""
+    device = resolve_device(device)
+    model = init_weights(PETRDetector(cfg.model), seed).to(device).train()
+    optimizer = build_optimizer(
+        cfg.train.optim, model, freeze_backbone_bn_affine=not cfg.model.backbone.train_bn_affine
+    )
+    return TrainState(0, model, optimizer, make_lr_schedule(cfg.train.optim, total_steps))
+
+
+def _to_device(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(batch[k]).to(device) for k in BATCH_KEYS}
+
+
+def make_grad_fn(cfg: ExperimentConfig):
+    """``grad_fn(model, batch, generator, indices=None)`` ->
+    (total, losses, grads by parameter name, the (L, B, G) assignment).
+
+    ``indices`` injects a precomputed assignment into the set loss.
+    """
+    ocfg = cfg.train.optim
+
+    def grad_fn(model: PETRDetector, batch, generator: torch.Generator,
+                indices: Optional[np.ndarray] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Grads, np.ndarray]:
+        device = next(model.parameters()).device
+        b = _to_device(batch, device)
+        noise = draw_train_noise(cfg.model, b["images"].shape[2], generator)
+        outputs = model(b["images"], b["img2lidar"], b["img_hw"], noise=noise)
+        total, losses, indices = petr_set_loss(
+            outputs, b["gt_boxes"], b["gt_labels"], b["gt_valid"],
+            num_classes=cfg.model.head.num_classes, cls_weight=ocfg.cls_weight,
+            bbox_weight=ocfg.bbox_weight, code_weights=ocfg.code_weights,
+            sync_cls_avg_factor=ocfg.sync_cls_avg_factor, indices=indices,
+        )
+        params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        raw = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(params.items(), raw)}
+        return total.detach(), {k: v.detach() for k, v in losses.items()}, grads, indices
+
+    return grad_fn
+
+
+def accumulate_grads(grad_fn, model: PETRDetector, batch, generator: torch.Generator, accum: int):
+    """Gradient accumulation over ``accum`` sequential micro-batches, mmcv
+    GradientCumulativeOptimizerHook semantics as petr_tpu's: each micro-batch
+    is normalised by its own avg_factor, the gradients are averaged, one
+    update per step. Micro-batch i takes samples [i::accum] and draws its
+    randomness from ``generator`` in turn.
+
+    Returns (mean total, per-loss means, averaged grads).
+    """
+    bsz = len(batch["images"])
+    if bsz % accum != 0:
+        raise ValueError(f"batch size {bsz} not divisible by grad_accum={accum}")
+    totals, losses, grads = [], [], None
+    for i in range(accum):
+        t, l, g, _ = grad_fn(model, {k: batch[k][i::accum] for k in BATCH_KEYS}, generator)
+        totals.append(t)
+        losses.append(l)
+        grads = g if grads is None else {n: grads[n] + g[n] for n in grads}
+    mean_losses = {k: torch.stack([l[k] for l in losses]).mean() for k in losses[0]}
+    return torch.stack(totals).mean(), mean_losses, {n: g / accum for n, g in grads.items()}
+
+
+def make_train_step(cfg: ExperimentConfig):
+    """``train_step(state, batch, generator)`` -> (state, metrics), updating
+    ``state`` in place.
+
+    metrics: ``loss``, the per-layer losses and ``num_pos`` (0-d tensors),
+    ``grad_norm`` over the trainable parameters, and ``grad_nonfinite`` and
+    ``skipped`` (ints). A step whose gradients hold an inf or a NaN is
+    skipped (mmcv Fp16OptimizerHook parity): the parameters, the Adam
+    moments and their step counts stay as they were, but ``state.step``,
+    the LR schedule's count, still advances.
+    """
+    grad_fn = make_grad_fn(cfg)
+    accum = cfg.train.grad_accum
+
+    def train_step(state: TrainState, batch, generator: torch.Generator):
+        if accum <= 1:
+            total, losses, grads, _ = grad_fn(state.model, batch, generator)
+        else:
+            total, losses, grads = accumulate_grads(grad_fn, state.model, batch, generator, accum)
+        names = list(grads)
+        gnorm = global_norm([grads[n] for n in names])
+        nonfinite = int(sum((~torch.isfinite(g)).sum() for g in grads.values()))
+        skipped = nonfinite > 0
+        if not skipped:
+            clipped = clip_by_global_norm([grads[n] for n in names], cfg.train.optim.grad_clip_norm, gnorm)
+            state.apply_gradients(dict(zip(names, clipped)))
+        state.step += 1
+        metrics = {"loss": total, **losses, "grad_norm": gnorm,
+                   "grad_nonfinite": nonfinite, "skipped": int(skipped)}
+        return state, metrics
+
+    return train_step

@@ -8,7 +8,9 @@ flax LayerNorm/BatchNorm leaf names -> torch names. The shared cls/reg
 branches appear once per decoder layer, as in the reference ``state_dict``.
 
 Parameter trees come as nested dicts of numpy arrays (``jax.device_get``
-of a petr_tpu ``params``); nothing here imports JAX.
+of a petr_tpu ``params``); nothing here imports JAX. Any tree shaped like
+the params maps the same way: a gradient tree, or the params after an
+optimizer update (``named_parameters_from_jax``).
 """
 
 from __future__ import annotations
@@ -198,3 +200,17 @@ def state_dict_from_jax(
             if tuple(v.shape) != tuple(ref[k].shape):
                 raise ValueError(f"shape mismatch at {k}: {tuple(v.shape)} vs {tuple(ref[k].shape)}")
     return out
+
+
+def named_parameters_from_jax(
+    tree: Mapping[str, Any], model: nn.Module
+) -> Dict[str, torch.Tensor]:
+    """A tree shaped like petr_tpu's params (the params, their gradients,
+    the params after an update) under the names of ``model.named_parameters()``.
+
+    Leaves the port keeps as buffers (the BN statistics, which petr_tpu
+    keeps as params and differentiates) are dropped, and a shared branch
+    appears once, as ``named_parameters`` lists it.
+    """
+    sd = state_dict_from_jax(tree, model)
+    return {name: sd[name] for name, _ in model.named_parameters()}

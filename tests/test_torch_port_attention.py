@@ -101,9 +101,17 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
 
 @pytest.mark.parametrize("fn", [ca.flash_cross_attention, ca.flash_cross_attention_reference])
 def test_dropout_not_ported(fn):
-    q, k, v, _ = _inputs(1, 1, 4, 8, 16, seed=0, mask_kind=None)
-    with pytest.raises(NotImplementedError, match="_dropout_keep"):
-        fn(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), dropout_rate=0.1)
+    """Named for the time both entry points refused dropout: now both drop
+    by petr_tpu's hash and match its Pallas forward with dropout."""
+    q, k, v, mask = _inputs(1, 2, 4, 8, 16, seed=0, mask_kind="random")
+    want_out, want_lse = _flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), interpret=True,
+        dropout_rate=0.1, dropout_seed=jnp.int32(5),
+    )
+    out, lse = fn(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                  torch.from_numpy(mask), dropout_rate=0.1, dropout_seed=5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=ATOL, rtol=1e-6)
 
 
 def test_wrapper_rejects_other_devices():
