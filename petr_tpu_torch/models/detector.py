@@ -3,7 +3,9 @@
 Counterpart of `petr_tpu/models/detector.py` (reference
 `models/detectors/petr3d.py:68-99`, sty61010/PETR): views fold into the
 batch for the backbone and unfold after the neck; the head consumes one FPN
-level. Inputs keep petr_tpu's layout: images (B, N, H, W, 3), img2lidar
+level, or, without the neck (``with_fpn=False``, the c5 presets), one
+backbone stage. The backbone is VoVNet or the r50dcn family's ResNet.
+Inputs keep petr_tpu's layout: images (B, N, H, W, 3), img2lidar
 (B, N, 4, 4), img_hw (B, N, 2). Submodules carry the reference checkpoint's
 names: ``img_backbone``, ``img_neck``, ``pts_bbox_head``.
 
@@ -12,8 +14,8 @@ In eval mode the forward is deterministic. In train mode it takes a
 from the train step's generator (``draw_train_noise``): the GridMask
 parameters, applied to the images before the backbone when
 ``use_grid_mask`` holds (`petr_tpu/models/detector.py:187-188`), and the
-decoder layers' dropout seeds. The remat regions (OSA blocks, decoder
-layers) then recompute from their arguments alone.
+decoder layers' dropout seeds. The remat regions (OSA blocks or
+bottlenecks, decoder layers) then recompute from their arguments alone.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from petr_tpu_torch.models.layers import (
     PointwiseConv2d,
 )
 from petr_tpu_torch.models.petr_head import FOCAL_PRIOR_BIAS, PETRHead
+from petr_tpu_torch.models.resnet import STAGE_OUT, ModulatedDeformConv2dPack, ResNet
 from petr_tpu_torch.models.transformer import LayerSeeds
 from petr_tpu_torch.models.vovnet import SPECS, VoVNet
 
@@ -69,8 +72,6 @@ def _remat_scope(cfg: ModelConfig) -> str:
 
 def _unsupported(cfg: ModelConfig) -> str:
     """The ROADMAP.md item that ports what ``cfg`` needs, or '' if supported."""
-    if cfg.backbone.kind != "vovnet":
-        return f"backbone kind {cfg.backbone.kind!r}: ROADMAP.md §1, item 7 (r50dcn family)"
     head = cfg.head
     if head.kind == "petrv2" or head.with_fpe or head.with_time or head.with_multi_reg:
         return "the PETRv2 head: ROADMAP.md §1, item 8"
@@ -85,9 +86,20 @@ def _unsupported(cfg: ModelConfig) -> str:
             f"bn_mode={cfg.backbone.bn_mode!r} (training BN): ROADMAP.md §1, item 6 "
             "(what stays out of it); eval_model_config() gives the frozen-BN serving config"
         )
-    if not cfg.backbone.with_fpn:
-        return "a backbone without the CPFPN neck: ROADMAP.md §1, item 7"
     return ""
+
+
+def _backbone(cfg: ModelConfig) -> Tuple[nn.Module, Tuple[int, ...]]:
+    """The backbone of ``cfg`` and the channels of each of its outputs."""
+    bb = cfg.backbone
+    remat = cfg.remat and _remat_scope(cfg) in ("all", "backbone")
+    if bb.kind == "vovnet":
+        stage_out = SPECS[bb.spec]["stage_out_ch"]
+        return VoVNet(bb.spec, bb.out_indices, remat=remat), tuple(stage_out[i] for i in bb.out_indices)
+    if bb.kind == "resnet":
+        model = ResNet(int(bb.spec[1:]), bb.out_indices, bb.dcn_stages, remat=remat)
+        return model, tuple(STAGE_OUT[i] for i in bb.out_indices)
+    raise ValueError(f"backbone kind must be vovnet or resnet, got {bb.kind!r}")
 
 
 class PETRDetector(nn.Module):
@@ -100,16 +112,12 @@ class PETRDetector(nn.Module):
         self.dtype = getattr(torch, config.compute_dtype)
         bb, hc = config.backbone, config.head
         scope = _remat_scope(config)
-        self.img_backbone = VoVNet(
-            bb.spec, bb.out_indices, remat=config.remat and scope in ("all", "backbone")
-        )
-        stage_out = SPECS[bb.spec]["stage_out_ch"]
-        self.img_neck = CPFPN(
-            [stage_out[i] for i in bb.out_indices], bb.fpn_out_channels, bb.fpn_num_outs
-        )
+        self.img_backbone, channels = _backbone(config)
+        # without the neck the head reads a backbone stage (C5 for the c5 presets)
+        self.img_neck = CPFPN(channels, bb.fpn_out_channels, bb.fpn_num_outs) if bb.with_fpn else None
         self.pts_bbox_head = PETRHead(
             num_classes=hc.num_classes,
-            in_channels=bb.fpn_out_channels,
+            in_channels=bb.fpn_out_channels if bb.with_fpn else channels[config.head_feat_level],
             embed_dim=hc.embed_dim,
             num_query=hc.num_query,
             num_layers=hc.num_layers,
@@ -148,7 +156,9 @@ class PETRDetector(nn.Module):
         elif noise is not None:
             raise ValueError("TrainNoise is for train mode; call model.train() first")
         x = images.reshape(B * N, H, W, C).permute(0, 3, 1, 2).contiguous().to(self.dtype)
-        feats = self.img_neck(self.img_backbone(x))
+        feats = self.img_backbone(x)
+        if self.img_neck is not None:
+            feats = self.img_neck(feats)
         f = feats[self.config.head_feat_level]  # (B*N, fc, fh, fw)
         fc, fh, fw = f.shape[1:]
         f = f.permute(0, 2, 3, 1).reshape(B, N, fh, fw, fc)
@@ -163,7 +173,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     Convs: He-uniform (variance 2 / fan_in, keeping activations at scale
     through the deep ReLU backbone); linears and all biases: torch's
     U(+-1/sqrt(fan_in)); norms: identity; reference points: U(0, 1); the
-    final cls bias: the focal prior. BN running statistics stay 0 / 1.
+    final cls bias: the focal prior; DCN offset convs: zeros, as in mmcv and
+    petr_tpu (`resnet.py:52`). BN running statistics stay 0 / 1.
     """
     gen = torch.Generator().manual_seed(seed)
 
@@ -192,4 +203,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             fan = module.in_proj_weight.shape[1] + module.in_proj_weight.shape[0]
             uniform_(module.in_proj_weight, (6.0 / fan) ** 0.5)
             module.in_proj_bias.zero_()
+        elif isinstance(module, ModulatedDeformConv2dPack):
+            module.conv_offset.weight.zero_()
+            module.conv_offset.bias.zero_()
     return model
+

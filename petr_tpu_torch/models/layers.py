@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from petr_tpu_torch.ops.conv3x3 import conv3x3_bn_relu, conv_impl
 from petr_tpu_torch.ops.cross_attention import flash_cross_attention
 
 
@@ -121,6 +122,12 @@ class ConvBNReLU(nn.Sequential):
 
     Children are named ``{name}/conv``, ``{name}/norm``, ``{name}/relu`` as in
     the reference VoVNet's ``conv3x3``/``conv1x1`` helpers.
+
+    With ``PETR_TPU_TORCH_CONV_IMPL=cuda`` a 3x3 stride-1 conv takes the
+    fused route, ``conv3x3_bn_relu`` (K5 on CUDA), with the weight cast to
+    the compute dtype and the BN folded to an fp32 ``mul``/``add``, as
+    petr_tpu's ``PETR_TPU_CONV_IMPL=pallas`` does (`layers.py:243-252`). The
+    default, ``cudnn``, runs the children in turn.
     """
 
     def __init__(
@@ -134,6 +141,16 @@ class ConvBNReLU(nn.Sequential):
         if relu:
             layers.append((f"{name}/relu", nn.ReLU(inplace=True)))
         super().__init__(OrderedDict(layers))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv, norm = self[0], self[1]
+        fusable = (conv.kernel_size == (3, 3) and conv.stride == (1, 1)
+                   and conv.dilation == (1, 1) and conv.groups == 1)
+        if conv_impl() == "cuda" and fusable:
+            mul = norm.weight * torch.rsqrt(norm.running_var + norm.eps)
+            add = norm.bias - norm.running_mean * mul
+            return conv3x3_bn_relu(x, conv.weight.to(x.dtype), mul, add, relu=len(self) == 3)
+        return super().forward(x)
 
 
 class MLP(nn.Sequential):

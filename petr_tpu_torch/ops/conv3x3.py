@@ -1,0 +1,159 @@
+"""Fused 3x3 convolution + folded frozen BN + ReLU (K5), ConvBNReLU's opt-in route.
+
+Counterpart of `petr_tpu/ops/pallas/conv3x3.py`: out = act(conv3x3(x, w) *
+mul + add), stride 1 and padding 1, the conv summed in fp32, the epilogue in
+fp32 and one rounding to x's dtype. Layout NCHW: x (B, C, H, W), weight
+(Co, C, 3, 3) in x's dtype, ``mul``/``add`` (Co,) fp32 (the folded BN) or
+None for a plain conv.
+
+One ``torch.autograd.Function`` carries it. On a CUDA tensor its forward
+launches K5, the hand-written kernel of ``csrc/conv3x3_bn_relu.cu``
+(replacing `petr_tpu/ops/pallas/conv3x3.py::_conv3x3_raw`); on a CPU tensor
+it runs the plain version, ``conv3x3_bn_relu_reference``, which is
+`_xla_reference` (`conv3x3.py:113-123`). The backward is autograd of the
+plain version, as JAX's `_bwd` (`conv3x3.py:140-143`) is the VJP of
+`_xla_reference`.
+
+The default route of ``ConvBNReLU`` stays cuDNN, as petr_tpu's stays XLA;
+``PETR_TPU_TORCH_CONV_IMPL=cuda`` opts into K5 (``conv_impl``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from petr_tpu_torch.ops import build
+
+CONV_IMPL_ENV = "PETR_TPU_TORCH_CONV_IMPL"
+CONV_IMPLS = ("cudnn", "cuda")
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# K5 launches since the count was last set to 0; only the CUDA path adds.
+LAUNCHES = 0
+
+
+def conv_impl() -> str:
+    """The route of ConvBNReLU's 3x3 stride-1 convs, from
+    ``PETR_TPU_TORCH_CONV_IMPL`` (mirroring petr_tpu's
+    ``PETR_TPU_CONV_IMPL=pallas``): 'cudnn' (the default) or 'cuda' (K5)."""
+    impl = os.environ.get(CONV_IMPL_ENV, "cudnn")
+    if impl not in CONV_IMPLS:
+        raise ValueError(f"{CONV_IMPL_ENV}={impl!r}: expected one of {CONV_IMPLS}")
+    return impl
+
+
+def conv3x3_bn_relu_reference(
+    x: torch.Tensor,  # (B, C, H, W)
+    weight: torch.Tensor,  # (Co, C, 3, 3)
+    mul: Optional[torch.Tensor],  # (Co,) fp32 or None
+    add: Optional[torch.Tensor],  # (Co,) fp32 or None
+    relu: bool = True,
+) -> torch.Tensor:
+    """`_xla_reference`: the conv of x and the weight in x's dtype summed in
+    fp32, ``* mul + add`` in fp32, ReLU, one cast to x's dtype."""
+    y = F.conv2d(x.float(), weight.to(x.dtype).float(), padding=1)
+    if mul is not None:
+        y = y * mul.float()[:, None, None] + add.float()[:, None, None]
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype)
+
+
+class _Conv3x3BNReLU(torch.autograd.Function):
+    """(x, weight, mul, add) -> out. Forward: K5 on CUDA, the plain version
+    on the CPU or when ``plain``. Backward: autograd of the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, weight, mul, add, relu, plain):
+        if plain or x.device.type == "cpu":
+            out = conv3x3_bn_relu_reference(x, weight, mul, add, relu)
+        else:
+            out = _forward_cuda(x, weight, mul, add, relu)
+        ctx.save_for_backward(x, weight, mul, add)
+        ctx.relu = relu
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        saved = ctx.saved_tensors
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(saved, ctx.needs_input_grad[:4])]
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            out = conv3x3_bn_relu_reference(*inputs, ctx.relu)
+            grads = iter(torch.autograd.grad(out, wanted, gout))
+        return (*(next(grads) if t is not None and t.requires_grad else None for t in inputs), None, None)
+
+
+def conv3x3_bn_relu(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    mul: Optional[torch.Tensor] = None,
+    add: Optional[torch.Tensor] = None,
+    relu: bool = True,
+) -> torch.Tensor:
+    """Fused conv3x3 (stride 1, padding 1) + scale/shift + ReLU -> (B, Co, H, W)
+    in x's dtype; K5 on CUDA tensors, the plain version on CPU tensors."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv3x3_bn_relu runs on cpu or cuda, not {x.device}")
+    if (mul is None) != (add is None):
+        raise ValueError("pass mul and add together, or neither")
+    return _Conv3x3BNReLU.apply(x, weight, mul, add, relu, False)
+
+
+def conv3x3_bn_relu_plain(x, weight, mul=None, add=None, relu=True) -> torch.Tensor:
+    """The same Function on the plain version, on any device: the yardstick
+    ``chip_smoke.py`` holds K5 to."""
+    return _Conv3x3BNReLU.apply(x, weight, mul, add, relu, True)
+
+
+def _forward_cuda(x, weight, mul, add, relu):
+    global LAUNCHES
+    if x.dim() != 4 or weight.dim() != 4:
+        raise ValueError(f"x {tuple(x.shape)} and weight {tuple(weight.shape)} must be NCHW and OIHW")
+    B, C, H, W = x.shape
+    Co = weight.shape[0]
+    if weight.shape[1:] != (C, 3, 3):
+        raise ValueError(f"weight must be (Co, {C}, 3, 3), got {tuple(weight.shape)}")
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if weight.device != x.device:
+        raise ValueError("x and weight must be on one device")
+    x = x.contiguous()
+    weight = weight.to(x.dtype).contiguous()
+    ptrs = (None, None)
+    if mul is not None:
+        if mul.shape != (Co,) or add.shape != (Co,):
+            raise ValueError(f"mul and add must be ({Co},), got {tuple(mul.shape)} and {tuple(add.shape)}")
+        mul = mul.to(device=x.device, dtype=torch.float32).contiguous()
+        add = add.to(device=x.device, dtype=torch.float32).contiguous()
+        ptrs = (mul.data_ptr(), add.data_ptr())
+    out = torch.empty((B, Co, H, W), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    err = lib.petr_conv3x3_bn_relu_fwd(
+        x.data_ptr(), weight.data_ptr(), *ptrs, out.data_ptr(), B, C, H, W, Co,
+        int(relu), _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError("conv3x3_bn_relu kernel launch failed: " + lib.petr_cuda_error_string(err).decode())
+    LAUNCHES += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = build.load("conv3x3_bn_relu")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.petr_conv3x3_bn_relu_fwd.argtypes = [P] * 5 + [I] * 7 + [P]
+    lib.petr_conv3x3_bn_relu_fwd.restype = I
+    lib.petr_cuda_error_string.argtypes = [I]
+    lib.petr_cuda_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,7 +1,8 @@
 """petr_tpu param tree -> port ``state_dict``.
 
 The inverse of `petr_tpu/utils/torch_convert.py::convert_state_dict` for the
-modules the port has: flax conv kernels HWIO -> OIHW, Dense kernels
+modules the port has (VoVNet and the r50dcn ResNet, CPFPN, the PETR head):
+flax conv kernels HWIO -> OIHW, Dense kernels
 (in, out) -> (out, in) (or (out, in, 1, 1) where the reference has a 1x1
 conv), q/k/v Dense layers packed into ``in_proj_weight`` / ``in_proj_bias``,
 flax LayerNorm/BatchNorm leaf names -> torch names. The shared cls/reg
@@ -70,6 +71,34 @@ def _backbone(p: str):
         s, b, leaf = m.groups()
         name, fn = _param(leaf, _conv)
         return f"stage{s}.OSA{s}_{int(b) + 1}.ese.fc.{name}", fn
+    return _resnet(p)
+
+
+def _resnet(p: str):
+    """petr_tpu's ResNet leaves -> mmdet names (`torch_convert.py::_map_resnet`
+    read backwards); the DCN weight ``conv2_weight`` is HWIO like a kernel."""
+    if p == "stem_conv.kernel":
+        return "conv1.weight", _conv
+    m = re.fullmatch(r"stem_bn\.(\w+)", p)
+    if m:
+        return f"bn1.{_BN[m.group(1)]}", _same
+    m = re.fullmatch(r"layer(\d)_block(\d+)\.(.+)", p)
+    if not m:
+        return None
+    s, b, rest = m.groups()
+    pre = f"layer{s}.{b}."
+    if rest == "conv2_weight":
+        return pre + "conv2.weight", _conv
+    m = re.fullmatch(r"conv2_offset\.(kernel|bias)", rest)
+    if m:
+        name, fn = _param(m.group(1), _conv)
+        return f"{pre}conv2.conv_offset.{name}", fn
+    m = re.fullmatch(r"(conv\d|downsample_conv)\.kernel", rest)
+    if m:
+        return pre + ("downsample.0" if m.group(1) == "downsample_conv" else m.group(1)) + ".weight", _conv
+    m = re.fullmatch(r"(bn\d|downsample_bn)\.(\w+)", rest)
+    if m:
+        return pre + ("downsample.1" if m.group(1) == "downsample_bn" else m.group(1)) + f".{_BN[m.group(2)]}", _same
     return None
 
 

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the card:
 K1 (the forward, with and without dropout), K2 (the backward's dK/dV and dQ
-kernels) and K3 (the lse cotangent through the autograd Function).
+kernels), K3 (the lse cotangent through the autograd Function), K4 (DCNv2,
+forward and the gradients through its Function) and K5 (the fused conv3x3).
 
 Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 False. The card's machine has no JAX, so this file imports none and runs
@@ -198,3 +199,124 @@ def test_tiny_train_gradients_on_the_card_match_the_cpu(cuda):
     for name, g in g_cpu.items():
         scale = g.abs().max().item()
         assert (g_gpu[name].cpu() - g).abs().max().item() <= 1e-3 * scale + 1e-7, name
+
+
+# ------------------------------------------------- K4 (DCNv2) and K5 (conv3x3)
+def _dcn_inputs(B, Cin, H, W, Cout, stride, dtype, seed):
+    """Offsets of a few pixels (std 3: taps past every edge), mask logits of
+    std 1.5, a He-scaled fp32 weight; x in ``dtype``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    x = torch.randn(B, Cin, H, W, generator=gen, device="cuda").to(dtype)
+    off = torch.randn(B, 18, Ho, Wo, generator=gen, device="cuda") * 3.0
+    logits = torch.randn(B, 9, Ho, Wo, generator=gen, device="cuda") * 1.5
+    w = torch.randn(Cout, Cin, 3, 3, generator=gen, device="cuda") * (2.0 / (9 * Cin)) ** 0.5
+    return x, torch.cat([off, logits], 1), w
+
+
+def _assert_dcn_close(got, want, dtype):
+    """fp32: sums in other orders, within 2e-5 of the largest output. bf16:
+    both round one fp32 sum, so within one bf16 step of |ref| (at most
+    2^-7 |ref|, for |ref| just above a power of two), plus the fp32
+    difference where the output is near 0."""
+    g, w = got.float(), want.float()
+    scale = w.abs().max()
+    bound = 2e-5 * scale if dtype == torch.float32 else 2.0 ** -7 * w.abs() + 2e-5 * scale
+    err = (g - w).abs()
+    assert (err <= bound).all(), f"max abs err {err.max().item():.3e}, max |ref| {scale.item():.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize(
+    "B,Cin,H,W,Cout,stride",
+    [(6, 256, 32, 88, 256, 1), (6, 512, 16, 44, 512, 1), (2, 5, 7, 9, 3, 2), (1, 70, 3, 130, 65, 1)],
+    ids=["r50-stage3", "r50-stage4", "odd-stride2", "odd-wide"],
+)
+def test_dcn_kernel_matches_plain_version(cuda, dtype, B, Cin, H, W, Cout, stride):
+    from petr_tpu_torch.ops import dcn
+
+    x, om, w = _dcn_inputs(B, Cin, H, W, Cout, stride, dtype, seed=Cin + H)
+    before = dcn.LAUNCHES
+    out = dcn.modulated_deform_conv(x, om, w, stride)
+    torch.cuda.synchronize()
+    assert dcn.LAUNCHES == before + 1
+    want = dcn.modulated_deform_conv_reference(x, om, w, stride)
+    assert out.dtype == dtype and out.shape == want.shape
+    _assert_dcn_close(out, want, dtype)
+
+
+def test_dcn_gradients_through_the_function(cuda):
+    from petr_tpu_torch.ops import dcn
+
+    x, om, w = _dcn_inputs(2, 32, 12, 20, 24, 1, torch.float32, seed=3)
+    gout = torch.randn(2, 24, 12, 20, device="cuda")
+    results = []
+    for fn in (dcn.modulated_deform_conv, dcn.modulated_deform_conv_plain):
+        ins = [t.detach().clone().requires_grad_() for t in (x, om, w)]
+        before = dcn.LAUNCHES
+        fn(*ins).backward(gout)
+        results.append((dcn.LAUNCHES - before, [t.grad for t in ins]))
+    (k_launches, k_grads), (p_launches, p_grads) = results
+    assert (k_launches, p_launches) == (1, 0), "the backward must not launch K4"
+    for name, a, b in zip(("x", "off_mask", "weight"), k_grads, p_grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item(), msg=name)
+    cpu = [t.detach().cpu().requires_grad_() for t in (x, om, w)]
+    dcn.modulated_deform_conv(*cpu).backward(gout.cpu())
+    for name, a, b in zip(("x", "off_mask", "weight"), k_grads, (t.grad for t in cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4 * b.abs().max().item(), msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("affine,relu", [(True, True), (False, False)])
+@pytest.mark.parametrize("B,C,H,W,Co", [(6, 128, 80, 200, 128), (6, 192, 20, 50, 192), (1, 13, 5, 7, 70)],
+                         ids=["stage2", "stage4", "odd"])
+def test_conv3x3_kernel_matches_plain_version(cuda, dtype, affine, relu, B, C, H, W, Co):
+    from petr_tpu_torch.ops import conv3x3
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(C + H)
+    x = torch.randn(B, C, H, W, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(Co, C, 3, 3, generator=gen, device="cuda") * (2.0 / (9 * C)) ** 0.5).to(dtype)
+    mul = torch.rand(Co, generator=gen, device="cuda") + 0.5 if affine else None
+    add = torch.randn(Co, generator=gen, device="cuda") * 0.3 if affine else None
+    before = conv3x3.LAUNCHES
+    out = conv3x3.conv3x3_bn_relu(x, w, mul, add, relu)
+    torch.cuda.synchronize()
+    assert conv3x3.LAUNCHES == before + 1
+    want = conv3x3.conv3x3_bn_relu_reference(x, w, mul, add, relu)
+    assert out.dtype == dtype and out.shape == want.shape
+    _assert_dcn_close(out, want, dtype)
+
+
+def test_tiny_r50dcn_detector_on_the_card_matches_the_cpu(cuda):
+    import dataclasses
+
+    from petr_tpu_torch.configs import get_config
+    from petr_tpu_torch.models.resnet import redraw_offset_convs
+    from petr_tpu_torch.ops import dcn
+    from petr_tpu_torch.serve import build_detector
+
+    cfg = get_config("petr_r50_p4_1408x512")
+    head = dataclasses.replace(cfg.model.head, num_query=32, embed_dim=64, num_layers=2, num_heads=4,
+                               ffn_dim=128, depth_num=8)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, head=head, compute_dtype="float32"))
+    N, H, W = 2, 64, 160
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randn(1, N, H, W, 3, generator=gen)
+    img2lidar = torch.eye(4).expand(1, N, 4, 4).clone()
+    img2lidar[..., :3, 3] = torch.randn(1, N, 3, generator=gen)
+    img_hw = torch.tensor([H, W], dtype=torch.float32).expand(1, N, 2).clone()
+    models = []
+    for device in ("cpu", "cuda"):
+        model = build_detector(cfg, seed=0, device="cpu")
+        redraw_offset_convs(model, seed=1)
+        models.append(model.to(device))
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        want = models[0](images, img2lidar, img_hw)
+        before = dcn.LAUNCHES
+        got = models[1](images.cuda(), img2lidar.cuda(), img_hw.cuda())
+        torch.cuda.synchronize()
+    assert dcn.LAUNCHES == before + 9
+    for key in ("cls_logits", "bbox_codes"):
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-3, atol=2e-3)

@@ -216,7 +216,7 @@ def test_tiny_debug_detector_matches(tiny, bf16_model, dtype):
     "name,overrides",
     [
         ("petrv2_vov_p4_800x320", ()),
-        ("petr_r50_c5_1408x512", ()),
+        ("tiny_debug_v2", ()),
         ("depthr_r50_c5_512x1408_gtdepth", ()),
         ("petr_vov_p4_800x320", ("model.head.shared_branches=False",)),
         ("petr_vov_p4_800x320", ("model.backbone.quant=int8",)),
