@@ -11,16 +11,25 @@ nothing of petr_tpu. Phases, each fatal on failure:
 2. build: every kernel of the main paths from `petr_tpu_torch/csrc/`, one
    nvcc per source, all started together.
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes its path gives it, then timed with CUDA events beside the
-   plain version, the PyTorch library call that computes the same
-   function where there is one, and the least time the card could take
-   (``bound_ms``). K1 without and with dropout (also at the r50dcn
-   decoder's L = 16,896); K2 (its dK/dV and dQ kernels) at dropout 0 and
-   0.1 in fp32 and bf16; K3's lse cotangent through the autograd Function
+   the shapes its path gives it, then timed beside the plain version, the
+   PyTorch library call that computes the same function where there is
+   one, and the least time the card could take (``bound_ms``). A record's
+   ``ms``, ``plain_ms`` and ``library_ms`` are one call between CUDA
+   events; its ``device_ms`` (and ``library_device_ms``) the kernels' own
+   time from the profiler. K1 without and with dropout (also at the r50dcn
+   decoder's L = 16,896); K2 (its dK/dV and dQ kernels, the bf16
+   tensor-core and the fp32 CUDA-core variants, each launch counted on its
+   variant's counter) at dropout 0 and 0.1, the bf16 variant checked and
+   timed also at L = 16,896, with the distance that rounding P and dS to
+   bf16 alone puts between the plain backward and itself; K3's lse
+   cotangent through the autograd Function
    (a fully masked batch row must give exact zeros); K4 (DCNv2) at both
    r50dcn stages in fp32 and bf16 and a small odd shape at stride 2, and
-   its gradients through its Function; K5 (the fused conv3x3) at VoVNet
-   stages 2 and 4, with and without its BN/ReLU epilogue.
+   its gradients through its Function; K5 (the fused conv3x3): the bf16
+   tensor-core kernel at each of the 10 shapes of the flagship's route,
+   timed at each beside cuDNN and its bound and summed over a forward's 80
+   launches, the fp32 CUDA-core kernel at stages 2 and 4, both with and
+   without the BN/ReLU epilogue.
 4. serving: the flagship ``petr_vov_p4_800x320`` at full width with random
    weights drawn from a seed, in bf16, answering requests through
    ``InferenceServer`` (batch 2, one batch partial and padded). Launch
@@ -29,18 +38,24 @@ nothing of petr_tpu. Phases, each fatal on failure:
    same model with each kernel's call routed to its plain version. Then the
    B=1 latency and one ``torch.profiler`` pass for the device time per
    forward, the device-busy share and each kernel's share. Then the same
-   model with ``PETR_TPU_TORCH_CONV_IMPL=cuda``: K5 launches 80 times per
-   forward, its outputs are held to the cuDNN route's, and the forward is
-   timed and profiled.
+   model with ``PETR_TPU_TORCH_CONV_IMPL=cuda``: the route's convs match
+   the shapes phase 3 timed, K5's bf16 kernel launches 80 times per
+   forward, its outputs are held to the cuDNN route's, the forward is
+   profiled beside the cuDNN route's device time, and the two routes'
+   forwards are timed in alternating pairs; then the fp32
+   twin on the route (80 launches of the fp32 kernel) against the fp32
+   cuDNN route.
 5. training: the flagship's train step at full width in bf16 (random
    weights from a seed, dropout 0.1, GridMask on, remat as configured,
    batch 1) on synthetic batches drawn from a seed: 2 warm-up steps, then
    timed steps with K1 launched 12 times (6 forward, 6 in the decoder's
-   recompute) and each K2 kernel 6 times per step; finite loss and
+   recompute) and each bf16 K2 kernel 6 times per step (the fp32 variants
+   never), K2's device time per step beside the CUDA-core kernels'; finite loss and
    gradients, no skipped step, backbone and head parameters moved and BN
    statistics not. Then one fp32 step's loss, assignment and every gradient
-   against the same step with the attention routed to its plain versions,
-   and against the same step without remat. The step time, peak memory, one
+   against the same step with the attention routed to its plain versions
+   (K2's fp32 variants, 6 launches each), and against the same step
+   without remat. The step time, peak memory, one
    ``torch.profiler`` pass and the matcher's host time are printed.
 6. r50dcn serving: ``petr_r50_p4_1408x512`` at full width (6 views of
    512x1408, ResNet-50 with DCNv2 in stages 3 and 4, CPFPN) in bf16, random
@@ -56,7 +71,9 @@ nothing of petr_tpu. Phases, each fatal on failure:
    step with K4 against the same step on its plain version, beside the
    plain step with its images nudged by one ulp.
 
-``--phases 3,6`` runs only the phases named (1 and 2 always run); with no
+``--phases 3,6`` runs only the phases named (1 and 2 always run), prints no
+kernels record and no result line, and exits 1 either way: a failed check
+raises an AssertionError; ``--phases 3`` alone checks and times every kernel. With no
 arguments every phase runs. The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``. Without a card
 it exits 1 and prints no result.
@@ -125,6 +142,12 @@ ROUTE_MEAN = 5e-2
 # 2.8e-7; max 1.5e-5).
 R50_FP32_MEAN = 1e-4
 R50_FP32_FEAT = 1e-4
+# The flagship's fp32 twin on the K5 route (its fp32 kernel) against the
+# cuDNN route, TF32 off: both sum in fp32, in other orders, so per output
+# atol + rtol * |ref| and a limit on the mean, at 100x what the r50dcn fp32
+# twin's K4 route gave against its plain version (max 1.5e-5, mean 2.8e-7).
+FP32_ROUTE_TOL = {"cls_logits": (2e-3, 2e-4), "bbox_codes": (2e-3, 2e-4)}
+FP32_ROUTE_MEAN = 1e-4
 
 
 def log(*args) -> None:
@@ -157,12 +180,64 @@ def cuda_time_ms(fn, warmup: int = 5, iters: int = 25) -> float:
     return statistics.median(times)
 
 
-def bound_ms(pairs, flops_per_pair, nbytes, sm_count, sm_clock_hz):
+def profiled_kernels(torch, fn, iters, inference=False):
+    """One torch.profiler pass over ``iters`` calls of ``fn`` -> ([(device ms
+    per call, launches per call, kernel name)], largest first; the pass's
+    wall ms). A pass now and then comes back without its device events: then
+    it profiles again, up to three times."""
+    import contextlib
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        mode = torch.inference_mode() if inference else contextlib.nullcontext()
+        with mode, torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                # a kernel whose launch no recorded op encloses (a ctypes call
+                # outside an autograd Function) is left out of key_averages
+                with torch.profiler.record_function("call"):
+                    fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = sorted(
+            ((e.self_device_time_total / 1e3 / iters, e.count // iters, e.key)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+             # a record_function range on the device (ours, AdamW's) is not a kernel
+             and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")),
+            reverse=True,
+        )
+        if rows:
+            return rows, wall_ms
+    raise AssertionError("the profiler saw no device time in three passes")
+
+
+def device_ms(torch, fn, name=None, warmup=3, iters=20):
+    """Device time per call of ``fn`` (the self time of every kernel it
+    launches, from ``profiled_kernels``); with ``name``, also that of the
+    kernels whose name holds it, as a second number. One call between CUDA
+    events (``cuda_time_ms``, the records' ``ms``) also counts the host's
+    time between the call's launches, which a kernel of a few tens of
+    microseconds does not cover; this is the kernels' time alone."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    rows, _ = profiled_kernels(torch, fn, iters)
+    total = sum(r[0] for r in rows)
+    if name is None:
+        return total
+    named = sum(r[0] for r in rows if name in r[2])
+    assert named > 0, f"the profiler saw no kernel named {name}"
+    return total, named
+
+
+def bound_ms(pairs, flops_per_pair, nbytes, sm_count, sm_clock_hz, peak_flops=PEAK_BF16_FLOPS):
     """Least time for an attention kernel: the larger of its products over the
-    bf16 tensor-core peak, its exponentials (one per pair) over the SFU rate,
-    and its bytes (each input read once, each output written once) over HBM
-    bandwidth. ``pairs`` counts the (query, unmasked key) pairs of the inputs."""
-    t_flops = flops_per_pair * pairs / PEAK_BF16_FLOPS
+    peak of their type (the bf16 tensor cores by default), its exponentials
+    (one per pair) over the SFU rate, and its bytes (each input read once,
+    each output written once) over HBM bandwidth. ``pairs`` counts the
+    (query, unmasked key) pairs of the inputs."""
+    t_flops = flops_per_pair * pairs / peak_flops
     t_exp = pairs / (sm_count * SFU_EXP_PER_SM_CLOCK * sm_clock_hz)
     t_bytes = nbytes / PEAK_HBM_BYTES
     bound = max(t_flops, t_exp, t_bytes)
@@ -241,14 +316,13 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
     compare("fp32, dropout, batch row 1 fully masked", qmf, kmf, vmf, mmf, 1e-4, 0.0, (1,), DROPOUT)
 
     kernel_ms = cuda_time_ms(lambda: ca.flash_cross_attention(q16, k16, v16, m16))
+    kernel_dev_ms = device_ms(torch, lambda: ca.flash_cross_attention(q16, k16, v16, m16))
     plain_ms = cuda_time_ms(lambda: ca.flash_cross_attention_reference(q16, k16, v16, m16))
     keep = ~m16[:, None, None, :]  # SDPA's boolean mask: True = attend
-    library_ms = cuda_time_ms(
-        lambda: F.scaled_dot_product_attention(q16, k16, v16, attn_mask=keep)
-    )
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q16, k16, v16, attn_mask=keep))
+    library_dev_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(q16, k16, v16, attn_mask=keep))
     drop_ms = cuda_time_ms(lambda: ca.flash_cross_attention(q16, k16, v16, m16, DROPOUT, DROP_SEED))
-    drop_plain_ms = cuda_time_ms(
-        lambda: ca.flash_cross_attention_reference(q16, k16, v16, m16, DROPOUT, DROP_SEED))
+    drop_plain_ms = cuda_time_ms(lambda: ca.flash_cross_attention_reference(q16, k16, v16, m16, DROPOUT, DROP_SEED))
     kernel_ms32 = cuda_time_ms(lambda: ca.flash_cross_attention(q32, k32, v32, m32))
     L_valid = int((~m16).sum())
     pairs = H * Q * L_valid
@@ -256,7 +330,8 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     bms, bound_by, parts = bound_ms(pairs, 4.0 * D, nbytes, sms, sm_clock_hz)
     log(f"  timing bf16 B={B} H={H} Q={Q} L={L} ({L_valid} unmasked) D={D}: "
-        f"kernel_ms {kernel_ms:.4f}, plain_ms {plain_ms:.4f}, library_ms (SDPA) {library_ms:.4f}, "
+        f"kernel_ms {kernel_ms:.4f}, plain_ms {plain_ms:.4f}, library_ms (SDPA) {library_ms:.4f} (one call "
+        f"between CUDA events); device time: kernel {kernel_dev_ms:.4f}, SDPA {library_dev_ms:.4f}; "
         f"bound_ms {bms:.4f} ({bound_by}; {json.dumps({k: round(v, 5) for k, v in parts.items()})}) [{card}]")
     log(f"  timing bf16 with dropout {DROPOUT}: kernel_ms {drop_ms:.4f}, plain_ms {drop_plain_ms:.4f} [{card}]")
     log(f"  timing fp32: kernel_ms {kernel_ms32:.4f} [{card}]")
@@ -286,6 +361,8 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
         "bound_ms": bms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        "device_ms": kernel_dev_ms,
+        "library_device_ms": library_dev_ms,
         "dropout_kernel_ms": drop_ms,
         "dropout_plain_ms": drop_plain_ms,
         "dropout_max_abs_err": drop_err,
@@ -298,10 +375,37 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
     }
 
 
+def rounded_plain_backward(torch, ca, q, k, v, mask, out, lse, gout, rate, seed):
+    """The plain backward with P (after dropout) and dS rounded to bf16 before
+    their products, as the tensor-core kernels round them: how far that
+    rounding alone moves the fp32 plain backward."""
+    import math
+
+    B, H, Q, D = q.shape
+    L = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), gout.float()
+    delta = ca._delta(gout, out, None)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    s = s.masked_fill(mask[:, None, None, :], ca.NEG)
+    p = torch.exp(torch.clamp(s - lse[..., None], max=0.0))
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    keep = ca.dropout_keep_mask(seed, B, H, Q, L, rate, q.device)
+    p_drop = torch.where(keep, p / (1.0 - rate), 0.0)
+    dp = torch.where(keep, dp / (1.0 - rate), 0.0)
+    ds = (p * (dp - delta[..., None])).bfloat16().float()
+    dv = torch.matmul(p_drop.bfloat16().float().transpose(-1, -2), gf)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return tuple(g.to(q.dtype) for g in (dq, dk, dv))
+
+
 def check_flash_backward(torch, ca, sm_clock_hz, card):
-    """K2 (its dK/dV and dQ kernels) against the plain backward at the
-    flagship decoder shape, K3's lse cotangent through the autograd
-    Function, then each kernel timed."""
+    """K2 (its dK/dV and dQ kernels, bf16 on the tensor cores and fp32 on the
+    CUDA cores) against the plain backward at the flagship decoder shape,
+    and the bf16 ones also at the r50dcn decoder's L = 16,896, where its
+    train step runs them; K3's lse cotangent through the autograd Function;
+    then each kernel timed at both L."""
     import torch.nn.functional as F
 
     B, H, Q, L, D = 1, 8, 900, 6000, 32
@@ -326,22 +430,44 @@ def check_flash_backward(torch, ca, sm_clock_hz, card):
             worst[g_name] = err.max().item()
         return worst
 
+    def counts():
+        return {"bf16": (ca.DKDV_LAUNCHES, ca.DQ_LAUNCHES), "fp32": (ca.DKDV_LAUNCHES_FP32, ca.DQ_LAUNCHES_FP32)}
+
     log(f"phase 3: K2 (flash_cross_attention backward) against its plain version")
+    Lr = 6 * 32 * 88  # the r50dcn decoder's keys: 6 views x 32 x 88 tokens
+    cases = [(dtype, tag, rate, batch, L) for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"))
+             for rate in (0.0, DROPOUT) for batch in (1, 2)]
+    cases += [(torch.bfloat16, "bf16", rate, 1, Lr) for rate in (0.0, DROPOUT)]  # the r50dcn train step's
     errs = {}
-    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
-        for rate in (0.0, DROPOUT):
-            for batch in (1, 2):
-                q, k, v, m = attention_inputs(torch, gen, batch, dtype, H, Q, L, D)
-                if batch == 2:
-                    m[1] = True  # batch row 1 is all padding
-                gout = cotangent(batch, dtype)
-                out, lse = ca.flash_cross_attention_reference(q, k, v, m, rate, DROP_SEED)
-                delta = ca._delta(gout, out, None)
-                got = ca._backward_cuda(q, k, v, m, gout, lse, delta, rate, DROP_SEED)
-                torch.cuda.synchronize()
-                want = ca.flash_cross_attention_backward_reference(q, k, v, m, out, lse, gout, None, rate, DROP_SEED)
-                name = f"{tag}, rate {rate}" + (", batch row 1 fully masked" if batch == 2 else "")
-                errs[(tag, rate, batch)] = check_grads(name, tag, got, want, batch == 2)
+    for dtype, tag, rate, batch, Lc in cases:
+        q, k, v, m = attention_inputs(torch, gen, batch, dtype, H, Q, Lc, D)
+        if batch == 2:
+            m[1] = True  # batch row 1 is all padding
+        gout = cotangent(batch, dtype)
+        out, lse = ca.flash_cross_attention_reference(q, k, v, m, rate, DROP_SEED)
+        delta = ca._delta(gout, out, None)
+        before = counts()
+        got = ca._backward_cuda(q, k, v, m, gout, lse, delta, rate, DROP_SEED)
+        torch.cuda.synchronize()
+        after = counts()
+        other = "fp32" if tag == "bf16" else "bf16"
+        assert after[tag] == (before[tag][0] + 1, before[tag][1] + 1) and after[other] == before[other], (
+            f"the {tag} call did not launch the {tag} variants: {before} -> {after}")
+        want = ca.flash_cross_attention_backward_reference(q, k, v, m, out, lse, gout, None, rate, DROP_SEED)
+        name = f"{tag}, rate {rate}, L {Lc}" + (", batch row 1 fully masked" if batch == 2 else "")
+        errs[(tag, rate, batch, Lc)] = check_grads(name, tag, got, want, batch == 2)
+        if tag == "bf16" and batch == 1 and rate == DROPOUT and Lc == L:
+            # how far rounding P and dS to bf16 moves the plain backward alone
+            rounded = rounded_plain_backward(torch, ca, q, k, v, m, out, lse, gout, rate, DROP_SEED)
+            for g_name, r, w, g in zip(("dq", "dk", "dv"), rounded, want, got):
+                r, w, g = r.float(), w.float(), g.float()
+                scale = w.abs().max().item()
+                atol, rtol = BWD_TOL["bf16"]
+                log(f"  plain backward with P and dS rounded to bf16, {g_name}: max abs err "
+                    f"{(r - w).abs().max().item():.3e} (kernel {(g - w).abs().max().item():.3e}); worst "
+                    f"share of the bound {((r - w).abs() / (atol * scale + rtol * w.abs())).max().item():.3f} "
+                    f"(kernel {((g - w).abs() / (atol * scale + rtol * w.abs())).max().item():.3f})")
+        del q, k, v, m, gout, out, lse, delta, got, want
 
     log("phase 3: K3 (lse differentiable) through the autograd Function against its plain route")
     q, k, v, m = attention_inputs(torch, gen, 2, torch.float32, H, Q, L, D)
@@ -357,55 +483,87 @@ def check_flash_backward(torch, ca, sm_clock_hz, card):
         results.append(torch.autograd.grad(loss, (qs, ks, vs)))
     check_grads("K3 fp32, rate 0.1, lse cotangent", "fp32", results[0], results[1], True)
 
-    # timing at the train path's bf16 inputs, with and without dropout
-    q, k, v, m = attention_inputs(torch, gen, B, torch.bfloat16, H, Q, L, D)
-    gout = cotangent(B, torch.bfloat16)
-    out, lse = ca.flash_cross_attention(q, k, v, m, DROPOUT, DROP_SEED)
-    delta = ca._delta(gout, out, None)
-    args = (q, k, v, m, gout, lse, delta)
-    times = {}
-    for rate in (DROPOUT, 0.0):
-        for which in ("dkdv", "dq"):
-            times[(which, rate)] = cuda_time_ms(
-                lambda: ca._backward_cuda(*args, rate, DROP_SEED, kernels=(which,)))
-    plain_ms = cuda_time_ms(lambda: ca.flash_cross_attention_backward_reference(
-        q, k, v, m, out, lse, gout, None, DROPOUT, DROP_SEED))
-    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=~m[:, None, None, :])
-    library_ms = cuda_time_ms(lambda: torch.autograd.grad(sdpa, (qs, ks, vs), gout, retain_graph=True))
-    pairs = H * Q * int((~m).sum())
+    # timing at the train path's inputs, with and without dropout, at the
+    # flagship's L and the r50dcn decoder's (6 views x 32 x 88 tokens)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    e, f = 2, 8 * B * H * Q + B * L  # bf16 elements; lse, delta and mask bytes
-    bounds = {
-        "dkdv": bound_ms(pairs, 8.0 * D, e * B * H * D * (2 * Q + 4 * L) + f, sms, sm_clock_hz),
-        "dq": bound_ms(pairs, 6.0 * D, e * B * H * D * (3 * Q + 2 * L) + f, sms, sm_clock_hz),
-        "both": bound_ms(pairs, 10.0 * D, e * B * H * D * (3 * Q + 4 * L) + f, sms, sm_clock_hz),
-    }
-    for which in ("dkdv", "dq", "both"):
-        b_ms, b_by, parts = bounds[which]
-        log(f"  bound_ms {which} {b_ms:.4f} ({b_by}; {json.dumps({k: round(v, 5) for k, v in parts.items()})})")
-    log(f"  timing bf16 B={B} H={H} Q={Q} L={L} ({pairs // (H * Q)} unmasked) D={D}, dropout {DROPOUT}: "
-        f"dK/dV kernel_ms {times[('dkdv', DROPOUT)]:.4f}, dQ kernel_ms {times[('dq', DROPOUT)]:.4f}, "
-        f"plain backward {plain_ms:.4f}; at rate 0: dK/dV {times[('dkdv', 0.0)]:.4f}, "
-        f"dQ {times[('dq', 0.0)]:.4f}, library_ms (SDPA backward, boolean mask) {library_ms:.4f} [{card}]")
+    timing = {}
+    for tag, dtype, Lt in (("bf16", torch.bfloat16, L), ("bf16", torch.bfloat16, Lr), ("fp32", torch.float32, L)):
+        q, k, v, m = attention_inputs(torch, gen, B, dtype, H, Q, Lt, D)
+        gout = cotangent(B, dtype)
+        out, lse = ca.flash_cross_attention(q, k, v, m, DROPOUT, DROP_SEED)
+        delta = ca._delta(gout, out, None)
+        args = (q, k, v, m, gout, lse, delta)
+        t = {}
+        for rate in (DROPOUT, 0.0):
+            for which in ("dkdv", "dq"):
+                def call():
+                    ca._backward_cuda(*args, rate, DROP_SEED, kernels=(which,))
+                t[(which, rate)] = cuda_time_ms(call)
+                t[(which, rate, "device")] = device_ms(torch, call)
+        t["plain"] = cuda_time_ms(lambda: ca.flash_cross_attention_backward_reference(
+            q, k, v, m, out, lse, gout, None, DROPOUT, DROP_SEED), warmup=2, iters=10)
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=~m[:, None, None, :])
+
+        def sdpa_backward():
+            torch.autograd.grad(sdpa, (qs, ks, vs), gout, retain_graph=True)
+        t["library"] = cuda_time_ms(sdpa_backward)
+        t["library_device"] = device_ms(torch, sdpa_backward)
+        pairs = H * Q * int((~m).sum())
+        e, f = (2 if tag == "bf16" else 4), 8 * B * H * Q + B * Lt  # element bytes; lse, delta and mask bytes
+        peak = PEAK_BF16_FLOPS if tag == "bf16" else PEAK_FP32_FLOPS
+        t["bounds"] = {
+            "dkdv": bound_ms(pairs, 8.0 * D, e * B * H * D * (2 * Q + 4 * Lt) + f, sms, sm_clock_hz, peak),
+            "dq": bound_ms(pairs, 6.0 * D, e * B * H * D * (3 * Q + 2 * Lt) + f, sms, sm_clock_hz, peak),
+            "both": bound_ms(pairs, 10.0 * D, e * B * H * D * (3 * Q + 4 * Lt) + f, sms, sm_clock_hz, peak),
+        }
+        timing[(tag, Lt)] = t
+        for which in ("dkdv", "dq", "both"):
+            b_ms, b_by, parts = t["bounds"][which]
+            log(f"  {tag} L={Lt} bound_ms {which} {b_ms:.4f} ({b_by}; "
+                f"{json.dumps({k: round(v, 5) for k, v in parts.items()})})")
+        for unit, key in (("one call between CUDA events", ()), ("device time", ("device",))):
+            lib = t["library" if not key else "library_device"]
+            dkdv = {r: t[("dkdv", r, *key)] for r in (DROPOUT, 0.0)}
+            dq = {r: t[("dq", r, *key)] for r in (DROPOUT, 0.0)}
+            log(f"  timing {tag} B={B} H={H} Q={Q} L={Lt} ({pairs // (H * Q)} unmasked) D={D}, {unit}: dropout "
+                f"{DROPOUT}: dK/dV {dkdv[DROPOUT]:.4f}, dQ {dq[DROPOUT]:.4f} (sum {dkdv[DROPOUT] + dq[DROPOUT]:.4f}); "
+                f"rate 0: dK/dV {dkdv[0.0]:.4f}, dQ {dq[0.0]:.4f} (sum {dkdv[0.0] + dq[0.0]:.4f}); library_ms (SDPA "
+                f"backward, boolean mask, rate 0) {lib:.4f}" + ("" if key else f"; plain backward {t['plain']:.4f}")
+                + f" [{card}]")
     records = []
-    for which, name in (("dkdv", "flash_cross_attention_bwd_dkdv"), ("dq", "flash_cross_attention_bwd_dq")):
-        b_ms, b_by, _ = bounds[which]
-        records.append({
-            "name": name,
-            "route": "cuda",
-            "source": "petr_tpu_torch/csrc/flash_cross_attention_bwd.cu",
-            "replaces": "petr_tpu/ops/pallas/cross_attention.py:198::_bwd_kernel",
-            "launches": None,  # filled from the train path's run
-            "max_abs_err": max(errs[("bf16", DROPOUT, 1)][g] for g in (("dk", "dv") if which == "dkdv" else ("dq",))),
-            "ms": times[(which, DROPOUT)],
-            "kernel_ms": times[(which, DROPOUT)],
-            "rate0_kernel_ms": times[(which, 0.0)],
-            "plain_ms": plain_ms,  # the whole plain backward (dq, dk and dv)
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "library_ms": library_ms,  # SDPA's whole backward at rate 0
-        })
+    for tag, suffix in (("bf16", ""), ("fp32", "_fp32")):
+        t = timing[(tag, L)]
+        for which, name in (("dkdv", "flash_cross_attention_bwd_dkdv"), ("dq", "flash_cross_attention_bwd_dq")):
+            b_ms, b_by, _ = t["bounds"][which]
+            grads = ("dk", "dv") if which == "dkdv" else ("dq",)
+            rec = {
+                "name": name + suffix,
+                "route": "cuda",
+                "source": "petr_tpu_torch/csrc/flash_cross_attention_bwd.cu",
+                "replaces": "petr_tpu/ops/pallas/cross_attention.py:198::_bwd_kernel",
+                "launches": None,  # filled from the train path's run
+                "max_abs_err": max(errs[(tag, DROPOUT, 1, L)][g] for g in grads),
+                "ms": t[(which, DROPOUT)],
+                "kernel_ms": t[(which, DROPOUT)],
+                "rate0_kernel_ms": t[(which, 0.0)],
+                "plain_ms": t["plain"],  # the whole plain backward (dq, dk and dv)
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": t["library"],  # SDPA's whole backward at rate 0
+                "device_ms": t[(which, DROPOUT, "device")],
+                "rate0_device_ms": t[(which, 0.0, "device")],
+                "library_device_ms": t["library_device"],
+            }
+            if tag == "bf16":
+                tr = timing[("bf16", Lr)]
+                rec.update({"r50_L": Lr, "r50_ms": tr[(which, DROPOUT)], "r50_rate0_ms": tr[(which, 0.0)],
+                            "r50_device_ms": tr[(which, DROPOUT, "device")],
+                            "r50_rate0_device_ms": tr[(which, 0.0, "device")],
+                            "r50_bound_ms": tr["bounds"][which][0], "r50_library_ms": tr["library"],
+                            "r50_library_device_ms": tr["library_device"], "r50_plain_ms": tr["plain"],
+                            "r50_max_abs_err": max(errs[(tag, DROPOUT, 1, Lr)][g] for g in grads)})
+            records.append(rec)
     return records
 
 
@@ -493,12 +651,14 @@ def check_dcn(torch, dcn, card):
         nbytes = 2 * B * Cin * H * W + 4 * B * 27 * P + 4 * Cout * Cin * 9 + 2 * B * Cout * P
         b_ms, b_by, parts = roofline(flops, nbytes)
         k_ms = cuda_time_ms(lambda: dcn.modulated_deform_conv(x, om, w))
+        k_dev_ms = device_ms(torch, lambda: dcn.modulated_deform_conv(x, om, w))
         p_ms = cuda_time_ms(lambda: dcn.modulated_deform_conv_reference(x, om, w), warmup=2, iters=10)
         wb = w.to(torch.bfloat16)
         dense_ms = cuda_time_ms(lambda: F.conv2d(x, wb, padding=1))
-        timing[label] = {"kernel_ms": k_ms, "plain_ms": p_ms, "dense_conv_ms": dense_ms, "bound_ms": b_ms,
-                         "bound_by": b_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
-        log(f"  timing bf16 {label} x {tuple(x.shape)} -> {Cout}: kernel_ms {k_ms:.4f}, plain_ms {p_ms:.4f}, "
+        timing[label] = {"kernel_ms": k_ms, "device_ms": k_dev_ms, "plain_ms": p_ms, "dense_conv_ms": dense_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+        log(f"  timing bf16 {label} x {tuple(x.shape)} -> {Cout}: kernel_ms {k_ms:.4f} (device time "
+            f"{k_dev_ms:.4f}), plain_ms {p_ms:.4f}, "
             f"dense_conv_ms (cuDNN 3x3 conv at the shape, a floor, not DCNv2) {dense_ms:.4f}, bound_ms "
             f"{b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
             f"{json.dumps({k: round(v, 5) for k, v in parts.items()})}) [{card}]")
@@ -516,67 +676,182 @@ def check_dcn(torch, dcn, card):
         "bound_ms": t3["bound_ms"],
         "bound_by": t3["bound_by"],
         "library_ms": None,  # no PyTorch call computes DCNv2
+        "device_ms": t3["device_ms"],
         "dense_conv_ms": t3["dense_conv_ms"],
         "stage4": timing["stage4"],
         "fp32_max_abs_err": errs[("stage3", "fp32")],
     }
 
 
+# K5's shapes on the flagship's route: 6 views; (Cin, H, W, Co) and the
+# launches per forward (petr_tpu_torch/models/vovnet.py: V-99-eSE's OSA blocks,
+# whose first conv takes the block's input and the four others its own width).
+# Phase 4 checks this table against the convs the route runs.
+CONV_VIEWS = 6
+CONV_SHAPES = {
+    "s2": ((128, 80, 200, 128), 5),
+    "s3 in256": ((256, 40, 100, 160), 1),
+    "s3 in512": ((512, 40, 100, 160), 2),
+    "s3": ((160, 40, 100, 160), 12),
+    "s4 in512": ((512, 20, 50, 192), 1),
+    "s4 in768": ((768, 20, 50, 192), 8),
+    "s4": ((192, 20, 50, 192), 36),
+    "s5 in768": ((768, 10, 25, 224), 1),
+    "s5 in1024": ((1024, 10, 25, 224), 2),
+    "s5": ((224, 10, 25, 224), 12),
+}
+
+
+def conv_inputs(torch, gen, C, H, W, Co, dtype, B=CONV_VIEWS):
+    x = torch.randn(B, C, H, W, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(Co, C, 3, 3, generator=gen, device="cuda") * (2.0 / (9 * C)) ** 0.5).to(dtype)
+    mul = torch.rand(Co, generator=gen, device="cuda") + 0.5
+    add = torch.randn(Co, generator=gen, device="cuda") * 0.3
+    return x, w, mul, add
+
+
+def conv_shape_split(torch, conv, C, H, W, Co, B=CONV_VIEWS):
+    """The split of K the bf16 K5 takes at this shape on this card."""
+    th, tw = conv.conv_tile(H, W)
+    blocks = -(-H // th) * -(-W // tw) * -(-Co // conv.TILE_CHANNELS) * B
+    return conv.conv_split(blocks, -(-C // conv.CHUNK_CHANNELS),
+                           torch.cuda.get_device_properties(0).multi_processor_count)
+
+
 def check_conv3x3(torch, conv, card):
-    """K5 against its plain version at VoVNet stages 2 (128 -> 128 at 80x200)
-    and 4 (192 -> 192 at 20x50) on 6 views, in fp32 and bf16, with and
-    without the BN/ReLU epilogue; then timed beside the plain version and
-    cuDNN's ``F.conv2d`` at the same shape (the conv alone: the library
-    time leaves out the epilogue)."""
+    """K5 against its plain version: the bf16 tensor-core kernel at every
+    shape of the flagship's route, the fp32 CUDA-core kernel at stages 2 and
+    4 and an odd shape, with and without the BN/ReLU epilogue at stages 2
+    and 4; then the bf16 kernel timed at every shape beside cuDNN's
+    ``F.conv2d`` (the conv alone: the library time leaves out the epilogue)
+    and its bound, and summed over a forward's 80 launches; the fp32 kernel
+    and the plain version timed at stage 4 (and 2)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    shapes = {"stage2": (6, 128, 80, 200, 128), "stage4": (6, 192, 20, 50, 192)}
     log("phase 3: conv3x3_bn_relu (K5) against its plain version")
-    errs, timing = {}, {}
-    for label, (B, C, H, W, Co) in shapes.items():
-        for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
-            x = torch.randn(B, C, H, W, generator=gen, device="cuda").to(dtype)
-            w = (torch.randn(Co, C, 3, 3, generator=gen, device="cuda") * (2.0 / (9 * C)) ** 0.5).to(dtype)
-            mul = torch.rand(Co, generator=gen, device="cuda") + 0.5
-            add = torch.randn(Co, generator=gen, device="cuda") * 0.3
-            for affine, relu in ((True, True), (False, False)):
-                m, a = (mul, add) if affine else (None, None)
-                before = conv.LAUNCHES
-                out = conv.conv3x3_bn_relu(x, w, m, a, relu)
-                torch.cuda.synchronize()
-                assert conv.LAUNCHES == before + 1
-                want = conv.conv3x3_bn_relu_reference(x, w, m, a, relu)
-                errs[(label, tag, affine)] = kernel_compare(
-                    torch, f"{label} {tag} x {tuple(x.shape)} -> {Co}, epilogue {affine}", out, want, tag)
-        flops = 2.0 * B * H * W * Co * 9 * C
-        nbytes = 2 * B * C * H * W + 2 * Co * C * 9 + 8 * Co + 2 * B * Co * H * W
-        b_ms, b_by, parts = roofline(flops, nbytes)
-        k_ms = cuda_time_ms(lambda: conv.conv3x3_bn_relu(x, w, mul, add, True))
-        p_ms = cuda_time_ms(lambda: conv.conv3x3_bn_relu_reference(x, w, mul, add, True))
-        lib_ms = cuda_time_ms(lambda: F.conv2d(x, w, padding=1))
-        timing[label] = {"kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-                         "bound_by": b_by}
-        log(f"  timing bf16 {label} x {tuple(x.shape)} -> {Co}, BN + ReLU epilogue: kernel_ms {k_ms:.4f}, "
-            f"plain_ms {p_ms:.4f}, library_ms (cuDNN F.conv2d, no epilogue) {lib_ms:.4f}, bound_ms {b_ms:.4f} "
-            f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
-            f"{json.dumps({k: round(v, 5) for k, v in parts.items()})}) [{card}]")
-    t4 = timing["stage4"]
-    return {
+    errs, inputs = {}, {}
+    cases = [(label, shape, torch.bfloat16, "bf16") for label, (shape, _) in CONV_SHAPES.items()]
+    cases += [(label, CONV_SHAPES[label][0], torch.float32, "fp32") for label in ("s2", "s4")]
+    cases += [("odd", (13, 5, 7, 70), torch.float32, "fp32"), ("odd", (13, 5, 7, 70), torch.bfloat16, "bf16")]
+    for label, (C, H, W, Co), dtype, tag in cases:
+        x, w, mul, add = conv_inputs(torch, gen, C, H, W, Co, dtype, B=1 if label == "odd" else CONV_VIEWS)
+        inputs[(label, tag)] = (x, w, mul, add)
+        epilogues = ((True, True), (False, False)) if label in ("s2", "s4", "odd") else ((True, True),)
+        for affine, relu in epilogues:
+            m, a = (mul, add) if affine else (None, None)
+            counter = "LAUNCHES" if tag == "bf16" else "LAUNCHES_FP32"
+            before = (conv.LAUNCHES, conv.LAUNCHES_FP32)
+            out = conv.conv3x3_bn_relu(x, w, m, a, relu)
+            torch.cuda.synchronize()
+            want_counts = (before[0] + (tag == "bf16"), before[1] + (tag == "fp32"))
+            assert (conv.LAUNCHES, conv.LAUNCHES_FP32) == want_counts, f"{counter} did not count the launch"
+            want = conv.conv3x3_bn_relu_reference(x, w, m, a, relu)
+            errs[(label, tag, affine)] = kernel_compare(
+                torch, f"{tag} {label} x {tuple(x.shape)} -> {Co}, epilogue {affine}", out, want, tag)
+
+    log(f"phase 3: K5 timed at each shape of the route (bf16, {CONV_VIEWS} views, BN + ReLU epilogue): one "
+        f"call between CUDA events, and the device time per call from the profiler")
+    sums = ("kernel_ms", "device_ms", "library_ms", "library_device_ms", "bound_ms")
+    shapes, route = [], dict.fromkeys(sums, 0.0) | {"launches": 0}
+    for label, ((C, H, W, Co), per_forward) in CONV_SHAPES.items():
+        x, w, mul, add = inputs[(label, "bf16")]
+        flops = 2.0 * CONV_VIEWS * H * W * Co * 9 * C
+        nbytes = 2 * CONV_VIEWS * C * H * W + 2 * Co * C * 9 + 8 * Co + 2 * CONV_VIEWS * Co * H * W
+        b_ms, b_by, _ = roofline(flops, nbytes)
+
+        def call():
+            conv.conv3x3_bn_relu(x, w, mul, add, True)
+
+        def library():
+            F.conv2d(x, w, padding=1)
+        k_ms = cuda_time_ms(call)
+        # the conv kernel and its split-K reduction; the rest is the weight repack
+        dev_ms, tc_ms = device_ms(torch, call, "conv3x3_bn_relu_tc")
+        lib_ms, lib_dev_ms = cuda_time_ms(library), device_ms(torch, library)
+        split = conv_shape_split(torch, conv, C, H, W, Co)
+        shapes.append({"label": label, "cin": C, "h": H, "w": W, "co": Co, "tile": list(conv.conv_tile(H, W)),
+                       "split_k": split, "launches_per_forward": per_forward, "kernel_ms": k_ms,
+                       "device_ms": dev_ms, "tc_device_ms": tc_ms, "library_ms": lib_ms,
+                       "library_device_ms": lib_dev_ms, "bound_ms": b_ms, "gflop": flops / 1e9})
+        for key in sums:
+            route[key] += per_forward * shapes[-1][key]
+        route["launches"] += per_forward
+        log(f"  {label:10s} {C:4d} -> {Co} at {H}x{W}, tile {conv.conv_tile(H, W)}, split K {split}, "
+            f"x{per_forward} per forward: kernel_ms {k_ms:.4f}, library_ms (cuDNN F.conv2d, no epilogue) "
+            f"{lib_ms:.4f} (one call between CUDA events); device time: kernel {dev_ms:.4f} (the conv and its "
+            f"split-K reduction {tc_ms:.4f}, the rest the weight repack), cuDNN {lib_dev_ms:.4f}; bound_ms "
+            f"{b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP), {flops / tc_ms / 1e9:.1f} TFLOP/s [{card}]")
+    log(f"  the route's {route['launches']} launches per forward: kernel {route['kernel_ms']:.4f} ms, cuDNN's convs "
+        f"{route['library_ms']:.4f} ms (CUDA events); device time: kernel {route['device_ms']:.4f} ms, cuDNN's "
+        f"convs {route['library_device_ms']:.4f} ms; bound {route['bound_ms']:.4f} ms [{card}]")
+    assert route["launches"] == 80
+    x, w, _, _ = inputs[("s4", "bf16")]
+    wbig = inputs[("s5 in1024", "bf16")][1]
+    repack_ms = device_ms(torch, lambda: conv.repack_weight(w))
+    repack_big_ms = device_ms(torch, lambda: conv.repack_weight(wbig))
+    log(f"  weight repack (OIHW -> (Co, 3, 3, Cp) bf16, inside each call above): {repack_ms:.4f} ms at 192 -> 192, "
+        f"{repack_big_ms:.4f} ms at 1024 -> 224 [{card}]")
+
+    timing = {}
+    for label in ("s4", "s2"):
+        (C, H, W, Co), _ = CONV_SHAPES[label]
+        x, w, mul, add = inputs[(label, "bf16")]
+        p_ms = cuda_time_ms(lambda: conv.conv3x3_bn_relu_reference(x, w, mul, add, True), warmup=2, iters=10)
+        x32, w32, mul32, add32 = inputs[(label, "fp32")]
+        f_ms = cuda_time_ms(lambda: conv.conv3x3_bn_relu(x32, w32, mul32, add32, True))
+        f_dev_ms = device_ms(torch, lambda: conv.conv3x3_bn_relu(x32, w32, mul32, add32, True))
+        f_plain_ms = cuda_time_ms(lambda: conv.conv3x3_bn_relu_reference(x32, w32, mul32, add32, True),
+                                  warmup=2, iters=10)
+        f_lib_ms = cuda_time_ms(lambda: F.conv2d(x32, w32, padding=1))
+        flops = 2.0 * CONV_VIEWS * H * W * Co * 9 * C
+        nbytes32 = 4 * CONV_VIEWS * C * H * W + 4 * Co * C * 9 + 8 * Co + 4 * CONV_VIEWS * Co * H * W
+        f_bound, f_by, _ = roofline(flops, nbytes32, PEAK_FP32_FLOPS)
+        timing[label] = {"plain_ms": p_ms, "fp32_ms": f_ms, "fp32_device_ms": f_dev_ms, "fp32_plain_ms": f_plain_ms,
+                         "fp32_library_ms": f_lib_ms, "fp32_bound_ms": f_bound, "fp32_bound_by": f_by}
+        log(f"  {label}: plain_ms (bf16) {p_ms:.4f}; fp32 kernel_ms {f_ms:.4f} (device time {f_dev_ms:.4f}), "
+            f"plain_ms {f_plain_ms:.4f}, library_ms (cuDNN fp32, TF32 off) {f_lib_ms:.4f}, bound_ms {f_bound:.4f} "
+            f"({f_by}, at the fp32 peak) [{card}]")
+    s4 = next(r for r in shapes if r["label"] == "s4")
+    s2 = next(r for r in shapes if r["label"] == "s2")
+    b_ms, b_by, _ = roofline(s4["gflop"] * 1e9, 2 * CONV_VIEWS * 192 * 1000 * 2 + 2 * 192 * 192 * 9 + 8 * 192)
+    bf16_rec = {
         "name": "conv3x3_bn_relu_fwd",
         "route": "cuda",
         "source": "petr_tpu_torch/csrc/conv3x3_bn_relu.cu",
         "replaces": "petr_tpu/ops/pallas/conv3x3.py:78::_conv3x3_raw",
-        "launches": None,  # filled from the flagship's forward on the opt-in route
-        "max_abs_err": errs[("stage4", "bf16", True)],
-        "ms": t4["kernel_ms"],  # stage 4: 45 of the 80 launches of a forward
-        "kernel_ms": t4["kernel_ms"],
-        "plain_ms": t4["plain_ms"],
-        "bound_ms": t4["bound_ms"],
-        "bound_by": t4["bound_by"],
-        "library_ms": t4["library_ms"],  # cuDNN's conv alone, without the epilogue
-        "stage2": timing["stage2"],
+        "launches": None,  # filled from the flagship's bf16 forward on the opt-in route
+        "max_abs_err": max(v for (lab, tag, _), v in errs.items() if tag == "bf16"),
+        "ms": s4["kernel_ms"],  # stage 4, 192 -> 192: 36 of the 80 launches of a forward
+        "kernel_ms": s4["kernel_ms"],
+        "plain_ms": timing["s4"]["plain_ms"],
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": s4["library_ms"],  # cuDNN's conv alone, without the epilogue
+        "device_ms": s4["device_ms"],
+        "library_device_ms": s4["library_device_ms"],
+        "stage2": {k: s2[k] for k in ("kernel_ms", "device_ms", "library_ms", "library_device_ms", "bound_ms")}
+        | {"plain_ms": timing["s2"]["plain_ms"]},
+        "shapes": shapes,
+        "route_per_forward": route,
+        "repack_device_ms": {"192->192": repack_ms, "1024->224": repack_big_ms},
     }
+    fp32_rec = {
+        "name": "conv3x3_bn_relu_fwd_fp32",
+        "route": "cuda",
+        "source": "petr_tpu_torch/csrc/conv3x3_bn_relu.cu",
+        "replaces": "petr_tpu/ops/pallas/conv3x3.py:78::_conv3x3_raw",
+        "launches": None,  # filled from the flagship's fp32 forward on the opt-in route
+        "max_abs_err": max(v for (lab, tag, _), v in errs.items() if tag == "fp32"),
+        "ms": timing["s4"]["fp32_ms"],
+        "plain_ms": timing["s4"]["fp32_plain_ms"],
+        "bound_ms": timing["s4"]["fp32_bound_ms"],
+        "bound_by": timing["s4"]["fp32_bound_by"],
+        "library_ms": timing["s4"]["fp32_library_ms"],
+        "device_ms": timing["s4"]["fp32_device_ms"],
+        "stage2_ms": timing["s2"]["fp32_ms"],
+    }
+    return bf16_rec, fp32_rec
 
 
 def make_cams(B, N, H=320, W=800):
@@ -744,15 +1019,16 @@ def serving_latency(torch, cfg, model, fn, results, card):
     log(f"  serving step at B=1 ({N} views {H}x{W}): median {med * 1e3:.2f} ms over "
         f"{len(lat)} runs (host clock), {1.0 / med:.2f} samples/s; forward alone "
         f"{fwd_ms:.2f} ms (CUDA events, median of 10) [{card}]")
-    profile(torch, lambda: model(*one_t), card)
-    return fwd_ms, one_t
+    dev_ms, _ = profile(torch, lambda: model(*one_t), card)
+    return fwd_ms, dev_ms, one_t
 
 
 def check_serving(torch, ca, conv, card):
+    import dataclasses
     import os
 
     from petr_tpu_torch.configs import get_config
-    from petr_tpu_torch.models import layers
+    from petr_tpu_torch.models import PETRDetector, layers
     from petr_tpu_torch.serve import build_detector
 
     cfg = get_config(FLAGSHIP)
@@ -768,7 +1044,7 @@ def check_serving(torch, ca, conv, card):
     launches, _, fn, results = serve_and_check(
         torch, cfg, model, {"K1": (ca, "LAUNCHES")}, {"K1": L},
         [(layers, "flash_cross_attention", ca.flash_cross_attention_reference)], model_tol, MODEL_MEAN, card)
-    fwd_ms, one_t = serving_latency(torch, cfg, model, fn, results, card)
+    fwd_ms, dev_ms, one_t = serving_latency(torch, cfg, model, fn, results, card)
 
     # the opt-in route: every OSA conv through K5, against the default (cuDNN)
     osa = 5 * sum(len(getattr(model.img_backbone, f"stage{s}")) for s in range(2, 6))
@@ -776,57 +1052,110 @@ def check_serving(torch, ca, conv, card):
         f"the stem stays on cuDNN)")
     assert osa == 80, osa
     hc = cfg.model.head
+    seen = []
+
+    def recording(x, w, *args, **kwargs):
+        seen.append((tuple(x.shape), w.shape[0]))
+        return conv_fn(x, w, *args, **kwargs)
+
+    conv_fn = layers.conv3x3_bn_relu
     with torch.inference_mode():
         out_cudnn = model(*one_t)
         os.environ[conv.CONV_IMPL_ENV] = "cuda"
         try:
-            conv.LAUNCHES = 0
+            layers.conv3x3_bn_relu = recording
+            model(*one_t)
+            layers.conv3x3_bn_relu = conv_fn
+            want = sorted(((CONV_VIEWS, C, H, W), Co) for (C, H, W, Co), n in CONV_SHAPES.values() for _ in range(n))
+            assert sorted(seen) == want, f"the route's convs differ from CONV_SHAPES: {sorted(seen)}"
+            conv.LAUNCHES = conv.LAUNCHES_FP32 = conv.SPLITK_LAUNCHES = 0
             out_k5 = model(*one_t)
-            k5_per_forward = conv.LAUNCHES
-            fwd_k5_ms = cuda_time_ms(lambda: model(*one_t), warmup=2, iters=10)
-            log(f"  K5 launches in one forward: {k5_per_forward} (expected {osa})")
-            assert k5_per_forward == osa, k5_per_forward
+            k5_per_forward, splitk_per_forward = conv.LAUNCHES, conv.SPLITK_LAUNCHES
+            want_split = sum(n for (C, H, W, Co), n in CONV_SHAPES.values()
+                             if conv_shape_split(torch, conv, C, H, W, Co) > 1)
+            log(f"  K5 launches in one bf16 forward: {k5_per_forward} of the tensor-core kernel (expected {osa}, "
+                f"every shape of CONV_SHAPES), {splitk_per_forward} of them with a split K and its ordered "
+                f"reduction (expected {want_split}), {conv.LAUNCHES_FP32} of the fp32 one (expected 0)")
+            assert (k5_per_forward, splitk_per_forward, conv.LAUNCHES_FP32) == (osa, want_split, 0), (
+                k5_per_forward, splitk_per_forward, conv.LAUNCHES_FP32)
             compare_outputs(torch, "K5 route vs cuDNN route (B=1)", out_k5, out_cudnn, ROUTE_TOL, ROUTE_MEAN,
                             (hc.num_layers, 1, hc.num_query))
-            log(f"  forward at B=1 with K5: {fwd_k5_ms:.2f} ms, with cuDNN {fwd_ms:.2f} ms (CUDA events, "
-                f"median of 10) [{card}]")
-            k5_dev_ms = profile(torch, lambda: model(*one_t), card)
+            k5_dev_ms, k5_shares = profile(torch, lambda: model(*one_t), card)
+        finally:
+            layers.conv3x3_bn_relu = conv_fn
+            os.environ.pop(conv.CONV_IMPL_ENV)
+        walls = alternating_forwards(torch, model, one_t, conv.CONV_IMPL_ENV)
+    verdict = "wins" if k5_dev_ms < dev_ms else "loses"
+    log(f"  device time per B=1 forward: K5 route {k5_dev_ms:.3f} ms (K5 itself {k5_shares.get('K5', 0.0):.3f} ms), "
+        f"cuDNN route {dev_ms:.3f} ms: the K5 route {verdict} by {abs(dev_ms - k5_dev_ms):.3f} ms [{card}]")
+    faster = sum(a < b for a, b in zip(walls["cuda"], walls["cudnn"]))
+    wall = {r: statistics.median(t) for r, t in walls.items()}
+    verdict = {len(walls["cuda"]): "wins", 0: "loses"}.get(faster, "is unresolved: the pairs disagree")
+    log(f"  forward at B=1 on CUDA events, the routes alternated {len(walls['cuda'])} times (median of 3 calls "
+        f"each): K5 route median {wall['cuda']:.2f} ms (" + ", ".join(f"{t:.2f}" for t in walls["cuda"])
+        + f"), cuDNN route median {wall['cudnn']:.2f} ms (" + ", ".join(f"{t:.2f}" for t in walls["cudnn"])
+        + f"); the K5 route is faster in {faster} of {len(walls['cuda'])} pairs: by the wall clock the route {verdict} "
+        f"[{card}]")
+
+    # the fp32 twin on both routes: the fp32 variant of K5 on the route
+    model32 = PETRDetector(dataclasses.replace(cfg.model, compute_dtype="float32")).cuda().eval()
+    model32.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        out32 = model32(*one_t)
+        os.environ[conv.CONV_IMPL_ENV] = "cuda"
+        try:
+            conv.LAUNCHES = conv.LAUNCHES_FP32 = 0
+            out32_k5 = model32(*one_t)
+            k5_fp32_per_forward = conv.LAUNCHES_FP32
         finally:
             os.environ.pop(conv.CONV_IMPL_ENV)
-    return launches["K1"], k5_per_forward, {"forward_ms_cudnn": fwd_ms, "forward_ms_k5": fwd_k5_ms,
-                                            "forward_device_ms_k5": k5_dev_ms}
+    log(f"  fp32 twin on the route: {k5_fp32_per_forward} launches of K5's fp32 kernel, {conv.LAUNCHES} of the "
+        f"bf16 one (expected {osa} and 0)")
+    assert k5_fp32_per_forward == osa and conv.LAUNCHES == 0
+    compare_outputs(torch, "fp32 K5 route vs fp32 cuDNN route (B=1)", out32_k5, out32, FP32_ROUTE_TOL,
+                    FP32_ROUTE_MEAN, (hc.num_layers, 1, hc.num_query))
+    del model32
+    return launches["K1"], k5_per_forward, k5_fp32_per_forward, {
+        "splitk_launches": splitk_per_forward,
+        "forward_ms_cudnn": walls["cudnn"], "forward_ms_k5": walls["cuda"], "forward_device_ms_cudnn": dev_ms,
+        "forward_device_ms_k5": k5_dev_ms, "k5_device_ms_per_forward": k5_shares.get("K5", 0.0)}
 
 
-KERNEL_NAMES = {"K1": "flash_fwd_kernel", "K2 dK/dV": "flash_bwd_dkdv_kernel", "K2 dQ": "flash_bwd_dq_kernel",
-                "K4": "deform_conv_fwd_kernel", "K5": "conv3x3_bn_relu_kernel"}
+def alternating_forwards(torch, model, args, env, rounds=8):
+    """The B=1 forward on the cuDNN route and on the K5 route (``env`` set to
+    "cuda"), alternated ``rounds`` times, each time the median of 3 calls
+    between CUDA events -> {"cudnn": [ms], "cuda": [ms]}. The forward is
+    host-bound, and the host's speed drifts within a run by more than the
+    routes differ, so the routes are compared pair by pair."""
+    import os
+
+    walls = {"cudnn": [], "cuda": []}
+    for _ in range(rounds):
+        for route in walls:
+            if route == "cuda":
+                os.environ[env] = "cuda"
+            try:
+                walls[route].append(cuda_time_ms(lambda: model(*args), warmup=1, iters=3))
+            finally:
+                os.environ.pop(env, None)
+    return walls
+
+
+# kernel names in a profile (each prefix takes both variants of K2 and K5)
+KERNEL_NAMES = {"K1": "flash_fwd_kernel", "K2 dK/dV": "flash_bwd_dkdv", "K2 dQ": "flash_bwd_dq",
+                "K4": "deform_conv_fwd_kernel", "K5": "conv3x3_bn_relu"}
 
 
 def profile(torch, fn, card, iters=5, unit="forward", inference=True):
-    """Device time per call of ``fn`` by kernel, from one torch.profiler pass."""
-    import contextlib
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    mode = torch.inference_mode() if inference else contextlib.nullcontext()
-    with mode, torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(
-        ((e.self_device_time_total / 1e3 / iters, e.count // iters, e.key)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-         # a record_function range on the device (AdamW's) is not a kernel
-         and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")),
-        reverse=True,
-    )
+    """Device time per call of ``fn`` by kernel, from one torch.profiler pass
+    -> (device ms per call, {kernel label: its ms per call})."""
+    rows, wall_ms = profiled_kernels(torch, fn, iters, inference)
     dev_ms = sum(r[0] for r in rows)
-    assert dev_ms > 0, "the profiler saw no device time"
-    shares = []
+    shares, per_kernel = [], {}
     for label, kname in KERNEL_NAMES.items():
         k_ms = sum(r[0] for r in rows if kname in r[2])
         if k_ms > 0:
+            per_kernel[label] = k_ms
             shares.append(f"{label} {k_ms:.3f} ms per {unit} ({100 * k_ms / dev_ms:.1f}% of device time)")
     log(f"  profile of {iters} B=1 {unit}s: device time {dev_ms:.3f} ms per {unit} in "
         f"{sum(r[1] for r in rows)} launches of {len(rows)} kernel names; device busy "
@@ -835,7 +1164,7 @@ def profile(torch, fn, card, iters=5, unit="forward", inference=True):
     log(f"    ms/{unit}  calls/{unit}  kernel")
     for ms, calls, name in rows[:12]:
         log(f"    {ms:7.3f}  {calls:9d}  {name[:100]}")
-    return dev_ms
+    return dev_ms, per_kernel
 
 
 def make_train_batch(cfg, seed, valid_gt=40):
@@ -949,7 +1278,7 @@ def check_training(torch, ca, card):
         m = one_step()
     torch.cuda.synchronize()
     n_timed = 5
-    ca.LAUNCHES = ca.DKDV_LAUNCHES = ca.DQ_LAUNCHES = 0
+    ca.LAUNCHES = ca.DKDV_LAUNCHES = ca.DQ_LAUNCHES = ca.DKDV_LAUNCHES_FP32 = ca.DQ_LAUNCHES_FP32 = 0
     times, host = [], []
     for _ in range(n_timed):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -960,11 +1289,13 @@ def check_training(torch, ca, card):
         end.synchronize()
         host.append(time.perf_counter() - h0)
         times.append(start.elapsed_time(end))
-    launches = {"K1": ca.LAUNCHES, "K2 dK/dV": ca.DKDV_LAUNCHES, "K2 dQ": ca.DQ_LAUNCHES}
+    launches = {"K1": ca.LAUNCHES, "K2 dK/dV": ca.DKDV_LAUNCHES, "K2 dQ": ca.DQ_LAUNCHES,
+                "K2 dK/dV fp32": ca.DKDV_LAUNCHES_FP32, "K2 dQ fp32": ca.DQ_LAUNCHES_FP32}
     L = mc.head.num_layers
-    want = {"K1": 2 * L * n_timed, "K2 dK/dV": L * n_timed, "K2 dQ": L * n_timed}
+    want = {"K1": 2 * L * n_timed, "K2 dK/dV": L * n_timed, "K2 dQ": L * n_timed,
+            "K2 dK/dV fp32": 0, "K2 dQ fp32": 0}
     log(f"  {n_timed} timed steps: kernel launches {launches} (expected {want}: per step {L} "
-        f"forward + {L} recompute for K1, {L} for each K2 kernel)")
+        f"forward + {L} recompute for K1, {L} for each bf16 K2 kernel, none of the fp32 ones)")
     assert launches == want, (launches, want)
     log("  last step's metrics: " + ", ".join(f"{k} {float(v):.4f}" for k, v in m.items()))
     for n in watched:
@@ -979,9 +1310,11 @@ def check_training(torch, ca, card):
         f"{med:.2f} ms on CUDA events ({', '.join(f'{t:.2f}' for t in times)}), host clock median "
         f"{statistics.median(host) * 1e3:.2f} ms, {B * 1e3 / med:.3f} samples/s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
-    dev_ms = profile(torch, one_step, card, iters=2, unit="step", inference=False)
+    dev_ms, per_kernel = profile(torch, one_step, card, iters=2, unit="step", inference=False)
     log(f"  device busy without the profiler: {100 * dev_ms / med:.1f}% of the median step "
         f"({dev_ms:.3f} ms of device time in {med:.2f} ms) [{card}]")
+    k2_ms = per_kernel.get("K2 dK/dV", 0.0) + per_kernel.get("K2 dQ", 0.0)
+    log(f"  K2 (dK/dV + dQ) per step: {k2_ms:.3f} ms of device time [{card}]")
 
     # the matcher: one copy of the stacked costs to the host, then the LAPs
     b0 = batches[0]
@@ -1015,11 +1348,18 @@ def check_training(torch, ca, card):
         finally:
             layers.flash_cross_attention = ca.flash_cross_attention
 
-    ca.LAUNCHES = ca.DKDV_LAUNCHES = ca.DQ_LAUNCHES = 0
+    ca.LAUNCHES = ca.DKDV_LAUNCHES = ca.DQ_LAUNCHES = ca.DKDV_LAUNCHES_FP32 = ca.DQ_LAUNCHES_FP32 = 0
+
+    def fp32_counts():
+        return ca.LAUNCHES, ca.DKDV_LAUNCHES_FP32, ca.DQ_LAUNCHES_FP32, ca.DKDV_LAUNCHES, ca.DQ_LAUNCHES
+
     with_kernels = grads_of(model32)
-    assert (ca.LAUNCHES, ca.DKDV_LAUNCHES, ca.DQ_LAUNCHES) == (2 * L, L, L)
+    log(f"  fp32 step: K1, K2 dK/dV fp32, K2 dQ fp32, K2 dK/dV bf16, K2 dQ bf16 launches {fp32_counts()} "
+        f"(expected {(2 * L, L, L, 0, 0)})")
+    assert fp32_counts() == (2 * L, L, L, 0, 0), fp32_counts()
+    fp32_launches = fp32_counts()[1:3]
     plain = grads_of(model32, plain=True)
-    assert (ca.LAUNCHES, ca.DKDV_LAUNCHES, ca.DQ_LAUNCHES) == (2 * L, L, L), "the plain route launched a kernel"
+    assert fp32_counts() == (2 * L, L, L, 0, 0), "the plain route launched a kernel"
     compare_steps(torch, "kernels vs plain versions (remat on)", with_kernels, plain,
                   STEP_LOSS_RTOL, STEP_GRAD_RTOL)
     del plain, model32
@@ -1028,7 +1368,7 @@ def check_training(torch, ca, card):
     compare_steps(torch, "remat on vs remat off (kernels)", with_kernels, no_remat,
                   STEP_LOSS_RTOL, STEP_GRAD_RTOL)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
-    return launches
+    return launches, fp32_launches
 
 
 def normalize_bn_statistics(torch, model, *inputs) -> int:
@@ -1101,7 +1441,7 @@ def check_r50_serving(torch, ca, dcn, card):
         torch, cfg, model, {"K4": (dcn, "LAUNCHES"), "K1": (ca, "LAUNCHES")},
         {"K4": 9, "K1": cfg.model.head.num_layers}, [], None, None, card)
     check_r50_routes(torch, cfg, model, dcn, resnet, args)
-    fwd_ms, _ = serving_latency(torch, cfg, model, fn, results, card)
+    fwd_ms, _, _ = serving_latency(torch, cfg, model, fn, results, card)
     return launches, fwd_ms
 
 
@@ -1237,9 +1577,11 @@ def check_r50_training(torch, ca, dcn, card):
     torch.cuda.synchronize()
     L = mc.head.num_layers
     counters = {"K4": (dcn, "LAUNCHES"), "K1": (ca, "LAUNCHES"), "K2 dK/dV": (ca, "DKDV_LAUNCHES"),
-                "K2 dQ": (ca, "DQ_LAUNCHES")}
+                "K2 dQ": (ca, "DQ_LAUNCHES"), "K2 dK/dV fp32": (ca, "DKDV_LAUNCHES_FP32"),
+                "K2 dQ fp32": (ca, "DQ_LAUNCHES_FP32")}
     m, times, host, launches = timed_steps(
-        torch, one_step, counters, {"K4": 18, "K1": 2 * L, "K2 dK/dV": L, "K2 dQ": L}, 3, card,
+        torch, one_step, counters,
+        {"K4": 18, "K1": 2 * L, "K2 dK/dV": L, "K2 dQ": L, "K2 dK/dV fp32": 0, "K2 dQ fp32": 0}, 3, card,
         "K4: 9 forward + 9 in the bottlenecks' recompute")
     log("  last step's metrics: " + ", ".join(f"{k} {float(v):.4f}" for k, v in m.items()))
     for n in watched:
@@ -1257,9 +1599,11 @@ def check_r50_training(torch, ca, dcn, card):
         f"{med:.2f} ms on CUDA events ({', '.join(f'{t:.2f}' for t in times)}), host clock median "
         f"{statistics.median(host) * 1e3:.2f} ms, {B * 1e3 / med:.3f} samples/s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
-    dev_ms = profile(torch, one_step, card, iters=2, unit="step", inference=False)
+    dev_ms, per_kernel = profile(torch, one_step, card, iters=2, unit="step", inference=False)
     log(f"  device busy without the profiler: {100 * dev_ms / med:.1f}% of the median step "
         f"({dev_ms:.3f} ms of device time in {med:.2f} ms) [{card}]")
+    k2_ms = per_kernel.get("K2 dK/dV", 0.0) + per_kernel.get("K2 dQ", 0.0)
+    log(f"  K2 (dK/dV + dQ) per step: {k2_ms:.3f} ms of device time [{card}]")
 
     # In fp32 the step is sensitive to the last bit: a ReLU whose input lies
     # within rounding of 0 switches, or a sampling point crosses a pixel
@@ -1290,9 +1634,12 @@ def check_r50_training(torch, ca, dcn, card):
         finally:
             resnet.modulated_deform_conv = dcn.modulated_deform_conv
 
-    dcn.LAUNCHES = 0
+    dcn.LAUNCHES = ca.DKDV_LAUNCHES = ca.DQ_LAUNCHES = ca.DKDV_LAUNCHES_FP32 = ca.DQ_LAUNCHES_FP32 = 0
     with_kernel = grads_of()
-    assert dcn.LAUNCHES == 18, dcn.LAUNCHES
+    k2_counts = (ca.DKDV_LAUNCHES_FP32, ca.DQ_LAUNCHES_FP32, ca.DKDV_LAUNCHES, ca.DQ_LAUNCHES)
+    log(f"  fp32 step: K4 launches {dcn.LAUNCHES} (expected 18); K2 dK/dV fp32, dQ fp32, dK/dV bf16, dQ bf16 "
+        f"{k2_counts} (expected {(L, L, 0, 0)})")
+    assert dcn.LAUNCHES == 18 and k2_counts == (L, L, 0, 0), (dcn.LAUNCHES, k2_counts)
     plain = grads_of(plain=True)
     nudge = compare_steps(torch, "plain version, images nudged by one ulp vs not (the floor)",
                           grads_of(plain=True, inputs=nudged), plain, STEP_LOSS_RTOL, 1.0)
@@ -1360,19 +1707,23 @@ def main() -> int:
         k1 = check_flash_attention(torch, ca, sm_clock_hz, card)
         k2 = check_flash_backward(torch, ca, sm_clock_hz, card)
         k4 = check_dcn(torch, dcn, card)
-        k5 = check_conv3x3(torch, conv, card)
-        records = [k1, *k2, k4, k5]
+        k5, k5_fp32 = check_conv3x3(torch, conv, card)
+        records = [k1, *k2, k4, k5, k5_fp32]
     if 4 in phases:
-        k1_launches, k5_launches, k5_times = check_serving(torch, ca, conv, card)
+        k1_launches, k5_launches, k5_fp32_launches, k5_times = check_serving(torch, ca, conv, card)
         if records:
-            k1["launches"], k5["launches"] = k1_launches, k5_launches
+            k1["launches"], k5["launches"], k5_fp32["launches"] = k1_launches, k5_launches, k5_fp32_launches
+            k5_fp32["launches_note"] = "the flagship's fp32 twin, one forward on the route"
             k5.update(k5_times)
     if 5 in phases:
-        train_launches = check_training(torch, ca, card)
+        train_launches, fp32_launches = check_training(torch, ca, card)
         if records:
             k1["launches_train"] = train_launches["K1"]
             k2[0]["launches"] = train_launches["K2 dK/dV"]
             k2[1]["launches"] = train_launches["K2 dQ"]
+            k2[2]["launches"], k2[3]["launches"] = fp32_launches
+            for r in k2[2:]:
+                r["launches_note"] = "the flagship's fp32 train step"
     if 6 in phases:
         r50_launches, r50_fwd_ms = check_r50_serving(torch, ca, dcn, card)
         if records:

@@ -124,10 +124,11 @@ class ConvBNReLU(nn.Sequential):
     the reference VoVNet's ``conv3x3``/``conv1x1`` helpers.
 
     With ``PETR_TPU_TORCH_CONV_IMPL=cuda`` a 3x3 stride-1 conv takes the
-    fused route, ``conv3x3_bn_relu`` (K5 on CUDA), with the weight cast to
-    the compute dtype and the BN folded to an fp32 ``mul``/``add``, as
-    petr_tpu's ``PETR_TPU_CONV_IMPL=pallas`` does (`layers.py:243-252`). The
-    default, ``cudnn``, runs the children in turn.
+    fused route, ``conv3x3_bn_relu`` (K5 on CUDA), with the weight taken in
+    the compute dtype (the kernel's wrapper casts it in the copy that
+    repacks it) and the BN folded to an fp32 ``mul``/``add``, as petr_tpu's
+    ``PETR_TPU_CONV_IMPL=pallas`` does (`layers.py:243-252`). The default,
+    ``cudnn``, runs the children in turn.
     """
 
     def __init__(
@@ -149,7 +150,7 @@ class ConvBNReLU(nn.Sequential):
         if conv_impl() == "cuda" and fusable:
             mul = norm.weight * torch.rsqrt(norm.running_var + norm.eps)
             add = norm.bias - norm.running_mean * mul
-            return conv3x3_bn_relu(x, conv.weight.to(x.dtype), mul, add, relu=len(self) == 3)
+            return conv3x3_bn_relu(x, conv.weight, mul, add, relu=len(self) == 3)
         return super().forward(x)
 
 

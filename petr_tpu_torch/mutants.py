@@ -1,0 +1,80 @@
+#!/usr/bin/env python3
+"""Mutation check of the port's bf16 tensor-core kernels, on one CUDA card.
+
+    python3 -m petr_tpu_torch.mutants [--out DIR]
+
+For each mutant it copies ``petr_tpu_torch/`` and ``chip_smoke.py`` into a
+temporary directory, makes one change to one kernel source there (never in
+the checkout), and runs ``chip_smoke.py --phases 3`` in the copy, which
+builds the mutated kernel and must fail one of its checks: exit 1 with an
+AssertionError (a subset of phases exits 1 even when it passes). Each run's
+output goes to ``DIR/<mutant>.log`` (default ``build/mutants``); a
+line per mutant says its exit code and the first failed check. Exits 0 when
+every mutant was caught, 1 otherwise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# name -> (source under petr_tpu_torch/csrc, text, its replacement)
+MUTANTS = {
+    "k5_tap_shift": (
+        "conv3x3_bn_relu.cu",
+        "const int shift = (t / 3) * L.hc + t % 3;",
+        "const int shift = (t / 3) * L.hc + t % 3 + (t == 1);",  # tap (0, 1) reads column kw = 2
+    ),
+    "k2_hash_row_col_swapped": (
+        "flash_cross_attention_bwd.cu",
+        "dropout_keep(mix, qi, key, thresh)",  # dK/dV: the fragment's (key, query) fed as (row, column)
+        "dropout_keep(mix, key, qi, thresh)",
+    ),
+}
+
+
+def run(name: str, source: str, text: str, replacement: str, out: Path) -> bool:
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        shutil.copytree(ROOT / "petr_tpu_torch", work / "petr_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(ROOT / "chip_smoke.py", work / "chip_smoke.py")
+        path = work / "petr_tpu_torch" / "csrc" / source
+        code = path.read_text()
+        if code.count(text) != 1:
+            print(f"mutant {name}: the text to change occurs {code.count(text)} times in {source}")
+            return False
+        path.write_text(code.replace(text, replacement))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "3"], cwd=work,
+                              capture_output=True, text=True)
+        elapsed = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    (out / f"{name}.log").write_text(log)
+    failed = [line for line in log.splitlines() if line.startswith("AssertionError")]
+    last_check = [line for line in proc.stdout.splitlines() if "max abs err" in line][-1:]
+    caught = proc.returncode == 1 and bool(failed)
+    print(f"mutant {name} ({source}): exit {proc.returncode} after {elapsed:.1f} s, "
+          f"{'caught' if caught else 'NOT caught'}: {failed[0] if failed else 'no assertion failed'}"
+          + (f"; last comparison: {last_check[0].strip()}" if last_check else ""), flush=True)
+    return caught
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", type=Path, default=ROOT / "build" / "mutants")
+    args = parser.parse_args()
+    args.out.mkdir(parents=True, exist_ok=True)
+    results = [run(name, *spec, args.out) for name, spec in MUTANTS.items()]
+    return 0 if all(results) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,15 +3,17 @@
 Counterpart of `petr_tpu/ops/pallas/conv3x3.py`: out = act(conv3x3(x, w) *
 mul + add), stride 1 and padding 1, the conv summed in fp32, the epilogue in
 fp32 and one rounding to x's dtype. Layout NCHW: x (B, C, H, W), weight
-(Co, C, 3, 3) in x's dtype, ``mul``/``add`` (Co,) fp32 (the folded BN) or
-None for a plain conv.
+(Co, C, 3, 3) taken in x's dtype (cast if it is not), ``mul``/``add`` (Co,)
+fp32 (the folded BN) or None for a plain conv.
 
 One ``torch.autograd.Function`` carries it. On a CUDA tensor its forward
-launches K5, the hand-written kernel of ``csrc/conv3x3_bn_relu.cu``
-(replacing `petr_tpu/ops/pallas/conv3x3.py::_conv3x3_raw`); on a CPU tensor
-it runs the plain version, ``conv3x3_bn_relu_reference``, which is
-`_xla_reference` (`conv3x3.py:113-123`). The backward is autograd of the
-plain version, as JAX's `_bwd` (`conv3x3.py:140-143`) is the VJP of
+launches K5, a hand-written kernel of ``csrc/conv3x3_bn_relu.cu``
+(replacing `petr_tpu/ops/pallas/conv3x3.py::_conv3x3_raw`), chosen by x's
+dtype: bf16 runs the tensor-core kernel (an implicit GEMM on mma.sync, fed
+by cp.async), fp32 the CUDA-core kernel, which keeps fp32 callers in fp32.
+On a CPU tensor it runs the plain version, ``conv3x3_bn_relu_reference``,
+which is `_xla_reference` (`conv3x3.py:113-123`). The backward is autograd
+of the plain version, as JAX's `_bwd` (`conv3x3.py:140-143`) is the VJP of
 `_xla_reference`.
 
 The default route of ``ConvBNReLU`` stays cuDNN, as petr_tpu's stays XLA;
@@ -23,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,10 +34,16 @@ from petr_tpu_torch.ops import build
 
 CONV_IMPL_ENV = "PETR_TPU_TORCH_CONV_IMPL"
 CONV_IMPLS = ("cudnn", "cuda")
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # K5 launches since the count was last set to 0; only the CUDA path adds.
-LAUNCHES = 0
+LAUNCHES = 0  # the bf16 tensor-core kernel
+LAUNCHES_FP32 = 0  # the fp32 CUDA-core kernel
+SPLITK_LAUNCHES = 0  # the bf16 kernel's ordered reduction of a split K
+# the bf16 kernel's output tile (pixels, channels: ``tc::BM``, ``tc::BN``)
+# and its chunk of input channels (``tc::CK``)
+TILE_PIXELS = 128
+TILE_CHANNELS = 64
+CHUNK_CHANNELS = 16
 
 
 def conv_impl() -> str:
@@ -113,20 +121,73 @@ def conv3x3_bn_relu_plain(x, weight, mul=None, add=None, relu=True) -> torch.Ten
     return _Conv3x3BNReLU.apply(x, weight, mul, add, relu, True)
 
 
+@functools.lru_cache(maxsize=None)
+def conv_tile(H: int, W: int, pixels: int = TILE_PIXELS) -> Tuple[int, int]:
+    """The (TH, TW) output tile of the bf16 kernel for an H x W plane.
+
+    A block computes ``pixels`` output pixels whatever its tile holds, so the
+    tile is chosen to need the fewest blocks: every TH with TW = pixels //
+    TH, each balanced over the plane (W = 50 takes two tiles of 25, not 32 +
+    18). Within 3% of the fewest, the widest tile wins: its halo rows are
+    longer runs of x. At all four VoVNet planes this gives 5 x 25 (2% of
+    lanes idle)."""
+    cands = []
+    for th in range(1, min(H, pixels) + 1):
+        ncol = -(-W // (pixels // th))
+        tw = -(-W // ncol)
+        nrow = -(-H // th)
+        cands.append((nrow * ncol, -(-H // nrow), tw))
+    fewest = min(c[0] for c in cands)
+    _, th, tw = max((c for c in cands if c[0] <= 1.03 * fewest), key=lambda c: (c[2], -c[0], -c[1]))
+    return th, tw
+
+
+def conv_split(blocks: int, chunks: int, sms: int) -> int:
+    """Ways the bf16 kernel splits K (its ``chunks`` of CHUNK_CHANNELS inputs)
+    when the output tiles give only ``blocks`` blocks for ``sms`` SMs: none
+    from two blocks per SM up; below that enough for about four per SM, with
+    at least 4 chunks per share. At the VoVNet shapes on 132 SMs: 1 at 80x200
+    and 40x100, 3 or 4 at 20x50, 3 or 11 at 10x25."""
+    if blocks >= 2 * sms:
+        return 1
+    return max(1, min(chunks // 4, -(-4 * sms // blocks)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def repack_weight(weight: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """OIHW (Co, C, 3, 3) -> (Co, 3, 3, Cp) in ``dtype``, Cp = C rounded up to
+    8 with zeros past C: the bf16 kernel's K order, tap-major and
+    channel-minor, which is petr_tpu's ``weight.reshape(9 * C, Co)`` of the
+    HWIO weight (`conv3x3.py:89`) per output channel. One copy kernel that
+    also casts (two, with the zero fill, when C is not a multiple of 8)."""
+    Co, C = weight.shape[:2]
+    Cp = -(-C // 8) * 8
+    out = torch.empty((Co, 3, 3, Cp), dtype=dtype, device=weight.device)
+    if Cp != C:
+        out[..., C:].zero_()
+    out[..., :C].copy_(weight.permute(0, 2, 3, 1))
+    return out
+
+
 def _forward_cuda(x, weight, mul, add, relu):
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_FP32, SPLITK_LAUNCHES
     if x.dim() != 4 or weight.dim() != 4:
         raise ValueError(f"x {tuple(x.shape)} and weight {tuple(weight.shape)} must be NCHW and OIHW")
     B, C, H, W = x.shape
     Co = weight.shape[0]
     if weight.shape[1:] != (C, 3, 3):
         raise ValueError(f"weight must be (Co, {C}, 3, 3), got {tuple(weight.shape)}")
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     if weight.device != x.device:
         raise ValueError("x and weight must be on one device")
     x = x.contiguous()
-    weight = weight.to(x.dtype).contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
     ptrs = (None, None)
     if mul is not None:
         if mul.shape != (Co,) or add.shape != (Co,):
@@ -138,22 +199,42 @@ def _forward_cuda(x, weight, mul, add, relu):
     if out.numel() == 0:
         return out
     lib = _library()
-    err = lib.petr_conv3x3_bn_relu_fwd(
-        x.data_ptr(), weight.data_ptr(), *ptrs, out.data_ptr(), B, C, H, W, Co,
-        int(relu), _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError("conv3x3_bn_relu kernel launch failed: " + lib.petr_cuda_error_string(err).decode())
-    LAUNCHES += 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16:
+        wr = repack_weight(weight)
+        th, tw = conv_tile(H, W)
+        blocks = -(-H // th) * -(-W // tw) * -(-Co // TILE_CHANNELS) * B
+        ksplit = conv_split(blocks, -(-C // CHUNK_CHANNELS), _sm_count(x.device))
+        part = torch.empty((ksplit, B, Co, H, W), dtype=torch.float32, device=x.device) if ksplit > 1 else None
+        err = lib.petr_conv3x3_bn_relu_tc_fwd(
+            x.data_ptr(), wr.data_ptr(), *ptrs, out.data_ptr(), None if part is None else part.data_ptr(),
+            B, C, wr.shape[3], H, W, Co, th, tw, ksplit, int(relu), stream)
+        _raise_on(lib, err, "bf16")
+        LAUNCHES += 1
+        SPLITK_LAUNCHES += ksplit > 1
+    else:
+        weight = weight.to(torch.float32).contiguous()
+        err = lib.petr_conv3x3_bn_relu_fp32_fwd(
+            x.data_ptr(), weight.data_ptr(), *ptrs, out.data_ptr(), B, C, H, W, Co, int(relu), stream)
+        _raise_on(lib, err, "fp32")
+        LAUNCHES_FP32 += 1
     return out
+
+
+def _raise_on(lib, err: int, variant: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"conv3x3_bn_relu {variant} kernel launch failed: "
+                           + lib.petr_cuda_error_string(err).decode())
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load("conv3x3_bn_relu")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.petr_conv3x3_bn_relu_fwd.argtypes = [P] * 5 + [I] * 7 + [P]
-    lib.petr_conv3x3_bn_relu_fwd.restype = I
+    lib.petr_conv3x3_bn_relu_fp32_fwd.argtypes = [P] * 5 + [I] * 6 + [P]
+    lib.petr_conv3x3_bn_relu_fp32_fwd.restype = I
+    lib.petr_conv3x3_bn_relu_tc_fwd.argtypes = [P] * 6 + [I] * 10 + [P]
+    lib.petr_conv3x3_bn_relu_tc_fwd.restype = I
     lib.petr_cuda_error_string.argtypes = [I]
     lib.petr_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -6,7 +6,8 @@ it both ways. On CUDA tensors its forward launches K1, the hand-written
 kernel of ``petr_tpu_torch/csrc/flash_cross_attention.cu`` (replacing
 `petr_tpu/ops/pallas/cross_attention.py::_kernel`), and its backward
 launches K2, the two kernels of ``csrc/flash_cross_attention_bwd.cu``
-(replacing `_bwd_kernel`). On CPU tensors it runs the plain versions,
+(replacing `_bwd_kernel`): on the tensor cores for bf16, on the CUDA cores
+for fp32, chosen by dtype. On CPU tensors it runs the plain versions,
 ``flash_cross_attention_reference`` and
 ``flash_cross_attention_backward_reference``: dense fp32 PyTorch with the
 same semantics, which the tests and ``chip_smoke.py`` hold the kernels to.
@@ -38,8 +39,10 @@ _M32 = 0xFFFFFFFF
 
 # Kernel launches since the count was last set to 0; only the CUDA path adds.
 LAUNCHES = 0  # K1, the forward
-DKDV_LAUNCHES = 0  # K2's dK/dV kernel
-DQ_LAUNCHES = 0  # K2's dQ kernel
+DKDV_LAUNCHES = 0  # K2's dK/dV kernel, bf16 on the tensor cores
+DQ_LAUNCHES = 0  # K2's dQ kernel, bf16 on the tensor cores
+DKDV_LAUNCHES_FP32 = 0  # K2's dK/dV kernel, fp32 on the CUDA cores
+DQ_LAUNCHES_FP32 = 0  # K2's dQ kernel, fp32 on the CUDA cores
 
 
 # ------------------------------------------------------------- dropout hash
@@ -243,7 +246,7 @@ def flash_cross_attention_with_lse(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: like ``flash_cross_attention``, but differentiable in lse too, the
     combiner of sequence-parallel attention (`flash_cross_attention_with_lse`,
-    `cross_attention.py:401`). The lse cotangent folds into delta."""
+    `cross_attention.py:402`). The lse cotangent folds into delta."""
     _check_device(q)
     return _FlashCrossAttention.apply(q, k, v, key_padding_mask, dropout_rate, dropout_seed, True, False)
 
@@ -281,6 +284,15 @@ def _check_inputs(q, k, v):
 
 def _last_contiguous(*ts):
     return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
+
+
+def _rows_aligned(*ts):
+    """Each tensor as it is when its rows start on 16-byte boundaries (the
+    bf16 backward kernels copy them in 16-byte pieces), else a contiguous
+    copy in a new allocation: the (B, H, ., D) views of projections already
+    are."""
+    return tuple(t if t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+                 else t.clone(memory_format=torch.contiguous_format) for t in ts)
 
 
 def _mask_ptr(key_padding_mask, B, L, device):
@@ -332,15 +344,18 @@ def _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed):
 
 def _backward_cuda(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, dropout_seed,
                    kernels=("dkdv", "dq")):
-    """K2: (dq, dk, dv) in q's dtype, from the dK/dV kernel and the dQ kernel.
+    """K2: (dq, dk, dv) in q's dtype, from the dK/dV kernel and the dQ kernel,
+    the tensor-core variants for bf16 and the CUDA-core ones for fp32.
     ``kernels`` names the kernels to launch (a timing can take one alone;
     the outputs of the other are then left unwritten)."""
-    global DKDV_LAUNCHES, DQ_LAUNCHES
+    global DKDV_LAUNCHES, DQ_LAUNCHES, DKDV_LAUNCHES_FP32, DQ_LAUNCHES_FP32
     B, H, Q, L, D = _check_inputs(q, k, v)
     if gout.shape != q.shape or lse.shape != (B, H, Q) or delta.shape != (B, H, Q):
         raise ValueError(f"gout {tuple(gout.shape)}, lse {tuple(lse.shape)}, delta {tuple(delta.shape)} "
                          f"do not fit q {tuple(q.shape)}")
     q, k, v, gout = _last_contiguous(q, k, v, gout.to(q.dtype))
+    if q.dtype == torch.bfloat16:
+        q, k, v, gout = _rows_aligned(q, k, v, gout)
     lse = lse.to(torch.float32).contiguous()
     delta = delta.to(torch.float32).contiguous()
     _, mask_ptr = _mask_ptr(key_padding_mask, B, L, q.device)
@@ -360,11 +375,17 @@ def _backward_cuda(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, dr
     if "dkdv" in kernels:
         err = lib.petr_flash_cross_attention_bwd_dkdv(*common, dk.data_ptr(), dv.data_ptr(), B, H, Q, L, D, *tail)
         _raise_on(lib, err, "flash_cross_attention dK/dV")
-        DKDV_LAUNCHES += 1
+        if q.dtype == torch.bfloat16:
+            DKDV_LAUNCHES += 1
+        else:
+            DKDV_LAUNCHES_FP32 += 1
     if "dq" in kernels:
         err = lib.petr_flash_cross_attention_bwd_dq(*common, dq.data_ptr(), B, H, Q, L, D, *tail)
         _raise_on(lib, err, "flash_cross_attention dQ")
-        DQ_LAUNCHES += 1
+        if q.dtype == torch.bfloat16:
+            DQ_LAUNCHES += 1
+        else:
+            DQ_LAUNCHES_FP32 += 1
     return dq, dk, dv
 
 

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the card:
 K1 (the forward, with and without dropout), K2 (the backward's dK/dV and dQ
-kernels), K3 (the lse cotangent through the autograd Function), K4 (DCNv2,
-forward and the gradients through its Function) and K5 (the fused conv3x3).
+kernels, bf16 on the tensor cores and fp32 on the CUDA cores), K3 (the lse
+cotangent through the autograd Function), K4 (DCNv2, forward and the
+gradients through its Function) and K5 (the fused conv3x3, both variants).
 
 Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 False. The card's machine has no JAX, so this file imports none and runs
@@ -120,23 +121,47 @@ def _assert_grads_close(got, want, dtype):
         assert ((g - w).abs() <= bound).all(), f"{name}: max abs err {(g - w).abs().max().item():.3e}"
 
 
+def _k2_counts(dtype):
+    """K2's launch counters of the variant that serves ``dtype``."""
+    if dtype == torch.bfloat16:
+        return ca.DKDV_LAUNCHES, ca.DQ_LAUNCHES
+    return ca.DKDV_LAUNCHES_FP32, ca.DQ_LAUNCHES_FP32
+
+
+# Q and L at no multiple of any tile (the bf16 kernels tile 64 and 32
+# queries, 128 keys), D = 16 and 64, and a fully masked batch row wherever B > 1
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("B,H,Q,L,D", [(1, 8, 900, 6000, 32), (2, 4, 37, 61, 16), (2, 2, 130, 520, 64)])
+@pytest.mark.parametrize("B,H,Q,L,D", [(1, 8, 900, 6000, 32), (1, 8, 900, 16896, 32), (2, 4, 37, 61, 16),
+                                       (2, 2, 130, 520, 64), (2, 3, 77, 301, 32), (2, 2, 45, 1000, 16),
+                                       (3, 1, 201, 333, 64)])
 def test_backward_kernels_match_plain_version(cuda, dtype, rate, B, H, Q, L, D):
     q, k, v, mask = _inputs(B, H, Q, L, D, dtype, seed=Q + 3 * L, masked_row=B > 1)
     gout = torch.randn(B, H, Q, D, device="cuda").to(dtype)
     out, lse = ca.flash_cross_attention_reference(q, k, v, mask, rate, -7)
     delta = ca._delta(gout, out, None)
-    before = (ca.DKDV_LAUNCHES, ca.DQ_LAUNCHES)
+    before = _k2_counts(dtype)
     got = ca._backward_cuda(q, k, v, mask, gout, lse, delta, rate, -7)
     torch.cuda.synchronize()
-    assert (ca.DKDV_LAUNCHES, ca.DQ_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert _k2_counts(dtype) == (before[0] + 1, before[1] + 1)
     want = ca.flash_cross_attention_backward_reference(q, k, v, mask, out, lse, gout, None, rate, -7)
     assert all(g.dtype == dtype and g.shape == w.shape for g, w in zip(got, want))
     _assert_grads_close(got, want, dtype)
     if B > 1:  # the fully masked batch row: exact zeros
         assert all((g[-1] == 0).all() for g in got)
+
+
+def test_bf16_backward_takes_unaligned_views(cuda):
+    """Rows that do not start on 16-byte boundaries (a head dim sliced out
+    of a wider buffer) are copied before the tensor-core kernels run."""
+    q, k, v, mask = _inputs(2, 2, 50, 90, 40, torch.bfloat16, seed=5, masked_row=True)
+    q, k, v = (t[..., 3:35] for t in (q, k, v))
+    gout = torch.randn(2, 2, 50, 32, device="cuda").to(torch.bfloat16)
+    out, lse = ca.flash_cross_attention_reference(q, k, v, mask, 0.1, 9)
+    delta = ca._delta(gout, out, None)
+    got = ca._backward_cuda(q, k, v, mask, gout, lse, delta, 0.1, 9)
+    want = ca.flash_cross_attention_backward_reference(q, k, v, mask, out, lse, gout, None, 0.1, 9)
+    _assert_grads_close(got, want, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -188,11 +213,12 @@ def test_tiny_train_gradients_on_the_card_match_the_cpu(cuda):
     results = []
     for device in ("cpu", "cuda"):
         model = create_train_state(cfg, seed=0, total_steps=10, device=device).model
-        before = (ca.LAUNCHES, ca.DKDV_LAUNCHES, ca.DQ_LAUNCHES)
+        before = (ca.LAUNCHES, ca.DKDV_LAUNCHES_FP32, ca.DQ_LAUNCHES_FP32)
         results.append(make_grad_fn(cfg)(model, batch, torch.Generator().manual_seed(0)))
-        if device == "cuda":
+        if device == "cuda":  # fp32: K2's CUDA-core variants
             L = cfg.model.head.num_layers
-            assert (ca.LAUNCHES - before[0], ca.DKDV_LAUNCHES - before[1], ca.DQ_LAUNCHES - before[2]) == (2 * L, L, L)
+            got = (ca.LAUNCHES - before[0], ca.DKDV_LAUNCHES_FP32 - before[1], ca.DQ_LAUNCHES_FP32 - before[2])
+            assert got == (2 * L, L, L)
     (t_cpu, _, g_cpu, i_cpu), (t_gpu, _, g_gpu, i_gpu) = results
     np.testing.assert_array_equal(i_cpu, i_gpu)
     assert abs(t_cpu.item() - t_gpu.item()) <= 1e-4 * abs(t_cpu.item())
@@ -268,8 +294,13 @@ def test_dcn_gradients_through_the_function(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("affine,relu", [(True, True), (False, False)])
-@pytest.mark.parametrize("B,C,H,W,Co", [(6, 128, 80, 200, 128), (6, 192, 20, 50, 192), (1, 13, 5, 7, 70)],
-                         ids=["stage2", "stage4", "odd"])
+@pytest.mark.parametrize(
+    "B,C,H,W,Co",
+    [(6, 128, 80, 200, 128), (6, 192, 20, 50, 192), (1, 13, 5, 7, 70), (2, 160, 40, 100, 160),
+     (3, 40, 10, 25, 224), (2, 24, 11, 50, 160), (1, 8, 3, 130, 96), (1, 200, 10, 25, 64)],
+    ids=["stage2", "stage4", "odd", "co160-w100", "co224-w25-c40", "w50-c24", "one-row-tiles",
+         "split-k-uneven"],
+)
 def test_conv3x3_kernel_matches_plain_version(cuda, dtype, affine, relu, B, C, H, W, Co):
     from petr_tpu_torch.ops import conv3x3
 
@@ -279,10 +310,16 @@ def test_conv3x3_kernel_matches_plain_version(cuda, dtype, affine, relu, B, C, H
     w = (torch.randn(Co, C, 3, 3, generator=gen, device="cuda") * (2.0 / (9 * C)) ** 0.5).to(dtype)
     mul = torch.rand(Co, generator=gen, device="cuda") + 0.5 if affine else None
     add = torch.randn(Co, generator=gen, device="cuda") * 0.3 if affine else None
-    before = conv3x3.LAUNCHES
+    counter = "LAUNCHES" if dtype == torch.bfloat16 else "LAUNCHES_FP32"
+    before = getattr(conv3x3, counter), conv3x3.SPLITK_LAUNCHES
     out = conv3x3.conv3x3_bn_relu(x, w, mul, add, relu)
     torch.cuda.synchronize()
-    assert conv3x3.LAUNCHES == before + 1
+    assert getattr(conv3x3, counter) == before[0] + 1
+    th, tw = conv3x3.conv_tile(H, W)
+    blocks = -(-H // th) * -(-W // tw) * -(-Co // conv3x3.TILE_CHANNELS) * B
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = dtype == torch.bfloat16 and conv3x3.conv_split(blocks, -(-C // conv3x3.CHUNK_CHANNELS), sms) > 1
+    assert conv3x3.SPLITK_LAUNCHES == before[1] + split  # stage 4 and the uneven case split K
     want = conv3x3.conv3x3_bn_relu_reference(x, w, mul, add, relu)
     assert out.dtype == dtype and out.shape == want.shape
     _assert_dcn_close(out, want, dtype)
