@@ -16,16 +16,24 @@ nothing of petr_tpu. Phases, each fatal on failure:
    one, and the least time the card could take (``bound_ms``). A record's
    ``ms``, ``plain_ms`` and ``library_ms`` are one call between CUDA
    events; its ``device_ms`` (and ``library_device_ms``) the kernels' own
-   time from the profiler. K1 without and with dropout (also at the r50dcn
-   decoder's L = 16,896); K2 (its dK/dV and dQ kernels, the bf16
-   tensor-core and the fp32 CUDA-core variants, each launch counted on its
-   variant's counter) at dropout 0 and 0.1, the bf16 variant checked and
+   time from the profiler. Every kernel comes in two variants, bf16 on the
+   tensor cores and fp32 on the CUDA cores, each launch counted on its
+   variant's counter. K1 without and with dropout, at the flagship's L and
+   the r50dcn decoder's L = 16,896 (a fully masked batch row must give exact
+   zeros and lse 1e30): the bf16 variant against its rounding floor (the
+   plain version rounding p to bf16 where the kernel does) under
+   KERNEL_TOL, on inputs whose logits are exact in fp32, and against the
+   unrounded plain version; timed beside SDPA; K2 (its dK/dV and dQ
+   kernels) at dropout 0 and 0.1, the bf16 variant checked and
    timed also at L = 16,896, with the distance that rounding P and dS to
    bf16 alone puts between the plain backward and itself; K3's lse
    cotangent through the autograd Function
    (a fully masked batch row must give exact zeros); K4 (DCNv2) at both
-   r50dcn stages in fp32 and bf16 and a small odd shape at stride 2, and
-   its gradients through its Function; K5 (the fused conv3x3): the bf16
+   r50dcn stages in fp32 and bf16, a small odd shape at stride 2 and a
+   Cout of 300 (the bf16 variant against its rounding floor, with samples
+   and weight rounded to bf16, under KERNEL_TOL and against the unrounded
+   plain version under OPERAND_TOL), and its gradients through its
+   Function; K5 (the fused conv3x3): the bf16
    tensor-core kernel at each of the 10 shapes of the flagship's route,
    timed at each beside cuDNN and its bound and summed over a forward's 80
    launches, the fp32 CUDA-core kernel at stages 2 and 4, both with and
@@ -35,7 +43,9 @@ nothing of petr_tpu. Phases, each fatal on failure:
    ``InferenceServer`` (batch 2, one batch partial and padded). Launch
    counts are set to 0 just before and read just after; outputs are checked
    for shape and finiteness, against direct serving calls, and against the
-   same model with each kernel's call routed to its plain version. Then the
+   same model with each kernel's call routed to its plain version; the
+   bf16 model launches only the bf16 variants, the fp32 twin below only the
+   fp32 ones. Then the
    B=1 latency and one ``torch.profiler`` pass for the device time per
    forward, the device-busy share and each kernel's share. Then the same
    model with ``PETR_TPU_TORCH_CONV_IMPL=cuda``: the route's convs match
@@ -126,6 +136,22 @@ PEAK_FP32_FLOPS = 67e12
 # largest |ref| (sums in other orders); bf16 within one bf16 step of |ref|
 # (at most 2^-7 |ref|) plus that, since both round one fp32 sum.
 KERNEL_TOL = {"fp32": (2e-5, 0.0), "bf16": (2e-5, 2.0 ** -7)}
+# K1 against the unrounded plain version, elementwise atol + rtol * |ref|
+# (absolute: the outputs are ~N(0, 0.023) at the flagship shape). fp32: sums
+# in other orders. bf16: one bf16 step of a value x is up to x/128; atol is a
+# tenth of a typical output. The bf16 kernel's rounding of p moves it by far
+# less (the floor's distance is printed beside).
+K1_FP32_TOL = (1e-4, 0.0)
+K1_BF16_TOL = (2e-3, 1e-2)
+# The bf16 K4 against the unrounded plain version, as KERNEL_TOL (atol x
+# max|ref| + rtol x |ref|): it rounds the samples and the weight to bf16
+# before their products, as petr_tpu's Pallas kernel does, which moves a sum
+# of 2,304 (stage 3) or 4,608 (stage 4) terms by about 2^-9 of its terms'
+# root sum of squares. Its rounding floor (the plain version with
+# operand_dtype=bfloat16) took 0.52 (stage 3), 0.48 (stage 4), 0.26 (the
+# stride-2 odd shape) and 0.55 (Cout 300) of this bound on an H100; the
+# shares of each run are printed.
+OPERAND_TOL = (4e-3, 1.6e-2)
 # Whole bf16 models on two routes that round at other points (K5 against
 # cuDNN, K4 against its plain version): per output, atol + rtol * |ref|,
 # and a limit on the mean. One bf16 step of a feature flips the later
@@ -246,13 +272,20 @@ def bound_ms(pairs, flops_per_pair, nbytes, sm_count, sm_clock_hz, peak_flops=PE
     }
 
 
-def attention_inputs(torch, gen, batch, dtype, H=8, Q=900, L=6000, D=32):
+def attention_inputs(torch, gen, batch, dtype, H=8, Q=900, L=6000, D=32, grid=False):
     """q/k/v at the flagship decoder shape, as the (B, H, ., D) transposes of
     (B, ., H, D) projections, exactly as MultiheadAttention hands them over,
-    and a key mask with a padded tail and padding inside."""
-    q = torch.randn(batch, Q, H, D, generator=gen, device="cuda").to(dtype).transpose(1, 2)
-    k = torch.randn(batch, L, H, D, generator=gen, device="cuda").to(dtype).transpose(1, 2)
-    v = torch.randn(batch, L, H, D, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    and a key mask with a padded tail and padding inside. With ``grid`` the
+    N(0, 1) draws are rounded to multiples of 1/8 in [-4, 4]: every q.k is
+    then exact in fp32 in any order of its sum, so the kernel's logits equal
+    the plain version's bit for bit (see check_flash_attention)."""
+    def draw(n):
+        t = torch.randn(batch, n, H, D, generator=gen, device="cuda")
+        if grid:
+            t = (t * 8).round().clamp(-32, 32) / 8
+        return t.to(dtype).transpose(1, 2)
+
+    q, k, v = draw(Q), draw(L), draw(L)
     mask = torch.zeros(batch, L, dtype=torch.bool, device="cuda")
     mask[:, L - 700:] = True
     mask[:, 1000:1200] = True
@@ -260,119 +293,215 @@ def attention_inputs(torch, gen, batch, dtype, H=8, Q=900, L=6000, D=32):
 
 
 def check_flash_attention(torch, ca, sm_clock_hz, card):
-    """K1, without and with dropout, against its plain version at the
-    flagship decoder shape, then timed."""
+    """K1 against its plain versions at the flagship decoder shape and the
+    r50dcn decoder's L = 16,896, without and with dropout, then timed.
+
+    The bf16 kernel (tensor cores) rounds p to bf16 for its product with v,
+    against each row's final maximum; ``round_p=True`` makes the plain
+    version round it at the same point: the rounding floor. On inputs whose
+    logits are exact in fp32 (``grid``) the two compute every p bit for bit
+    and differ only in the order of the fp32 sums, so they are held to
+    KERNEL_TOL. On N(0, 1) inputs the kernel's q.k (mma) and torch's differ
+    in the last bit, which flips the bf16 rounding of about one p in 10^4-10^5;
+    there the kernel is held to the unrounded plain version within
+    K1_BF16_TOL, and the floor's own distance from it is printed beside. The
+    fp32 kernel (CUDA cores) is held to the unrounded plain version within
+    K1_FP32_TOL. Each call must move its variant's launch counter only."""
     import torch.nn.functional as F
 
     B, H, Q, L, D = 1, 8, 900, 6000, 32
+    Lr = 6 * 32 * 88  # the r50dcn decoder: L = 6 views x 32 x 88 tokens at 512x1408, p4
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    def inputs(batch, dtype):
-        return attention_inputs(torch, gen, batch, dtype, H, Q, L, D)
+    def counts():
+        return ca.LAUNCHES, ca.LAUNCHES_FP32
 
-    def compare(name, q, k, v, mask, out_atol, out_rtol, masked_rows=(), rate=0.0):
+    def run(q, k, v, mask, rate):
         seed = DROP_SEED if rate > 0 else None
+        before = counts()
         out, lse = ca.flash_cross_attention(q, k, v, mask, rate, seed)
         torch.cuda.synchronize()
-        ref_out, ref_lse = ca.flash_cross_attention_reference(q, k, v, mask, rate, seed)
-        torch.cuda.synchronize()
-        assert out.dtype == q.dtype and out.shape == q.shape and lse.shape == (q.shape[0], H, Q)
-        o, r = out.float(), ref_out.float()
-        err = (o - r).abs()
-        bad = err > out_atol + out_rtol * r.abs()
-        live = torch.ones(q.shape[0], dtype=torch.bool, device="cuda")
+        bf16 = q.dtype == torch.bfloat16
+        assert counts() == (before[0] + bf16, before[1] + (not bf16)), (
+            f"a {q.dtype} call did not move its own launch counter alone: {before} -> {counts()}")
+        assert out.dtype == q.dtype and out.shape == q.shape and lse.shape == q.shape[:3]
+        return out, lse
+
+    def check_lse_and_masked_rows(name, out, lse, ref_lse, masked_rows):
+        live = torch.ones(out.shape[0], dtype=torch.bool, device="cuda")
         live[list(masked_rows)] = False
         lse_err = (lse[live] - ref_lse[live]).abs().max().item()
-        log(f"  {name}: out max abs err {err.max().item():.3e} "
-            f"(atol {out_atol}, rtol {out_rtol}), lse max abs err {lse_err:.3e} (tol 1e-3)")
-        assert not bad.any(), f"{name}: {int(bad.sum())} outputs out of tolerance"
         assert lse_err <= 1e-3, f"{name}: lse error {lse_err}"
         for b in masked_rows:
             assert (out[b] == 0).all(), f"{name}: fully masked row {b} has nonzero output"
             assert (lse[b] == 1e30).all(), f"{name}: fully masked row {b} lse is not +1e30"
+        return lse_err
+
+    def compare(name, q, k, v, mask, tol, masked_rows=(), rate=0.0):
+        """The kernel against the unrounded plain version, elementwise within
+        atol + rtol * |ref|; for bf16 also the floor's distance from it."""
+        seed = DROP_SEED if rate > 0 else None
+        out, lse = run(q, k, v, mask, rate)
+        ref_out, ref_lse = ca.flash_cross_attention_reference(q, k, v, mask, rate, seed)
+        o, r = out.float(), ref_out.float()
+        atol, rtol = tol
+        err = (o - r).abs()
+        bound = atol + rtol * r.abs()
+        lse_err = check_lse_and_masked_rows(name, out, lse, ref_lse, masked_rows)
+        floor = ""
+        if q.dtype == torch.bfloat16:
+            fl_out, _ = ca.flash_cross_attention_reference(q, k, v, mask, rate, seed, round_p=True)
+            fe = (fl_out.float() - r).abs()
+            ke = (o - fl_out.float()).abs()
+            floor = (f"; the floor (round_p) vs unrounded: max {fe.max().item():.3e}, worst share of the bound "
+                     f"{(fe / bound).max().item():.3f} (kernel {(err / bound).max().item():.3f}); kernel vs floor "
+                     f"max {ke.max().item():.3e}")
+        log(f"  {name}: out max abs err {err.max().item():.3e} (atol {atol}, rtol {rtol}), lse max abs err "
+            f"{lse_err:.3e} (tol 1e-3){floor}")
+        assert not (err > bound).any(), f"{name}: {int((err > bound).sum())} outputs out of tolerance"
         return err.max().item()
 
-    log("phase 3: flash_cross_attention (K1) against its plain version")
-    q32, k32, v32, m32 = inputs(B, torch.float32)
-    compare("fp32", q32, k32, v32, m32, 1e-4, 0.0)
-    # bf16: outputs are ~N(0, 0.023) here, one bf16 step of a value x is
-    # up to x/128; the tolerance is a tenth of a typical output
-    q16, k16, v16, m16 = inputs(B, torch.bfloat16)
-    max_err = compare("bf16", q16, k16, v16, m16, 2e-3, 1e-2)
-    qm, km, vm, mm = inputs(2, torch.bfloat16)
-    mm[1] = True  # batch row 1 is all padding
-    compare("bf16, batch row 1 fully masked", qm, km, vm, mm, 2e-3, 1e-2, masked_rows=(1,))
-    qmf, kmf, vmf, mmf = inputs(2, torch.float32)
-    mmf[1] = True
-    compare("fp32, batch row 1 fully masked", qmf, kmf, vmf, mmf, 1e-4, 0.0, masked_rows=(1,))
+    def compare_floor(name, q, k, v, mask, masked_rows=(), rate=0.0):
+        """The bf16 kernel against its rounding floor under KERNEL_TOL."""
+        seed = DROP_SEED if rate > 0 else None
+        out, lse = run(q, k, v, mask, rate)
+        fl_out, fl_lse = ca.flash_cross_attention_reference(q, k, v, mask, rate, seed, round_p=True)
+        check_lse_and_masked_rows(name, out, lse, fl_lse, masked_rows)
+        return kernel_compare(torch, name, out, fl_out, "bf16")
 
-    log(f"phase 3: K1 with dropout {DROPOUT} (seed {DROP_SEED}) against its plain version")
+    log("phase 3: flash_cross_attention (K1) against its plain versions")
+    q32, k32, v32, m32 = attention_inputs(torch, gen, B, torch.float32)
+    fp32_err = compare("fp32", q32, k32, v32, m32, K1_FP32_TOL)
+    q16, k16, v16, m16 = attention_inputs(torch, gen, B, torch.bfloat16)
+    max_err = compare("bf16", q16, k16, v16, m16, K1_BF16_TOL)
+    qm, km, vm, mm = attention_inputs(torch, gen, 2, torch.bfloat16)
+    mm[1] = True  # batch row 1 is all padding
+    compare("bf16, batch row 1 fully masked", qm, km, vm, mm, K1_BF16_TOL, masked_rows=(1,))
+    qmf, kmf, vmf, mmf = attention_inputs(torch, gen, 2, torch.float32)
+    mmf[1] = True
+    compare("fp32, batch row 1 fully masked", qmf, kmf, vmf, mmf, K1_FP32_TOL, masked_rows=(1,))
+    qr, kr, vr, mr = attention_inputs(torch, gen, B, torch.bfloat16, H, Q, Lr, D)
+    r50_err = compare(f"bf16, r50dcn L {Lr}", qr, kr, vr, mr, K1_BF16_TOL)
+
+    log(f"phase 3: K1 with dropout {DROPOUT} (seed {DROP_SEED}) against its plain versions")
     kept = ca.dropout_keep_mask(DROP_SEED, 2, H, Q, L, DROPOUT, "cuda").float().mean().item()
     log(f"  kept fraction of the hashed mask over 2 x {H} x {Q} x {L}: {kept:.5f} (1 - rate = {1 - DROPOUT})")
     assert abs(kept - (1 - DROPOUT)) <= 0.01, kept
-    compare("fp32, dropout", q32, k32, v32, m32, 1e-4, 0.0, rate=DROPOUT)
-    drop_err = compare("bf16, dropout", q16, k16, v16, m16, 2e-3, 1e-2, rate=DROPOUT)
-    compare("bf16, dropout, batch row 1 fully masked", qm, km, vm, mm, 2e-3, 1e-2, (1,), DROPOUT)
-    compare("fp32, dropout, batch row 1 fully masked", qmf, kmf, vmf, mmf, 1e-4, 0.0, (1,), DROPOUT)
+    compare("fp32, dropout", q32, k32, v32, m32, K1_FP32_TOL, rate=DROPOUT)
+    drop_err = compare("bf16, dropout", q16, k16, v16, m16, K1_BF16_TOL, rate=DROPOUT)
+    compare("bf16, dropout, batch row 1 fully masked", qm, km, vm, mm, K1_BF16_TOL, (1,), DROPOUT)
+    compare("fp32, dropout, batch row 1 fully masked", qmf, kmf, vmf, mmf, K1_FP32_TOL, (1,), DROPOUT)
+    compare(f"bf16, dropout, r50dcn L {Lr}", qr, kr, vr, mr, K1_BF16_TOL, rate=DROPOUT)
 
-    kernel_ms = cuda_time_ms(lambda: ca.flash_cross_attention(q16, k16, v16, m16))
-    kernel_dev_ms = device_ms(torch, lambda: ca.flash_cross_attention(q16, k16, v16, m16))
-    plain_ms = cuda_time_ms(lambda: ca.flash_cross_attention_reference(q16, k16, v16, m16))
-    keep = ~m16[:, None, None, :]  # SDPA's boolean mask: True = attend
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q16, k16, v16, attn_mask=keep))
-    library_dev_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(q16, k16, v16, attn_mask=keep))
-    drop_ms = cuda_time_ms(lambda: ca.flash_cross_attention(q16, k16, v16, m16, DROPOUT, DROP_SEED))
-    drop_plain_ms = cuda_time_ms(lambda: ca.flash_cross_attention_reference(q16, k16, v16, m16, DROPOUT, DROP_SEED))
-    kernel_ms32 = cuda_time_ms(lambda: ca.flash_cross_attention(q32, k32, v32, m32))
-    L_valid = int((~m16).sum())
-    pairs = H * Q * L_valid
-    nbytes = 2 * B * H * D * (2 * Q + 2 * L) + 4 * B * H * Q + B * L  # q, k, v, mask; out, lse
+    log("phase 3: bf16 K1 against its rounding floor (round_p=True) under KERNEL_TOL, on inputs whose "
+        "logits are exact in fp32 (N(0, 1) draws rounded to multiples of 1/8)")
+    floor_errs = []
+    for Lc in (L, Lr):
+        for rate in (0.0, DROPOUT):
+            for batch in (1, 2):
+                qg, kg, vg, mg = attention_inputs(torch, gen, batch, torch.bfloat16, H, Q, Lc, D, grid=True)
+                rows = ()
+                if batch == 2:
+                    mg[1] = True
+                    rows = (1,)
+                name = f"floor, L {Lc}, rate {rate}" + (", batch row 1 fully masked" if rows else "")
+                floor_errs.append(compare_floor(name, qg, kg, vg, mg, rows, rate))
+                del qg, kg, vg, mg
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    bms, bound_by, parts = bound_ms(pairs, 4.0 * D, nbytes, sms, sm_clock_hz)
-    log(f"  timing bf16 B={B} H={H} Q={Q} L={L} ({L_valid} unmasked) D={D}: "
-        f"kernel_ms {kernel_ms:.4f}, plain_ms {plain_ms:.4f}, library_ms (SDPA) {library_ms:.4f} (one call "
-        f"between CUDA events); device time: kernel {kernel_dev_ms:.4f}, SDPA {library_dev_ms:.4f}; "
-        f"bound_ms {bms:.4f} ({bound_by}; {json.dumps({k: round(v, 5) for k, v in parts.items()})}) [{card}]")
-    log(f"  timing bf16 with dropout {DROPOUT}: kernel_ms {drop_ms:.4f}, plain_ms {drop_plain_ms:.4f} [{card}]")
-    log(f"  timing fp32: kernel_ms {kernel_ms32:.4f} [{card}]")
-    # the r50dcn decoder: L = 6 views x 32 x 88 tokens at 512x1408, p4
-    Lr = 6 * 32 * 88
-    qr, kr, vr, mr = attention_inputs(torch, gen, B, torch.bfloat16, H, Q, Lr, D)
-    r50_err = compare("bf16, r50dcn L", qr, kr, vr, mr, 2e-3, 1e-2)
-    r50_ms = cuda_time_ms(lambda: ca.flash_cross_attention(qr, kr, vr, mr))
-    r50_plain_ms = cuda_time_ms(lambda: ca.flash_cross_attention_reference(qr, kr, vr, mr))
-    r50_lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, attn_mask=~mr[:, None, None, :]))
-    Lr_valid = int((~mr).sum())
-    r50_bms, r50_by, r50_parts = bound_ms(H * Q * Lr_valid, 4.0 * D,
-                                          2 * B * H * D * (2 * Q + 2 * Lr) + 4 * B * H * Q + B * Lr, sms, sm_clock_hz)
-    log(f"  timing bf16 at the r50dcn decoder's L={Lr} ({Lr_valid} unmasked): kernel_ms {r50_ms:.4f}, "
-        f"plain_ms {r50_plain_ms:.4f}, library_ms (SDPA) {r50_lib_ms:.4f}, bound_ms {r50_bms:.4f} ({r50_by}; "
-        f"{json.dumps({k: round(v, 5) for k, v in r50_parts.items()})}) [{card}]")
-    return {
+
+    def timed(q, k, v, m, Lc, peak):
+        """One call between CUDA events and the device time, of K1 (rate 0 and
+        0.1), its plain version and SDPA with a boolean mask; the bound."""
+        keep = ~m[:, None, None, :]  # SDPA's boolean mask: True = attend
+        t = {
+            "ms": cuda_time_ms(lambda: ca.flash_cross_attention(q, k, v, m)),
+            "device_ms": device_ms(torch, lambda: ca.flash_cross_attention(q, k, v, m)),
+            "dropout_ms": cuda_time_ms(lambda: ca.flash_cross_attention(q, k, v, m, DROPOUT, DROP_SEED)),
+            "dropout_device_ms": device_ms(torch, lambda: ca.flash_cross_attention(q, k, v, m, DROPOUT, DROP_SEED)),
+            "plain_ms": cuda_time_ms(lambda: ca.flash_cross_attention_reference(q, k, v, m), warmup=2, iters=10),
+            "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)),
+            "library_device_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)),
+        }
+        e = q.element_size()
+        nbytes = e * B * H * D * (2 * Q + 2 * Lc) + 4 * B * H * Q + B * Lc  # q, k, v, mask; out, lse
+        t["bound_ms"], t["bound_by"], t["bound_parts"] = bound_ms(H * Q * int((~m).sum()), 4.0 * D, nbytes, sms,
+                                                                  sm_clock_hz, peak)
+        return t
+
+    t16 = timed(q16, k16, v16, m16, L, PEAK_BF16_FLOPS)
+    tr = timed(qr, kr, vr, mr, Lr, PEAK_BF16_FLOPS)
+    t32 = timed(q32, k32, v32, m32, L, PEAK_FP32_FLOPS)
+    t32["dropout_plain_ms"] = cuda_time_ms(
+        lambda: ca.flash_cross_attention_reference(q32, k32, v32, m32, DROPOUT, DROP_SEED), warmup=2, iters=10)
+    drop_plain_ms = cuda_time_ms(lambda: ca.flash_cross_attention_reference(q16, k16, v16, m16, DROPOUT, DROP_SEED),
+                                 warmup=2, iters=10)
+    plan = ca.attention_plan(B * H, Q, sms)
+    plans = {qw: device_ms(torch, lambda: ca._forward_cuda(q16, k16, v16, m16, 0.0, None, query_warps=qw))
+             for qw in (2, 4)}
+    for tag, Lc, t in (("bf16", L, t16), ("bf16", Lr, tr), ("fp32", L, t32)):
+        log(f"  timing {tag} B={B} H={H} Q={Q} L={Lc} ({int((~(m16 if Lc == L else mr)).sum())} unmasked) D={D}: "
+            f"kernel_ms {t['ms']:.4f} ({t['dropout_ms']:.4f} with dropout {DROPOUT}), plain_ms {t['plain_ms']:.4f}, "
+            f"library_ms (SDPA, boolean mask) {t['library_ms']:.4f} (one call between CUDA events); device time: "
+            f"kernel {t['device_ms']:.4f} ({t['dropout_device_ms']:.4f} with dropout), SDPA "
+            f"{t['library_device_ms']:.4f}, kernel / SDPA {t['device_ms'] / t['library_device_ms']:.3f}; bound_ms "
+            f"{t['bound_ms']:.4f} ({t['bound_by']}; {json.dumps({k: round(v, 5) for k, v in t['bound_parts'].items()})}"
+            f") [{card}]")
+    log(f"  bf16 plan at the flagship: {plan} query warps per block (attention_plan); device time with 2: "
+        f"{plans[2]:.4f} ms, with 4: {plans[4]:.4f} ms [{card}]")
+    bf16_rec = {
         "name": "flash_cross_attention_fwd",
         "route": "cuda",
         "source": "petr_tpu_torch/csrc/flash_cross_attention.cu",
         "replaces": "petr_tpu/ops/pallas/cross_attention.py:62::_kernel",
         "launches": None,  # filled from the main path's run
         "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
-        "device_ms": kernel_dev_ms,
-        "library_device_ms": library_dev_ms,
-        "dropout_kernel_ms": drop_ms,
+        "floor_max_abs_err": max(floor_errs),
+        "ms": t16["ms"],
+        "kernel_ms": t16["ms"],
+        "plain_ms": t16["plain_ms"],
+        "bound_ms": t16["bound_ms"],
+        "bound_by": t16["bound_by"],
+        "library_ms": t16["library_ms"],
+        "device_ms": t16["device_ms"],
+        "library_device_ms": t16["library_device_ms"],
+        "device_ms_over_sdpa": t16["device_ms"] / t16["library_device_ms"],
+        "query_warps": plan,
+        "device_ms_by_query_warps": plans,
+        "dropout_kernel_ms": t16["dropout_ms"],
+        "dropout_device_ms": t16["dropout_device_ms"],
         "dropout_plain_ms": drop_plain_ms,
         "dropout_max_abs_err": drop_err,
         "r50_L": Lr,
-        "r50_kernel_ms": r50_ms,
-        "r50_plain_ms": r50_plain_ms,
-        "r50_library_ms": r50_lib_ms,
-        "r50_bound_ms": r50_bms,
+        "r50_kernel_ms": tr["ms"],
+        "r50_device_ms": tr["device_ms"],
+        "r50_dropout_kernel_ms": tr["dropout_ms"],
+        "r50_dropout_device_ms": tr["dropout_device_ms"],
+        "r50_plain_ms": tr["plain_ms"],
+        "r50_library_ms": tr["library_ms"],
+        "r50_library_device_ms": tr["library_device_ms"],
+        "r50_bound_ms": tr["bound_ms"],
         "r50_max_abs_err": r50_err,
     }
+    fp32_rec = {
+        "name": "flash_cross_attention_fwd_fp32",
+        "route": "cuda",
+        "source": "petr_tpu_torch/csrc/flash_cross_attention.cu",
+        "replaces": "petr_tpu/ops/pallas/cross_attention.py:62::_kernel",
+        "launches": None,  # filled from the flagship's fp32 train step
+        "max_abs_err": fp32_err,
+        "ms": t32["ms"],
+        "plain_ms": t32["plain_ms"],
+        "bound_ms": t32["bound_ms"],
+        "bound_by": t32["bound_by"],
+        "library_ms": t32["library_ms"],
+        "device_ms": t32["device_ms"],
+        "library_device_ms": t32["library_device_ms"],
+        "dropout_kernel_ms": t32["dropout_ms"],
+        "dropout_device_ms": t32["dropout_device_ms"],
+        "dropout_plain_ms": t32["dropout_plain_ms"],
+    }
+    return bf16_rec, fp32_rec
 
 
 def rounded_plain_backward(torch, ca, q, k, v, mask, out, lse, gout, rate, seed):
@@ -603,28 +732,58 @@ def dcn_inputs(torch, gen, B, Cin, H, W, Cout, stride, dtype):
 
 
 def check_dcn(torch, dcn, card):
-    """K4 against its plain version at both r50dcn stages (6 views of
+    """K4 against its plain versions at both r50dcn stages (6 views of
     512x1408) and a small odd shape at stride 2, in fp32 and bf16; its
     gradients through the autograd Function against the plain route; then
     timed beside the plain version and cuDNN's dense 3x3 conv at the same
-    shape (a floor, not the same function: no PyTorch call computes DCNv2)."""
+    shape (a floor, not the same function: no PyTorch call computes DCNv2).
+
+    The bf16 kernel (tensor cores) rounds the modulated samples and the
+    weight to bf16 before their products; the plain version with
+    operand_dtype=bfloat16 rounds the same values at the same points (its
+    rounding floor), so the two differ only in the order of the fp32 sums
+    and are held to KERNEL_TOL; the unrounded plain version is held to
+    OPERAND_TOL. The fp32 kernel (CUDA cores) is held to the unrounded plain version under
+    KERNEL_TOL. Each call must move its variant's launch counter only."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    shapes = {"stage3": (6, 256, 32, 88, 256, 1), "stage4": (6, 512, 16, 44, 512, 1), "odd": (2, 5, 7, 9, 3, 2)}
-    log("phase 3: modulated_deform_conv (K4) against its plain version")
+    shapes = {"stage3": (6, 256, 32, 88, 256, 1), "stage4": (6, 512, 16, 44, 512, 1), "odd": (2, 5, 7, 9, 3, 2),
+              "odd-wide": (1, 70, 3, 130, 300, 1)}
+    log("phase 3: modulated_deform_conv (K4) against its plain versions")
     errs, inputs = {}, {}
+
+    def counted(fn, bf16):
+        before = (dcn.LAUNCHES, dcn.LAUNCHES_FP32)
+        out = fn()
+        torch.cuda.synchronize()
+        after = (dcn.LAUNCHES, dcn.LAUNCHES_FP32)
+        assert after == (before[0] + bf16, before[1] + (not bf16)), (
+            f"the call did not move its own launch counter alone: {before} -> {after}")
+        return out
+
     for label, (B, Cin, H, W, Cout, stride) in shapes.items():
         for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
             x, om, w = dcn_inputs(torch, gen, B, Cin, H, W, Cout, stride, dtype)
-            before = dcn.LAUNCHES
-            out = dcn.modulated_deform_conv(x, om, w, stride)
-            torch.cuda.synchronize()
-            assert dcn.LAUNCHES == before + 1
-            want = dcn.modulated_deform_conv_reference(x, om, w, stride)
-            errs[(label, tag)] = kernel_compare(torch, f"{label} {tag} x {tuple(x.shape)} stride {stride}",
-                                                out, want, tag)
             inputs[(label, tag)] = (x, om, w)
+            name = f"{label} {tag} x {tuple(x.shape)} -> {Cout} stride {stride}"
+            want = dcn.modulated_deform_conv_reference(x, om, w, stride)
+            if tag == "fp32":
+                out = counted(lambda: dcn.modulated_deform_conv(x, om, w, stride), False)
+                errs[(label, tag)] = kernel_compare(torch, name, out, want, tag)
+                continue
+            floor = dcn.modulated_deform_conv_reference(x, om, w, stride, operand_dtype=torch.bfloat16)
+            out = counted(lambda: dcn.modulated_deform_conv(x, om, w, stride), True)
+            errs[(label, tag, "floor")] = kernel_compare(torch, f"{name} vs its rounding floor", out, floor, tag)
+            atol, rtol = OPERAND_TOL
+            r = want.float()
+            bound = atol * r.abs().max() + rtol * r.abs()
+            err, ferr = (out.float() - r).abs(), (floor.float() - r).abs()
+            log(f"  {name} vs the unrounded plain version: max abs err {err.max().item():.3e} (max |ref| "
+                f"{r.abs().max().item():.3e}; atol {atol} x max|ref|, rtol {rtol}), worst share of the bound "
+                f"{(err / bound).max().item():.3f}; the floor's {(ferr / bound).max().item():.3f}")
+            assert not (err > bound).any(), f"{name}: {int((err > bound).sum())} outputs out of OPERAND_TOL"
+            errs[(label, tag)] = err.max().item()
 
     log("phase 3: K4's gradients through the autograd Function against the plain route (fp32, stage 4 shape)")
     x, om, w = inputs[("stage4", "fp32")]
@@ -646,41 +805,83 @@ def check_dcn(torch, dcn, card):
     for label in ("stage3", "stage4"):
         B, Cin, H, W, Cout, _ = shapes[label]
         x, om, w = inputs[(label, "bf16")]
+        x32, om32, w32 = inputs[(label, "fp32")]
         P = H * W
         flops = 2.0 * B * P * Cout * 9 * Cin
         nbytes = 2 * B * Cin * H * W + 4 * B * 27 * P + 4 * Cout * Cin * 9 + 2 * B * Cout * P
         b_ms, b_by, parts = roofline(flops, nbytes)
-        k_ms = cuda_time_ms(lambda: dcn.modulated_deform_conv(x, om, w))
-        k_dev_ms = device_ms(torch, lambda: dcn.modulated_deform_conv(x, om, w))
-        p_ms = cuda_time_ms(lambda: dcn.modulated_deform_conv_reference(x, om, w), warmup=2, iters=10)
+        nbytes32 = 4 * B * Cin * H * W + 4 * B * 27 * P + 4 * Cout * Cin * 9 + 4 * B * Cout * P
+        b32_ms, b32_by, _ = roofline(flops, nbytes32, PEAK_FP32_FLOPS)
         wb = w.to(torch.bfloat16)
-        dense_ms = cuda_time_ms(lambda: F.conv2d(x, wb, padding=1))
-        timing[label] = {"kernel_ms": k_ms, "device_ms": k_dev_ms, "plain_ms": p_ms, "dense_conv_ms": dense_ms,
-                         "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
-        log(f"  timing bf16 {label} x {tuple(x.shape)} -> {Cout}: kernel_ms {k_ms:.4f} (device time "
-            f"{k_dev_ms:.4f}), plain_ms {p_ms:.4f}, "
-            f"dense_conv_ms (cuDNN 3x3 conv at the shape, a floor, not DCNv2) {dense_ms:.4f}, bound_ms "
-            f"{b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
-            f"{json.dumps({k: round(v, 5) for k, v in parts.items()})}) [{card}]")
-    t3 = timing["stage3"]
-    return {
+        t = {
+            "kernel_ms": cuda_time_ms(lambda: dcn.modulated_deform_conv(x, om, w)),
+            # the whole call (copy of x, weight repack, sigmoid) and the tensor-core kernel alone
+            "device_ms": device_ms(torch, lambda: dcn.modulated_deform_conv(x, om, w), "deform_conv_fwd_tc"),
+            "plain_ms": cuda_time_ms(lambda: dcn.modulated_deform_conv_reference(x, om, w), warmup=2, iters=10),
+            "dense_conv_ms": cuda_time_ms(lambda: F.conv2d(x, wb, padding=1)),
+            "dense_conv_device_ms": device_ms(torch, lambda: F.conv2d(x, wb, padding=1)),
+            "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "fp32_ms": cuda_time_ms(lambda: dcn.modulated_deform_conv(x32, om32, w32)),
+            "fp32_device_ms": device_ms(torch, lambda: dcn.modulated_deform_conv(x32, om32, w32)),
+            "fp32_plain_ms": cuda_time_ms(lambda: dcn.modulated_deform_conv_reference(x32, om32, w32),
+                                          warmup=2, iters=10),
+            "fp32_dense_conv_ms": cuda_time_ms(lambda: F.conv2d(x32, w32, padding=1)),
+            "fp32_dense_conv_device_ms": device_ms(torch, lambda: F.conv2d(x32, w32, padding=1)),
+            "fp32_bound_ms": b32_ms, "fp32_bound_by": b32_by,
+        }
+        timing[label] = t
+        dev, tc_dev = t["device_ms"]
+        log(f"  timing bf16 {label} x {tuple(x.shape)} -> {Cout}: kernel_ms {t['kernel_ms']:.4f}, plain_ms "
+            f"{t['plain_ms']:.4f}, dense_conv_ms (cuDNN 3x3 conv at the shape, a floor, not DCNv2) "
+            f"{t['dense_conv_ms']:.4f} (one call between CUDA events); device time: the call {dev:.4f} (the "
+            f"tensor-core kernel {tc_dev:.4f}, the rest the channels-last copy of x, the weight repack and the "
+            f"sigmoid), cuDNN {t['dense_conv_device_ms']:.4f}; "
+            f"bound_ms {b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
+            f"{json.dumps({k: round(v, 5) for k, v in parts.items()})}), {flops / tc_dev / 1e9:.1f} TFLOP/s "
+            f"[{card}]")
+        log(f"  timing fp32 {label}: kernel_ms {t['fp32_ms']:.4f} (device time {t['fp32_device_ms']:.4f}), plain_ms "
+            f"{t['fp32_plain_ms']:.4f}, dense_conv_ms (cuDNN fp32, TF32 off) {t['fp32_dense_conv_ms']:.4f} (device "
+            f"{t['fp32_dense_conv_device_ms']:.4f}), bound_ms {b32_ms:.4f} ({b32_by}, at the fp32 peak) [{card}]")
+    t3, t4 = timing["stage3"], timing["stage4"]
+    bf16_rec = {
         "name": "deform_conv_fwd",
         "route": "cuda",
         "source": "petr_tpu_torch/csrc/deform_conv.cu",
         "replaces": "petr_tpu/ops/pallas/dcn.py:134::_dcn_pallas_raw",
         "launches": None,  # filled from the r50dcn serving run
         "max_abs_err": errs[("stage3", "bf16")],
+        "floor_max_abs_err": errs[("stage3", "bf16", "floor")],
         "ms": t3["kernel_ms"],  # stage 3: 6 of the 9 calls of a forward
         "kernel_ms": t3["kernel_ms"],
         "plain_ms": t3["plain_ms"],
         "bound_ms": t3["bound_ms"],
         "bound_by": t3["bound_by"],
         "library_ms": None,  # no PyTorch call computes DCNv2
-        "device_ms": t3["device_ms"],
+        "device_ms": t3["device_ms"][0],
+        "tc_kernel_device_ms": t3["device_ms"][1],
         "dense_conv_ms": t3["dense_conv_ms"],
-        "stage4": timing["stage4"],
-        "fp32_max_abs_err": errs[("stage3", "fp32")],
+        "dense_conv_device_ms": t3["dense_conv_device_ms"],
+        "stage4": {k: (v[0] if isinstance(v, tuple) else v) for k, v in t4.items() if not k.startswith("fp32")}
+        | {"tc_kernel_device_ms": t4["device_ms"][1]},
     }
+    fp32_rec = {
+        "name": "deform_conv_fwd_fp32",
+        "route": "cuda",
+        "source": "petr_tpu_torch/csrc/deform_conv.cu",
+        "replaces": "petr_tpu/ops/pallas/dcn.py:134::_dcn_pallas_raw",
+        "launches": None,  # filled from the r50dcn fp32 train step
+        "max_abs_err": errs[("stage3", "fp32")],
+        "ms": t3["fp32_ms"],
+        "plain_ms": t3["fp32_plain_ms"],
+        "bound_ms": t3["fp32_bound_ms"],
+        "bound_by": t3["fp32_bound_by"],
+        "library_ms": None,
+        "device_ms": t3["fp32_device_ms"],
+        "dense_conv_ms": t3["fp32_dense_conv_ms"],
+        "dense_conv_device_ms": t3["fp32_dense_conv_device_ms"],
+        "stage4": {k[5:]: t4[k] for k in t4 if k.startswith("fp32")},
+    }
+    return bf16_rec, fp32_rec
 
 
 # K5's shapes on the flagship's route: 6 views; (Cin, H, W, Co) and the
@@ -1042,7 +1243,7 @@ def check_serving(torch, ca, conv, card):
     L = cfg.model.head.num_layers
     model_tol = {"cls_logits": (MODEL_ATOL, MODEL_RTOL), "bbox_codes": (MODEL_ATOL, MODEL_RTOL)}
     launches, _, fn, results = serve_and_check(
-        torch, cfg, model, {"K1": (ca, "LAUNCHES")}, {"K1": L},
+        torch, cfg, model, {"K1": (ca, "LAUNCHES"), "K1 fp32": (ca, "LAUNCHES_FP32")}, {"K1": L, "K1 fp32": 0},
         [(layers, "flash_cross_attention", ca.flash_cross_attention_reference)], model_tol, MODEL_MEAN, card)
     fwd_ms, dev_ms, one_t = serving_latency(torch, cfg, model, fn, results, card)
 
@@ -1104,14 +1305,15 @@ def check_serving(torch, ca, conv, card):
         out32 = model32(*one_t)
         os.environ[conv.CONV_IMPL_ENV] = "cuda"
         try:
-            conv.LAUNCHES = conv.LAUNCHES_FP32 = 0
+            conv.LAUNCHES = conv.LAUNCHES_FP32 = ca.LAUNCHES = ca.LAUNCHES_FP32 = 0
             out32_k5 = model32(*one_t)
             k5_fp32_per_forward = conv.LAUNCHES_FP32
         finally:
             os.environ.pop(conv.CONV_IMPL_ENV)
     log(f"  fp32 twin on the route: {k5_fp32_per_forward} launches of K5's fp32 kernel, {conv.LAUNCHES} of the "
-        f"bf16 one (expected {osa} and 0)")
+        f"bf16 one (expected {osa} and 0); K1 fp32 {ca.LAUNCHES_FP32}, bf16 {ca.LAUNCHES} (expected {L} and 0)")
     assert k5_fp32_per_forward == osa and conv.LAUNCHES == 0
+    assert (ca.LAUNCHES_FP32, ca.LAUNCHES) == (L, 0)
     compare_outputs(torch, "fp32 K5 route vs fp32 cuDNN route (B=1)", out32_k5, out32, FP32_ROUTE_TOL,
                     FP32_ROUTE_MEAN, (hc.num_layers, 1, hc.num_query))
     del model32
@@ -1141,9 +1343,9 @@ def alternating_forwards(torch, model, args, env, rounds=8):
     return walls
 
 
-# kernel names in a profile (each prefix takes both variants of K2 and K5)
-KERNEL_NAMES = {"K1": "flash_fwd_kernel", "K2 dK/dV": "flash_bwd_dkdv", "K2 dQ": "flash_bwd_dq",
-                "K4": "deform_conv_fwd_kernel", "K5": "conv3x3_bn_relu"}
+# kernel names in a profile (each prefix takes both variants of K1, K2, K4 and K5)
+KERNEL_NAMES = {"K1": "flash_fwd", "K2 dK/dV": "flash_bwd_dkdv", "K2 dQ": "flash_bwd_dq",
+                "K4": "deform_conv_fwd", "K5": "conv3x3_bn_relu"}
 
 
 def profile(torch, fn, card, iters=5, unit="forward", inference=True):
@@ -1279,6 +1481,7 @@ def check_training(torch, ca, card):
     torch.cuda.synchronize()
     n_timed = 5
     ca.LAUNCHES = ca.DKDV_LAUNCHES = ca.DQ_LAUNCHES = ca.DKDV_LAUNCHES_FP32 = ca.DQ_LAUNCHES_FP32 = 0
+    ca.LAUNCHES_FP32 = 0
     times, host = [], []
     for _ in range(n_timed):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1290,12 +1493,13 @@ def check_training(torch, ca, card):
         host.append(time.perf_counter() - h0)
         times.append(start.elapsed_time(end))
     launches = {"K1": ca.LAUNCHES, "K2 dK/dV": ca.DKDV_LAUNCHES, "K2 dQ": ca.DQ_LAUNCHES,
-                "K2 dK/dV fp32": ca.DKDV_LAUNCHES_FP32, "K2 dQ fp32": ca.DQ_LAUNCHES_FP32}
+                "K1 fp32": ca.LAUNCHES_FP32, "K2 dK/dV fp32": ca.DKDV_LAUNCHES_FP32,
+                "K2 dQ fp32": ca.DQ_LAUNCHES_FP32}
     L = mc.head.num_layers
     want = {"K1": 2 * L * n_timed, "K2 dK/dV": L * n_timed, "K2 dQ": L * n_timed,
-            "K2 dK/dV fp32": 0, "K2 dQ fp32": 0}
+            "K1 fp32": 0, "K2 dK/dV fp32": 0, "K2 dQ fp32": 0}
     log(f"  {n_timed} timed steps: kernel launches {launches} (expected {want}: per step {L} "
-        f"forward + {L} recompute for K1, {L} for each bf16 K2 kernel, none of the fp32 ones)")
+        f"forward + {L} recompute for bf16 K1, {L} for each bf16 K2 kernel, none of the fp32 ones)")
     assert launches == want, (launches, want)
     log("  last step's metrics: " + ", ".join(f"{k} {float(v):.4f}" for k, v in m.items()))
     for n in watched:
@@ -1349,17 +1553,19 @@ def check_training(torch, ca, card):
             layers.flash_cross_attention = ca.flash_cross_attention
 
     ca.LAUNCHES = ca.DKDV_LAUNCHES = ca.DQ_LAUNCHES = ca.DKDV_LAUNCHES_FP32 = ca.DQ_LAUNCHES_FP32 = 0
+    ca.LAUNCHES_FP32 = 0
 
     def fp32_counts():
-        return ca.LAUNCHES, ca.DKDV_LAUNCHES_FP32, ca.DQ_LAUNCHES_FP32, ca.DKDV_LAUNCHES, ca.DQ_LAUNCHES
+        return (ca.LAUNCHES_FP32, ca.DKDV_LAUNCHES_FP32, ca.DQ_LAUNCHES_FP32, ca.LAUNCHES, ca.DKDV_LAUNCHES,
+                ca.DQ_LAUNCHES)
 
     with_kernels = grads_of(model32)
-    log(f"  fp32 step: K1, K2 dK/dV fp32, K2 dQ fp32, K2 dK/dV bf16, K2 dQ bf16 launches {fp32_counts()} "
-        f"(expected {(2 * L, L, L, 0, 0)})")
-    assert fp32_counts() == (2 * L, L, L, 0, 0), fp32_counts()
-    fp32_launches = fp32_counts()[1:3]
+    log(f"  fp32 step: K1 fp32, K2 dK/dV fp32, K2 dQ fp32, K1 bf16, K2 dK/dV bf16, K2 dQ bf16 launches "
+        f"{fp32_counts()} (expected {(2 * L, L, L, 0, 0, 0)})")
+    assert fp32_counts() == (2 * L, L, L, 0, 0, 0), fp32_counts()
+    fp32_launches = fp32_counts()[:3]
     plain = grads_of(model32, plain=True)
-    assert fp32_counts() == (2 * L, L, L, 0, 0), "the plain route launched a kernel"
+    assert fp32_counts() == (2 * L, L, L, 0, 0, 0), "the plain route launched a kernel"
     compare_steps(torch, "kernels vs plain versions (remat on)", with_kernels, plain,
                   STEP_LOSS_RTOL, STEP_GRAD_RTOL)
     del plain, model32
@@ -1438,8 +1644,9 @@ def check_r50_serving(torch, ca, dcn, card):
         f"layers, {cfg.data.num_views} views of {cfg.data.image_size}")
     assert drawn == 9
     launches, args, fn, results = serve_and_check(
-        torch, cfg, model, {"K4": (dcn, "LAUNCHES"), "K1": (ca, "LAUNCHES")},
-        {"K4": 9, "K1": cfg.model.head.num_layers}, [], None, None, card)
+        torch, cfg, model, {"K4": (dcn, "LAUNCHES"), "K1": (ca, "LAUNCHES"), "K4 fp32": (dcn, "LAUNCHES_FP32"),
+                            "K1 fp32": (ca, "LAUNCHES_FP32")},
+        {"K4": 9, "K1": cfg.model.head.num_layers, "K4 fp32": 0, "K1 fp32": 0}, [], None, None, card)
     check_r50_routes(torch, cfg, model, dcn, resnet, args)
     fwd_ms, _, _ = serving_latency(torch, cfg, model, fn, results, card)
     return launches, fwd_ms
@@ -1471,11 +1678,15 @@ def check_r50_routes(torch, cfg, model, dcn, resnet, args):
             for route in ("K4", "plain"):
                 if route == "plain":
                     resnet.modulated_deform_conv = dcn.modulated_deform_conv_plain
+                dcn.LAUNCHES = dcn.LAUNCHES_FP32 = 0
                 try:
                     outs[(dtype, route)] = m(*args)
                     feats[(dtype, route)] = m.img_backbone(x)
                 finally:
                     resnet.modulated_deform_conv = dcn.modulated_deform_conv
+                # two passes over the backbone: 18 launches of the dtype's variant on the K4 route, none on the plain
+                want = (18 * (dtype == "bf16"), 18 * (dtype == "fp32")) if route == "K4" else (0, 0)
+                assert (dcn.LAUNCHES, dcn.LAUNCHES_FP32) == want, (dtype, route, dcn.LAUNCHES, dcn.LAUNCHES_FP32)
     for i, (a, b) in enumerate(zip(feats[("fp32", "K4")], feats[("fp32", "plain")])):
         err, scale = (a - b).abs().max().item(), b.abs().max().item()
         rel = ((a - b).norm() / b.norm()).item()
@@ -1577,12 +1788,12 @@ def check_r50_training(torch, ca, dcn, card):
     torch.cuda.synchronize()
     L = mc.head.num_layers
     counters = {"K4": (dcn, "LAUNCHES"), "K1": (ca, "LAUNCHES"), "K2 dK/dV": (ca, "DKDV_LAUNCHES"),
-                "K2 dQ": (ca, "DQ_LAUNCHES"), "K2 dK/dV fp32": (ca, "DKDV_LAUNCHES_FP32"),
-                "K2 dQ fp32": (ca, "DQ_LAUNCHES_FP32")}
+                "K2 dQ": (ca, "DQ_LAUNCHES"), "K4 fp32": (dcn, "LAUNCHES_FP32"), "K1 fp32": (ca, "LAUNCHES_FP32"),
+                "K2 dK/dV fp32": (ca, "DKDV_LAUNCHES_FP32"), "K2 dQ fp32": (ca, "DQ_LAUNCHES_FP32")}
     m, times, host, launches = timed_steps(
         torch, one_step, counters,
-        {"K4": 18, "K1": 2 * L, "K2 dK/dV": L, "K2 dQ": L, "K2 dK/dV fp32": 0, "K2 dQ fp32": 0}, 3, card,
-        "K4: 9 forward + 9 in the bottlenecks' recompute")
+        {"K4": 18, "K1": 2 * L, "K2 dK/dV": L, "K2 dQ": L, "K4 fp32": 0, "K1 fp32": 0, "K2 dK/dV fp32": 0,
+         "K2 dQ fp32": 0}, 3, card, "K4: 9 forward + 9 in the bottlenecks' recompute")
     log("  last step's metrics: " + ", ".join(f"{k} {float(v):.4f}" for k, v in m.items()))
     for n in watched:
         moved = (params[n].detach() - before[n]).abs().max().item()
@@ -1635,19 +1846,22 @@ def check_r50_training(torch, ca, dcn, card):
             resnet.modulated_deform_conv = dcn.modulated_deform_conv
 
     dcn.LAUNCHES = ca.DKDV_LAUNCHES = ca.DQ_LAUNCHES = ca.DKDV_LAUNCHES_FP32 = ca.DQ_LAUNCHES_FP32 = 0
+    dcn.LAUNCHES_FP32 = ca.LAUNCHES = ca.LAUNCHES_FP32 = 0
     with_kernel = grads_of()
-    k2_counts = (ca.DKDV_LAUNCHES_FP32, ca.DQ_LAUNCHES_FP32, ca.DKDV_LAUNCHES, ca.DQ_LAUNCHES)
-    log(f"  fp32 step: K4 launches {dcn.LAUNCHES} (expected 18); K2 dK/dV fp32, dQ fp32, dK/dV bf16, dQ bf16 "
-        f"{k2_counts} (expected {(L, L, 0, 0)})")
-    assert dcn.LAUNCHES == 18 and k2_counts == (L, L, 0, 0), (dcn.LAUNCHES, k2_counts)
+    counts = (dcn.LAUNCHES_FP32, ca.LAUNCHES_FP32, ca.DKDV_LAUNCHES_FP32, ca.DQ_LAUNCHES_FP32, dcn.LAUNCHES,
+              ca.LAUNCHES, ca.DKDV_LAUNCHES, ca.DQ_LAUNCHES)
+    log(f"  fp32 step: K4 fp32, K1 fp32, K2 dK/dV fp32, dQ fp32 launches {counts[:4]} (expected "
+        f"{(18, 2 * L, L, L)}); K4, K1, K2 dK/dV, dQ bf16 {counts[4:]} (expected 0)")
+    assert counts == (18, 2 * L, L, L, 0, 0, 0, 0), counts
+    fp32_k4_launches = dcn.LAUNCHES_FP32
     plain = grads_of(plain=True)
     nudge = compare_steps(torch, "plain version, images nudged by one ulp vs not (the floor)",
                           grads_of(plain=True, inputs=nudged), plain, STEP_LOSS_RTOL, 1.0)
-    assert dcn.LAUNCHES == 18, "the plain route launched K4"
+    assert dcn.LAUNCHES_FP32 == 18, "the plain route launched K4"
     compare_steps(torch, "K4 vs its plain version (remat on)", with_kernel, plain, STEP_LOSS_RTOL, STEP_GRAD_RTOL,
                   floor=nudge)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
-    return launches
+    return launches, fp32_k4_launches
 
 
 ALL_PHASES = {3, 4, 5, 6, 7}
@@ -1704,11 +1918,11 @@ def main() -> int:
 
     records = []
     if 3 in phases:
-        k1 = check_flash_attention(torch, ca, sm_clock_hz, card)
+        k1, k1_fp32 = check_flash_attention(torch, ca, sm_clock_hz, card)
         k2 = check_flash_backward(torch, ca, sm_clock_hz, card)
-        k4 = check_dcn(torch, dcn, card)
+        k4, k4_fp32 = check_dcn(torch, dcn, card)
         k5, k5_fp32 = check_conv3x3(torch, conv, card)
-        records = [k1, *k2, k4, k5, k5_fp32]
+        records = [k1, k1_fp32, *k2, k4, k4_fp32, k5, k5_fp32]
     if 4 in phases:
         k1_launches, k5_launches, k5_fp32_launches, k5_times = check_serving(torch, ca, conv, card)
         if records:
@@ -1721,8 +1935,8 @@ def main() -> int:
             k1["launches_train"] = train_launches["K1"]
             k2[0]["launches"] = train_launches["K2 dK/dV"]
             k2[1]["launches"] = train_launches["K2 dQ"]
-            k2[2]["launches"], k2[3]["launches"] = fp32_launches
-            for r in k2[2:]:
+            k1_fp32["launches"], k2[2]["launches"], k2[3]["launches"] = fp32_launches
+            for r in (k1_fp32, *k2[2:]):
                 r["launches_note"] = "the flagship's fp32 train step"
     if 6 in phases:
         r50_launches, r50_fwd_ms = check_r50_serving(torch, ca, dcn, card)
@@ -1731,9 +1945,11 @@ def main() -> int:
             k4["r50_forward_ms"] = r50_fwd_ms
             k1["launches_r50"] = r50_launches["K1"]
     if 7 in phases:
-        r50_train = check_r50_training(torch, ca, dcn, card)
+        r50_train, k4_fp32_launches = check_r50_training(torch, ca, dcn, card)
         if records:
             k4["launches_train"] = r50_train["K4"]
+            k4_fp32["launches"] = k4_fp32_launches
+            k4_fp32["launches_note"] = "the r50dcn fp32 train step"
 
     if phases != ALL_PHASES:
         log(f"only phases {sorted(phases)} ran: no kernels record and no result line")

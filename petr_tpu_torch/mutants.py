@@ -37,6 +37,16 @@ MUTANTS = {
         "dropout_keep(mix, qi, key, thresh)",  # dK/dV: the fragment's (key, query) fed as (row, column)
         "dropout_keep(mix, key, qi, thresh)",
     ),
+    "k1_hash_query_key_swapped": (
+        "flash_cross_attention.cu",
+        "dropout_keep(mix, qrow, key, thresh)",  # the bf16 forward: (key, query) fed as (row, column)
+        "dropout_keep(mix, key, qrow, thresh)",
+    ),
+    "k4_corner_weight_fy_swapped": (
+        "deform_conv.cu",
+        "__fmul_rn(__fmul_rn(cv.at(2, i + u), wx0), wy1)",  # the bf16 kernel: corner (y0 + 1, x0) weighted by 1 - fy
+        "__fmul_rn(__fmul_rn(cv.at(2, i + u), wx0), wy0)",
+    ),
 }
 
 

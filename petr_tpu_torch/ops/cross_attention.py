@@ -2,15 +2,18 @@
 
 900 object queries attend over the N*H*W tokens of all views (6000 at
 800x320/p4) under a key-padding mask. One ``torch.autograd.Function`` carries
-it both ways. On CUDA tensors its forward launches K1, the hand-written
+it both ways. On CUDA tensors its forward launches K1, a hand-written
 kernel of ``petr_tpu_torch/csrc/flash_cross_attention.cu`` (replacing
 `petr_tpu/ops/pallas/cross_attention.py::_kernel`), and its backward
 launches K2, the two kernels of ``csrc/flash_cross_attention_bwd.cu``
-(replacing `_bwd_kernel`): on the tensor cores for bf16, on the CUDA cores
-for fp32, chosen by dtype. On CPU tensors it runs the plain versions,
+(replacing `_bwd_kernel`): each on the tensor cores for bf16, on the CUDA
+cores for fp32, chosen by dtype. On CPU tensors it runs the plain versions,
 ``flash_cross_attention_reference`` and
 ``flash_cross_attention_backward_reference``: dense fp32 PyTorch with the
 same semantics, which the tests and ``chip_smoke.py`` hold the kernels to.
+The bf16 forward rounds the probabilities to bf16 for their product with v;
+``flash_cross_attention_reference(..., round_p=True)`` makes that rounding
+at the same point (its rounding floor).
 
 Semantics: scale 1/sqrt(D), masked keys (True = padded) take no weight, fp32
 softmax, output in the input dtype plus the per-row fp32 logsumexp. A row
@@ -31,14 +34,17 @@ from typing import Optional, Tuple
 import torch
 
 from petr_tpu_torch.ops import build
+from petr_tpu_torch.ops.conv3x3 import _sm_count
 
 NEG = -1e30
+LOG2E = 1.4426950408889634
 HEAD_DIMS = (16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _M32 = 0xFFFFFFFF
 
 # Kernel launches since the count was last set to 0; only the CUDA path adds.
-LAUNCHES = 0  # K1, the forward
+LAUNCHES = 0  # K1, the forward, bf16 on the tensor cores
+LAUNCHES_FP32 = 0  # K1, the forward, fp32 on the CUDA cores
 DKDV_LAUNCHES = 0  # K2's dK/dV kernel, bf16 on the tensor cores
 DQ_LAUNCHES = 0  # K2's dQ kernel, bf16 on the tensor cores
 DKDV_LAUNCHES_FP32 = 0  # K2's dK/dV kernel, fp32 on the CUDA cores
@@ -99,16 +105,24 @@ def flash_cross_attention_reference(
     key_padding_mask: Optional[torch.Tensor] = None,  # (B, L) True = pad
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
+    round_p: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense fp32 attention with K1's exact semantics -> (out, lse)."""
+    """Dense fp32 attention with K1's exact semantics -> (out, lse).
+
+    ``round_p=True`` is the bf16 kernel's rounding floor: the logits in log2
+    units (q.k times fp32(scale * log2 e)), p = exp2(t - max) against each
+    row's final maximum, and p rounded to bf16 before its product with v,
+    where the kernel rounds it; the denominator and lse come from the
+    unrounded p, and the dropout scale is applied after the product."""
     B, H, Q, D = q.shape
     L = k.shape[2]
     if L == 0:
         return q.new_zeros(q.shape), torch.full((B, H, Q), -NEG, device=q.device)
+    masked = None if key_padding_mask is None else key_padding_mask.to(torch.bool)[:, None, None, :]
+    if round_p:
+        return _reference_rounded(q, k, v, masked, dropout_rate, dropout_seed)
     s = torch.matmul(q.float() * (1.0 / math.sqrt(D)), k.float().transpose(-1, -2))
-    masked = None
-    if key_padding_mask is not None:
-        masked = key_padding_mask.to(torch.bool)[:, None, None, :]
+    if masked is not None:
         s = s.masked_fill(masked, NEG)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
@@ -121,6 +135,34 @@ def flash_cross_attention_reference(
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
     out = torch.matmul(p, v.float()) / l.clamp(min=1e-20)
     lse = torch.where(m <= NEG * 0.5, torch.full_like(m, -NEG), m + torch.log(l))
+    return out.to(q.dtype), lse[..., 0]
+
+
+def logit_scale_log2(D: int) -> float:
+    """fp32(1/sqrt(D)) * fp32(log2 e), rounded to fp32: the factor by which
+    the bf16 kernel takes q.k to log2 units (its ``scale * LOG2E``)."""
+    one = lambda x: torch.tensor(x, dtype=torch.float32)
+    return (one(1.0 / math.sqrt(D)) * one(LOG2E)).item()
+
+
+def _reference_rounded(q, k, v, masked, dropout_rate, dropout_seed):
+    """``flash_cross_attention_reference(..., round_p=True)``."""
+    B, H, Q, D = q.shape
+    L = k.shape[2]
+    t = torch.matmul(q.float(), k.float().transpose(-1, -2)) * logit_scale_log2(D)
+    if masked is not None:
+        t = t.masked_fill(masked, NEG)
+    m = t.amax(-1, keepdim=True)
+    p = torch.exp2(t - m)
+    if masked is not None:
+        p = p.masked_fill(masked, 0.0)
+    l = p.sum(-1, keepdim=True)
+    p = p.bfloat16().float()
+    if dropout_rate > 0.0:
+        keep = dropout_keep_mask(dropout_seed or 0, B, H, Q, L, dropout_rate, q.device)
+        p = torch.where(keep, p, 0.0)
+    out = torch.matmul(p, v.float()) / (1.0 - dropout_rate) / l.clamp(min=1e-20)
+    lse = torch.where(m <= NEG * 0.5, torch.full_like(m, -NEG), (m + torch.log2(l)) * math.log(2.0))
     return out.to(q.dtype), lse[..., 0]
 
 
@@ -288,7 +330,7 @@ def _last_contiguous(*ts):
 
 def _rows_aligned(*ts):
     """Each tensor as it is when its rows start on 16-byte boundaries (the
-    bf16 backward kernels copy them in 16-byte pieces), else a contiguous
+    bf16 kernels copy them in 16-byte pieces), else a contiguous
     copy in a new allocation: the (B, H, ., D) views of projections already
     are."""
     return tuple(t if t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
@@ -318,10 +360,39 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: " + lib.petr_cuda_error_string(err).decode())
 
 
-def _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed):
-    global LAUNCHES
+def attention_plan(batch_heads: int, Q: int, sms: int) -> int:
+    """Query warps per block of the bf16 forward (``query_warps``, 2 or 4):
+    its 8 warps hold 16 query rows each in 8 / query_warps key splits. 64-row
+    blocks (4 query warps, 2 key splits) where they reach one block per SM;
+    else 32-row blocks (4 key splits), twice as many. At the flagship (B=1, 8
+    heads, Q = 900) on 132 SMs: 120 blocks of 64 rows, so 232 of 32."""
+    return 4 if -(-Q // 64) * batch_heads >= sms else 2
+
+
+def key_split_plan(L: int, query_warps: int):
+    """The keys each key split of the bf16 forward covers, in the order the
+    kernel adds their partial sums: split w takes keys w*64 .. w*64 + 63 of
+    every staged tile of (8 / query_warps) * 64 keys -> one list of key
+    ranges per split."""
+    splits = 8 // query_warps
+    tile = splits * 64
+    return [[(t + 64 * w, min(t + 64 * w + 64, L)) for t in range(0, L, tile) if t + 64 * w < L]
+            for w in range(splits)]
+
+
+def _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed, query_warps=None):
+    """K1: (out, lse), the tensor-core kernel for bf16 and the CUDA-core one
+    for fp32. ``query_warps`` overrides ``attention_plan`` (bf16 only)."""
+    global LAUNCHES, LAUNCHES_FP32
     B, H, Q, L, D = _check_inputs(q, k, v)
     q, k, v = _last_contiguous(q, k, v)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k, v = _rows_aligned(q, k, v)
+        if query_warps is None:
+            query_warps = attention_plan(B * H, Q, _sm_count(q.device))
+        if query_warps not in (2, 4):
+            raise ValueError(f"query_warps must be 2 or 4, got {query_warps}")
     _, mask_ptr = _mask_ptr(key_padding_mask, B, L, q.device)
     drop = _dropout_args(dropout_rate, dropout_seed)
     out = torch.empty((B, Q, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -335,10 +406,13 @@ def _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed):
     err = lib.petr_flash_cross_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
         lse.data_ptr(), B, H, Q, L, D, _DTYPE_CODES[q.dtype], strides,
-        1.0 / math.sqrt(D), *drop, torch.cuda.current_stream(q.device).cuda_stream,
+        1.0 / math.sqrt(D), *drop, query_warps or 0, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(lib, err, "flash_cross_attention")
-    LAUNCHES += 1
+    _raise_on(lib, err, "flash_cross_attention " + ("bf16" if bf16 else "fp32"))
+    if bf16:
+        LAUNCHES += 1
+    else:
+        LAUNCHES_FP32 += 1
     return out, lse
 
 
@@ -405,7 +479,7 @@ def _forward_library() -> ctypes.CDLL:
     lib = build.load("flash_cross_attention")
     _bind(lib, "petr_flash_cross_attention_fwd", [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, *_DROP, _P,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, *_DROP, _I, _P,
     ])
     return lib
 

@@ -14,14 +14,21 @@ interleaved (dy, dx) of each tap in its first 2K channels, then the K mask
 logits, taps in row-major (kh, kw) order (`dcn.py:11-14`).
 
 One ``torch.autograd.Function`` carries it. On a CUDA tensor its forward
-launches K4, the hand-written kernel of ``csrc/deform_conv.cu`` (replacing
-`petr_tpu/ops/pallas/dcn.py::_dcn_pallas_raw`); on a CPU tensor it runs the
-plain version, ``modulated_deform_conv_reference``: the XLA gather
-formulation (`dcn.py:62-99`), everything in fp32 and one cast of the output
-to x's dtype. JAX has no backward kernel here either: its custom VJP
-differentiates the XLA formulation (`pallas/dcn.py:200-217`). So the
-backward is autograd of the plain version, recomputed under
-``torch.enable_grad()``; it never calls back into the Function, whose
+launches K4, a hand-written kernel of ``csrc/deform_conv.cu`` (replacing
+`petr_tpu/ops/pallas/dcn.py::_dcn_pallas_raw`), chosen by x's dtype: bf16
+runs the tensor-core kernel (on a channels-last copy of x and the weight
+repacked to bf16 in petr_tpu's patch order, tap-major), fp32 the CUDA-core
+kernel. On a CPU tensor it runs the plain version,
+``modulated_deform_conv_reference``: the XLA gather formulation
+(`dcn.py:62-99`), everything in fp32 and one cast of the output to x's
+dtype. The bf16 kernel rounds the modulated samples and the weight to bf16
+before their products, as petr_tpu's Pallas kernel multiplies in x's dtype;
+``operand_dtype=torch.bfloat16`` makes the plain version round them at the
+same points (its rounding floor). JAX has no backward kernel here either:
+its custom VJP differentiates the XLA formulation
+(`pallas/dcn.py:200-217`). So the backward is autograd of the plain
+version, recomputed under ``torch.enable_grad()``; it never calls back
+into the Function, whose
 forward would launch K4 again (petr_tpu's round-3 unbounded recursion,
 pinned by `tests/test_pallas_dcn.py::test_pallas_backward_does_not_recurse`).
 """
@@ -30,16 +37,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from petr_tpu_torch.ops import build
+from petr_tpu_torch.ops.conv3x3 import repack_weight
 from petr_tpu_torch.ops.sampling import bilinear_sample_batched
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # K4 launches since the count was last set to 0; only the CUDA path adds.
-LAUNCHES = 0
+LAUNCHES = 0  # the bf16 tensor-core kernel
+LAUNCHES_FP32 = 0  # the fp32 CUDA-core kernel
 
 
 # ------------------------------------------------------------ plain version
@@ -49,8 +59,13 @@ def modulated_deform_conv_reference(
     weight: torch.Tensor,  # (Cout, Cin, kh, kw)
     stride: int = 1,
     dilation: int = 1,
+    operand_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """The XLA gather formulation in fp32 -> (B, Cout, Ho, Wo) in x's dtype."""
+    """The XLA gather formulation in fp32 -> (B, Cout, Ho, Wo) in x's dtype.
+
+    With ``operand_dtype`` (the bf16 kernel's rounding floor: bfloat16) the
+    modulated samples, summed from their corners in fp32, and the weight are
+    rounded to it before the fp32 contraction."""
     B, Cin, H, W = x.shape
     Cout, _, kh, kw = weight.shape
     K = kh * kw
@@ -77,6 +92,9 @@ def modulated_deform_conv_reference(
     feat = x.float().permute(0, 2, 3, 1)  # (B, H, W, Cin)
     samples = bilinear_sample_batched(feat, xy) * mask[..., None]  # (B, Ho, Wo, K, Cin)
     w = weight.float().reshape(Cout, Cin, K)
+    if operand_dtype is not None:
+        samples = samples.to(operand_dtype).float()
+        w = w.to(operand_dtype).float()
     out = torch.einsum("bhwkc,ock->bohw", samples, w)
     return out.to(x.dtype)
 
@@ -162,33 +180,65 @@ def _check_inputs(x, off_mask, weight, stride, dilation):
     return B, Cin, H, W, Cout, Ho, Wo
 
 
+def channels_last(x: torch.Tensor, Cp: int) -> torch.Tensor:
+    """NCHW (B, C, H, W) -> (B, H, W, Cp), zeros past C: the layout in which
+    the bf16 kernel reads a corner's 8 channels as one 16-byte load. One copy
+    kernel (two, with the zero fill, when C is not a multiple of 8)."""
+    B, C, H, W = x.shape
+    out = torch.empty((B, H, W, Cp), dtype=x.dtype, device=x.device)
+    if Cp != C:
+        out[..., C:].zero_()
+    out[..., :C].copy_(x.permute(0, 2, 3, 1))
+    return out
+
+
 def _forward_cuda(x, off_mask, weight, stride, dilation):
-    global LAUNCHES
+    """K4 on CUDA tensors: the tensor-core kernel for bf16 x, the CUDA-core
+    one for fp32."""
+    global LAUNCHES, LAUNCHES_FP32
     B, Cin, H, W, Cout, Ho, Wo = _check_inputs(x, off_mask, weight, stride, dilation)
-    x = x.contiguous()
     off_mask = off_mask.to(torch.float32).contiguous()
-    weight = weight.to(torch.float32).contiguous()
     out = torch.empty((B, Cout, Ho, Wo), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = _library()
-    err = lib.petr_deform_conv_fwd(
-        x.data_ptr(), off_mask.data_ptr(), weight.data_ptr(), out.data_ptr(),
-        B, Cin, H, W, Cout, Ho, Wo, stride, dilation, _DTYPE_CODES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError("deform_conv kernel launch failed: " + lib.petr_cuda_error_string(err).decode())
-    LAUNCHES += 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16:
+        Cp = -(-Cin // 8) * 8
+        xs = channels_last(x, Cp)
+        wr = repack_weight(weight, torch.bfloat16)  # (Cout, 3, 3, Cp)
+        # the sigmoid the plain version takes, so that both modulate alike
+        modulation = torch.sigmoid(off_mask[:, 18:]).contiguous()
+        err = lib.petr_deform_conv_tc_fwd(
+            xs.data_ptr(), off_mask.data_ptr(), modulation.data_ptr(), wr.data_ptr(), out.data_ptr(),
+            B, Cin, Cp, H, W, Cout, Ho, Wo, stride, dilation, stream)
+        _raise_on(lib, err, "bf16")
+        LAUNCHES += 1
+    else:
+        x = x.contiguous()
+        weight = weight.to(torch.float32).contiguous()
+        err = lib.petr_deform_conv_fp32_fwd(
+            x.data_ptr(), off_mask.data_ptr(), weight.data_ptr(), out.data_ptr(),
+            B, Cin, H, W, Cout, Ho, Wo, stride, dilation, stream)
+        _raise_on(lib, err, "fp32")
+        LAUNCHES_FP32 += 1
     return out
+
+
+def _raise_on(lib, err: int, variant: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"deform_conv {variant} kernel launch failed: "
+                           + lib.petr_cuda_error_string(err).decode())
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load("deform_conv")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.petr_deform_conv_fwd.argtypes = [P, P, P, P] + [I] * 10 + [P]
-    lib.petr_deform_conv_fwd.restype = I
+    lib.petr_deform_conv_fp32_fwd.argtypes = [P, P, P, P] + [I] * 9 + [P]
+    lib.petr_deform_conv_fp32_fwd.restype = I
+    lib.petr_deform_conv_tc_fwd.argtypes = [P] * 5 + [I] * 10 + [P]
+    lib.petr_deform_conv_tc_fwd.restype = I
     lib.petr_cuda_error_string.argtypes = [I]
     lib.petr_cuda_error_string.restype = ctypes.c_char_p
     return lib

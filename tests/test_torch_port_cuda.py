@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the card:
 K1 (the forward, with and without dropout), K2 (the backward's dK/dV and dQ
-kernels, bf16 on the tensor cores and fp32 on the CUDA cores), K3 (the lse
-cotangent through the autograd Function), K4 (DCNv2, forward and the
-gradients through its Function) and K5 (the fused conv3x3, both variants).
+kernels), K3 (the lse cotangent through the autograd Function), K4 (DCNv2,
+forward and the gradients through its Function) and K5 (the fused conv3x3);
+each kernel in both variants, bf16 on the tensor cores and fp32 on the CUDA
+cores. The bf16 K1 and K4 are also held to their rounding floors (the plain
+version rounding to bf16 where the kernel does) under KERNEL_TOL.
 
 Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 False. The card's machine has no JAX, so this file imports none and runs
@@ -46,10 +48,11 @@ def _inputs(B, H, Q, L, D, dtype, seed, masked_row=False):
 )
 def test_kernel_matches_plain_version(cuda, dtype, B, H, Q, L, D):
     q, k, v, mask = _inputs(B, H, Q, L, D, dtype, seed=Q + L, masked_row=B > 1)
-    before = ca.LAUNCHES
+    counter = "LAUNCHES" if dtype == torch.bfloat16 else "LAUNCHES_FP32"
+    before = getattr(ca, counter)
     out, lse = ca.flash_cross_attention(q, k, v, mask)
     torch.cuda.synchronize()
-    assert ca.LAUNCHES == before + 1
+    assert getattr(ca, counter) == before + 1
     ref_out, ref_lse = ca.flash_cross_attention_reference(q, k, v, mask)
     assert out.dtype == dtype and out.shape == (B, H, Q, D) and lse.shape == (B, H, Q)
     atol, rtol = (1e-4, 0.0) if dtype == torch.float32 else (2e-3, 1e-2)
@@ -99,12 +102,77 @@ def test_tiny_detector_on_the_card_matches_the_cpu(cuda):
     torch.backends.cudnn.allow_tf32 = False
     with torch.inference_mode():
         want = cpu_model(images, img2lidar, img_hw)
-        before = ca.LAUNCHES
+        before = ca.LAUNCHES_FP32
         got = gpu_model(images.cuda(), img2lidar.cuda(), img_hw.cuda())
         torch.cuda.synchronize()
-    assert ca.LAUNCHES == before + cfg.model.head.num_layers
+    assert ca.LAUNCHES_FP32 == before + cfg.model.head.num_layers  # fp32: K1's CUDA-core variant
     for key in ("cls_logits", "bbox_codes"):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-3, atol=2e-3)
+
+
+# The bf16 K1 against its rounding floor (flash_cross_attention_reference
+# with round_p=True), elementwise within atol * max|ref| + rtol * |ref|:
+# chip_smoke.py's bf16 KERNEL_TOL (both round one fp32 sum to bf16, in other
+# orders)
+KERNEL_TOL = (2e-5, 2.0 ** -7)
+
+
+def _grid_inputs(B, H, Q, L, D, seed, masked_row=False):
+    """bf16 inputs whose logits are exact in fp32: N(0, 1) draws rounded to
+    multiples of 1/8 in [-4, 4], so that every q.k (a sum of D multiples of
+    1/64 below 2^9) comes out the same in any order of its sum, and the
+    kernel computes every p of its floor bit for bit. On other inputs the
+    mma's q.k and torch's differ in the last bit, which flips the bf16
+    rounding of a few p (test_kernel_matches_plain_version holds those to
+    the unrounded plain version)."""
+    q, k, v, mask = _inputs(B, H, Q, L, D, torch.float32, seed, masked_row)
+    q, k, v = ((t * 8).round().clamp(-32, 32).div(8).to(torch.bfloat16) for t in (q, k, v))
+    return q, k, v, mask
+
+
+def _assert_within(got, want, tol):
+    atol, rtol = tol
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bound = atol * w.abs().max() + rtol * w.abs()
+    assert (err <= bound).all(), f"max abs err {err.max().item():.3e}, max |ref| {w.abs().max().item():.3e}"
+
+
+# Q and L at no multiple of the tiles (32 or 64 query rows, 128 or 256 keys),
+# D = 16, 32 and 64, a fully masked batch row wherever B > 1, both plans
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("query_warps", [2, 4])
+@pytest.mark.parametrize("B,H,Q,L,D", [(1, 8, 900, 6000, 32), (2, 4, 37, 61, 16), (2, 2, 130, 1000, 64),
+                                       (2, 3, 77, 301, 32), (1, 1, 1, 1, 32), (1, 8, 900, 16896, 32)])
+def test_bf16_forward_matches_its_rounding_floor(cuda, rate, query_warps, B, H, Q, L, D):
+    q, k, v, mask = _grid_inputs(B, H, Q, L, D, seed=Q + 7 * L, masked_row=B > 1)
+    before = ca.LAUNCHES
+    out, lse = ca._forward_cuda(q, k, v, mask, rate, -5, query_warps=query_warps)
+    torch.cuda.synchronize()
+    assert ca.LAUNCHES == before + 1
+    want, want_lse = ca.flash_cross_attention_reference(q, k, v, mask, rate, -5, round_p=True)
+    _assert_within(out, want, KERNEL_TOL)
+    live = want_lse < 1e29
+    torch.testing.assert_close(lse[live], want_lse[live], atol=1e-3, rtol=0)
+    if B > 1:
+        assert (out[-1] == 0).all() and (lse[-1] == 1e30).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_forward_launches_count_on_their_variant(cuda, dtype):
+    """bf16 inputs move only the bf16 counters of K1 and K4, fp32 inputs
+    only the fp32 ones."""
+    from petr_tpu_torch.ops import dcn
+
+    q, k, v, mask = _inputs(1, 2, 40, 100, 32, dtype, seed=4)
+    x, om, w = _dcn_inputs(1, 16, 6, 10, 24, 1, dtype, seed=4)
+    counters = [(ca, "LAUNCHES"), (ca, "LAUNCHES_FP32"), (dcn, "LAUNCHES"), (dcn, "LAUNCHES_FP32")]
+    before = [getattr(m, c) for m, c in counters]
+    ca.flash_cross_attention(q, k, v, mask)
+    dcn.modulated_deform_conv(x, om, w)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert [getattr(m, c) - b for (m, c), b in zip(counters, before)] == [bf16, not bf16, bf16, not bf16]
 
 
 # K2 against the plain backward: each gradient within atol * max|ref| +
@@ -213,11 +281,11 @@ def test_tiny_train_gradients_on_the_card_match_the_cpu(cuda):
     results = []
     for device in ("cpu", "cuda"):
         model = create_train_state(cfg, seed=0, total_steps=10, device=device).model
-        before = (ca.LAUNCHES, ca.DKDV_LAUNCHES_FP32, ca.DQ_LAUNCHES_FP32)
+        before = (ca.LAUNCHES_FP32, ca.DKDV_LAUNCHES_FP32, ca.DQ_LAUNCHES_FP32)
         results.append(make_grad_fn(cfg)(model, batch, torch.Generator().manual_seed(0)))
-        if device == "cuda":  # fp32: K2's CUDA-core variants
+        if device == "cuda":  # fp32: K1's and K2's CUDA-core variants
             L = cfg.model.head.num_layers
-            got = (ca.LAUNCHES - before[0], ca.DKDV_LAUNCHES_FP32 - before[1], ca.DQ_LAUNCHES_FP32 - before[2])
+            got = (ca.LAUNCHES_FP32 - before[0], ca.DKDV_LAUNCHES_FP32 - before[1], ca.DQ_LAUNCHES_FP32 - before[2])
             assert got == (2 * L, L, L)
     (t_cpu, _, g_cpu, i_cpu), (t_gpu, _, g_gpu, i_gpu) = results
     np.testing.assert_array_equal(i_cpu, i_gpu)
@@ -240,6 +308,14 @@ def _dcn_inputs(B, Cin, H, W, Cout, stride, dtype, seed):
     return x, torch.cat([off, logits], 1), w
 
 
+# The bf16 K4 against the unrounded plain version (atol * max|ref| + rtol *
+# |ref|): chip_smoke.py's OPERAND_TOL. Rounding the samples and the weight to
+# bf16 moves a sum of thousands of terms by about 2^-9 of their root sum of
+# squares; the floor took 0.50-0.65 of this bound at the r50 stages and the
+# stride-2 odd shape.
+OPERAND_TOL = (4e-3, 1.6e-2)
+
+
 def _assert_dcn_close(got, want, dtype):
     """fp32: sums in other orders, within 2e-5 of the largest output. bf16:
     both round one fp32 sum, so within one bf16 step of |ref| (at most
@@ -259,16 +335,46 @@ def _assert_dcn_close(got, want, dtype):
     ids=["r50-stage3", "r50-stage4", "odd-stride2", "odd-wide"],
 )
 def test_dcn_kernel_matches_plain_version(cuda, dtype, B, Cin, H, W, Cout, stride):
+    """fp32 against the plain version; bf16 against its rounding floor (the
+    kernel rounds the samples and the weight to bf16 before their products,
+    operand_dtype makes the plain version round them at the same points)
+    under the same bound, and against the unrounded plain version within
+    OPERAND_TOL."""
     from petr_tpu_torch.ops import dcn
 
     x, om, w = _dcn_inputs(B, Cin, H, W, Cout, stride, dtype, seed=Cin + H)
+    counter = "LAUNCHES" if dtype == torch.bfloat16 else "LAUNCHES_FP32"
+    before = getattr(dcn, counter)
+    out = dcn.modulated_deform_conv(x, om, w, stride)
+    torch.cuda.synchronize()
+    assert getattr(dcn, counter) == before + 1
+    want = dcn.modulated_deform_conv_reference(x, om, w, stride)
+    assert out.dtype == dtype and out.shape == want.shape
+    if dtype == torch.float32:
+        _assert_dcn_close(out, want, dtype)
+        return
+    floor = dcn.modulated_deform_conv_reference(x, om, w, stride, operand_dtype=torch.bfloat16)
+    _assert_dcn_close(out, floor, dtype)
+    _assert_within(out, want, OPERAND_TOL)
+
+
+@pytest.mark.parametrize(
+    "B,Cin,H,W,Cout,stride",
+    [(6, 256, 32, 88, 256, 1), (6, 512, 16, 44, 512, 1), (2, 5, 7, 9, 3, 2), (1, 70, 3, 130, 65, 1),
+     (2, 40, 9, 20, 300, 1)],
+    ids=["r50-stage3", "r50-stage4", "odd-stride2", "odd-wide", "cout300"],
+)
+def test_bf16_dcn_matches_its_rounding_floor(cuda, B, Cin, H, W, Cout, stride):
+    from petr_tpu_torch.ops import dcn
+
+    x, om, w = _dcn_inputs(B, Cin, H, W, Cout, stride, torch.bfloat16, seed=Cin + W)
     before = dcn.LAUNCHES
     out = dcn.modulated_deform_conv(x, om, w, stride)
     torch.cuda.synchronize()
     assert dcn.LAUNCHES == before + 1
-    want = dcn.modulated_deform_conv_reference(x, om, w, stride)
-    assert out.dtype == dtype and out.shape == want.shape
-    _assert_dcn_close(out, want, dtype)
+    floor = dcn.modulated_deform_conv_reference(x, om, w, stride, operand_dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and out.shape == floor.shape
+    _assert_dcn_close(out, floor, torch.bfloat16)
 
 
 def test_dcn_gradients_through_the_function(cuda):
@@ -279,9 +385,9 @@ def test_dcn_gradients_through_the_function(cuda):
     results = []
     for fn in (dcn.modulated_deform_conv, dcn.modulated_deform_conv_plain):
         ins = [t.detach().clone().requires_grad_() for t in (x, om, w)]
-        before = dcn.LAUNCHES
+        before = dcn.LAUNCHES_FP32
         fn(*ins).backward(gout)
-        results.append((dcn.LAUNCHES - before, [t.grad for t in ins]))
+        results.append((dcn.LAUNCHES_FP32 - before, [t.grad for t in ins]))
     (k_launches, k_grads), (p_launches, p_grads) = results
     assert (k_launches, p_launches) == (1, 0), "the backward must not launch K4"
     for name, a, b in zip(("x", "off_mask", "weight"), k_grads, p_grads):
@@ -351,9 +457,9 @@ def test_tiny_r50dcn_detector_on_the_card_matches_the_cpu(cuda):
     torch.backends.cudnn.allow_tf32 = False
     with torch.inference_mode():
         want = models[0](images, img2lidar, img_hw)
-        before = dcn.LAUNCHES
+        before = dcn.LAUNCHES_FP32
         got = models[1](images.cuda(), img2lidar.cuda(), img_hw.cuda())
         torch.cuda.synchronize()
-    assert dcn.LAUNCHES == before + 9
+    assert dcn.LAUNCHES_FP32 == before + 9  # fp32: K4's CUDA-core variant
     for key in ("cls_logits", "bbox_codes"):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-3, atol=2e-3)

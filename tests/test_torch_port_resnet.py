@@ -35,7 +35,7 @@ from petr_tpu_torch.models import PETRDetector, init_weights
 from petr_tpu_torch.models.layers import FrozenBatchNorm
 from petr_tpu_torch.models.resnet import ModulatedDeformConv2dPack, redraw_offset_convs
 from petr_tpu_torch.ops import dcn
-from petr_tpu_torch.ops.sampling import bilinear_sample, grid_sample_normalized
+from petr_tpu_torch.ops.sampling import bilinear_sample, bilinear_sample_batched, grid_sample_normalized
 from petr_tpu_torch.utils import state_dict_from_jax
 from tests.test_heads import make_cams
 
@@ -152,6 +152,83 @@ def test_plain_dcn_matches_xla_formulation_and_pallas_kernel(stride):
     for want in (xla, pallas):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
     assert np.abs(got).max() > 0.5  # not a zero-sample degenerate case
+
+
+# The bf16 K4 rounds the modulated samples and the weight to bf16 before
+# their products (petr_tpu's Pallas kernel multiplies in x's dtype too); the
+# plain version with operand_dtype=bfloat16 is that rounding floor. In bf16
+# the floor, petr_tpu's XLA formulation (fp32 inside, one rounding) and its
+# interpreted Pallas kernel (the interpolation matrix and the weight in bf16)
+# agree within atol * max|ref| + rtol * |ref| for (atol, rtol) = (4e-3,
+# 1.6e-2), chip_smoke.py's OPERAND_TOL; the floor took 0.33-0.51 of it here.
+OPERAND_TOL = (4e-3, 1.6e-2)
+
+
+@pytest.mark.parametrize("stride,shape", [(1, {}), (2, {}), (1, dict(B=1, H=12, W=17, Cin=40, Cout=24, seed=3))],
+                         ids=["stride1", "stride2", "c40"])
+def test_bf16_rounding_floor_matches_xla_formulation_and_pallas_kernel(stride, shape):
+    x, off_mask, w = dcn_case(stride, **shape)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    got = dcn.modulated_deform_conv_reference(nchw(x).bfloat16(), nchw(off_mask), oihw(w), stride,
+                                              operand_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy().transpose(0, 2, 3, 1)
+    xla = jax_dcn(xb, jnp.asarray(off_mask), jnp.asarray(w), stride=stride, impl="xla")
+    with pltpu.force_tpu_interpret_mode():
+        pallas = modulated_deform_conv_pallas(xb, jnp.asarray(off_mask), jnp.asarray(w), stride, 1, "onehot")
+    plain = dcn.modulated_deform_conv_reference(nchw(x).bfloat16(), nchw(off_mask), oihw(w), stride)
+    atol, rtol = OPERAND_TOL
+    for want in (np.asarray(xla.astype(jnp.float32)), np.asarray(pallas.astype(jnp.float32))):
+        err = np.abs(got - want)
+        assert (err <= atol * np.abs(want).max() + rtol * np.abs(want)).all(), err.max()
+    # the unrounded plain version is the XLA formulation (fp32 inside): one bf16 step at most
+    np.testing.assert_allclose(plain.float().numpy().transpose(0, 2, 3, 1), np.asarray(xla.astype(jnp.float32)),
+                               rtol=2.0 ** -7, atol=1e-5 * np.abs(got).max())
+    assert np.abs(got - plain.float().numpy().transpose(0, 2, 3, 1)).max() > 0  # the operands were rounded
+
+
+@pytest.mark.parametrize("Cin", [5, 8, 40])
+def test_bf16_weight_repack_times_sample_im2col_is_the_plain_conv(Cin):
+    """The bf16 kernel's operands: the weight repacked to (Cout, 3, 3, Cp) in
+    bf16 (j = tap * Cp + c, zero past Cin), times the (P, 9 * Cp) matrix of
+    the modulated samples in the same j order, is the plain version with
+    operand_dtype=bfloat16 (fp32 sums in another order: 1e-5 of the largest
+    output)."""
+    from petr_tpu_torch.ops.conv3x3 import repack_weight
+
+    x, off_mask, w = dcn_case(1, B=2, H=7, W=10, Cin=Cin, Cout=12, seed=Cin)
+    xt, om, wt = nchw(x).bfloat16(), nchw(off_mask), oihw(w)
+    B, _, H, W = xt.shape
+    Cp = -(-Cin // 8) * 8
+    wr = repack_weight(wt, torch.bfloat16)
+    assert wr.shape == (12, 3, 3, Cp) and wr.dtype == torch.bfloat16
+    # the modulated samples (B, P, 9, Cin) as the plain version takes them
+    K = 9
+    o = om.permute(0, 2, 3, 1)
+    off = o[..., :2 * K].reshape(B, H, W, K, 2)
+    ty, tx = torch.meshgrid(torch.arange(3.0) - 1, torch.arange(3.0) - 1, indexing="ij")
+    sy = torch.arange(H, dtype=torch.float32)[None, :, None, None] + ty.reshape(K) + off[..., 0]
+    sx = torch.arange(W, dtype=torch.float32)[None, None, :, None] + tx.reshape(K) + off[..., 1]
+    samples = bilinear_sample_batched(xt.float().permute(0, 2, 3, 1), torch.stack([sx, sy], -1))
+    samples = (samples * torch.sigmoid(o[..., 2 * K:])[..., None]).bfloat16().float()
+    col = torch.zeros(B, H * W, K, Cp)
+    col[..., :Cin] = samples.reshape(B, H * W, K, Cin)
+    got = torch.matmul(col.reshape(B, H * W, K * Cp), wr.float().reshape(12, K * Cp).t())
+    want = dcn.modulated_deform_conv_reference(xt, om, wt, operand_dtype=torch.bfloat16).float()
+    want = want.permute(0, 2, 3, 1).reshape(B, H * W, 12)
+    scale = want.abs().max()
+    # want was rounded once to bf16: one bf16 step of |want| plus fp32 noise
+    assert ((got - want).abs() <= 2.0 ** -8 * want.abs() + 1e-5 * scale).all()
+    assert (wr[..., Cin:] == 0).all()
+
+
+@pytest.mark.parametrize("C", [5, 8, 16])
+def test_channels_last_copy_pads_with_zeros(C):
+    x = torch.randn(2, C, 3, 4).bfloat16()
+    Cp = -(-C // 8) * 8
+    xc = dcn.channels_last(x, Cp)
+    assert xc.shape == (2, 3, 4, Cp) and xc.is_contiguous()
+    assert torch.equal(xc[..., :C], x.permute(0, 2, 3, 1)) and (xc[..., C:] == 0).all()
 
 
 @pytest.mark.parametrize("stride", [1, 2])
