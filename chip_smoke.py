@@ -18,14 +18,15 @@ nothing of petr_tpu. Phases, each fatal on failure:
    events; its ``device_ms`` (and ``library_device_ms``) the kernels' own
    time from the profiler. Every kernel comes in two variants, bf16 on the
    tensor cores and fp32 on the CUDA cores, each launch counted on its
-   variant's counter. K1 without and with dropout, at the flagship's L and
-   the r50dcn decoder's L = 16,896 (a fully masked batch row must give exact
+   variant's counter. K1 without and with dropout, at the flagship's L, the
+   r50dcn decoder's L = 16,896 and PETRv2's L = 12,000 (also at batch 2,
+   where the 64-row plan runs; a fully masked batch row must give exact
    zeros and lse 1e30): the bf16 variant against its rounding floor (the
    plain version rounding p to bf16 where the kernel does) under
    KERNEL_TOL, on inputs whose logits are exact in fp32, and against the
    unrounded plain version; timed beside SDPA; K2 (its dK/dV and dQ
    kernels) at dropout 0 and 0.1, the bf16 variant checked and
-   timed also at L = 16,896, with the distance that rounding P and dS to
+   timed also at L = 16,896 and 12,000, with the distance that rounding P and dS to
    bf16 alone puts between the plain backward and itself; K3's lse
    cotangent through the autograd Function
    (a fully masked batch row must give exact zeros); K4 (DCNv2) at both
@@ -77,11 +78,28 @@ nothing of petr_tpu. Phases, each fatal on failure:
    remat): K4 launches 18 times per step (9 in the bottlenecks' recompute),
    K1 12 and each K2 kernel 6; finite loss and gradients, DCN weights and
    offset convs moved, the backbone's frozen BN affine and every BN
-   statistic not; step time, peak memory, one profiler pass. Then one fp32
+   statistic not; step time, peak memory, one profiler pass. Two identical
+   bf16 steps (same weights, batch and generator seed) must give the same
+   loss, ``grad_norm`` and parameters bit for bit. Then one fp32
    step with K4 against the same step on its plain version, beside the
    plain step with its images nudged by one ulp.
+8. PETRv2: ``petrv2_vov_p4_800x320`` at full width (2 frames of 6 views at
+   320x800, FPE, with_time, RegLayer, one branch per decoder layer; L =
+   12,000 decoder keys) in bf16, random weights from a seed. Serving: 3
+   requests with timestamps through ``InferenceServer`` at batch 2 (one
+   batch padded), K1 6 times per forward (bf16 only), outputs against
+   direct calls and against K1's plain version (``MODEL_*``), the head's
+   last stage recomputed from the decoder's output (each layer's own
+   branches; velocities over the frames' mean step), B=1 latency and one
+   profiler pass. Streaming: ``StreamingPETRv2`` primed, then 3 frames,
+   each through the backbone on 6 views and held to the full 12-view
+   forward under ROUTE_TOL. Training: 2 warm-up and 3 timed bf16 steps
+   (dropout 0.1, GridMask over the 12 views, remat), K1 12 and each K2
+   kernel 6 times per step; step time, peak memory, one profiler pass; one
+   fp32 step with the kernels against the plain versions, beside the plain
+   step with its images nudged by one ulp.
 
-``--phases 3,6`` runs only the phases named (1 and 2 always run), prints no
+``--phases 3,8`` runs only the phases named (1 and 2 always run), prints no
 kernels record and no result line, and exits 1 either way: a failed check
 raises an AssertionError; ``--phases 3`` alone checks and times every kernel. With no
 arguments every phase runs. The line before the last is the kernels' JSON
@@ -131,6 +149,9 @@ STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_FLOOR = 1e-4, 1e-3, 1e-3
 NUDGE_MARGIN = 3.0
 # the r50dcn preset, and the fp32 SM peak of one H100 SXM (data sheet)
 R50 = "petr_r50_p4_1408x512"
+# PETRv2: two frames of 6 views at 320x800, p4 -> L = 12 x 20 x 50 decoder keys
+PETRV2 = "petrv2_vov_p4_800x320"
+LV2 = 12 * 20 * 50
 PEAK_FP32_FLOPS = 67e12
 # A kernel against its plain version, elementwise: fp32 within 2e-5 of the
 # largest |ref| (sums in other orders); bf16 within one bf16 step of |ref|
@@ -382,6 +403,13 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
     compare("fp32, batch row 1 fully masked", qmf, kmf, vmf, mmf, K1_FP32_TOL, masked_rows=(1,))
     qr, kr, vr, mr = attention_inputs(torch, gen, B, torch.bfloat16, H, Q, Lr, D)
     r50_err = compare(f"bf16, r50dcn L {Lr}", qr, kr, vr, mr, K1_BF16_TOL)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    qv, kv, vv, mv = attention_inputs(torch, gen, B, torch.bfloat16, H, Q, LV2, D)
+    v2_err = compare(f"bf16, PETRv2 L {LV2}", qv, kv, vv, mv, K1_BF16_TOL)
+    qv2, kv2, vv2, mv2 = attention_inputs(torch, gen, 2, torch.bfloat16, H, Q, LV2, D)
+    v2_plan = ca.attention_plan(2 * H, Q, sms)
+    assert v2_plan == 4, f"batch 2 at L {LV2} should take the 64-row plan, took {v2_plan} query warps"
+    v2_b2_err = compare(f"bf16, PETRv2 L {LV2}, batch 2 (64-row plan)", qv2, kv2, vv2, mv2, K1_BF16_TOL)
 
     log(f"phase 3: K1 with dropout {DROPOUT} (seed {DROP_SEED}) against its plain versions")
     kept = ca.dropout_keep_mask(DROP_SEED, 2, H, Q, L, DROPOUT, "cuda").float().mean().item()
@@ -392,11 +420,15 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
     compare("bf16, dropout, batch row 1 fully masked", qm, km, vm, mm, K1_BF16_TOL, (1,), DROPOUT)
     compare("fp32, dropout, batch row 1 fully masked", qmf, kmf, vmf, mmf, K1_FP32_TOL, (1,), DROPOUT)
     compare(f"bf16, dropout, r50dcn L {Lr}", qr, kr, vr, mr, K1_BF16_TOL, rate=DROPOUT)
+    v2_drop_err = compare(f"bf16, dropout, PETRv2 L {LV2}", qv, kv, vv, mv, K1_BF16_TOL, rate=DROPOUT)
+    compare(f"bf16, dropout, PETRv2 L {LV2}, batch 2 (64-row plan)", qv2, kv2, vv2, mv2, K1_BF16_TOL,
+            rate=DROPOUT)
+    del qv2, kv2, vv2, mv2
 
     log("phase 3: bf16 K1 against its rounding floor (round_p=True) under KERNEL_TOL, on inputs whose "
         "logits are exact in fp32 (N(0, 1) draws rounded to multiples of 1/8)")
-    floor_errs = []
-    for Lc in (L, Lr):
+    floor_errs, v2_floor_errs = [], []
+    for Lc in (L, Lr, LV2):
         for rate in (0.0, DROPOUT):
             for batch in (1, 2):
                 qg, kg, vg, mg = attention_inputs(torch, gen, batch, torch.bfloat16, H, Q, Lc, D, grid=True)
@@ -405,10 +437,8 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
                     mg[1] = True
                     rows = (1,)
                 name = f"floor, L {Lc}, rate {rate}" + (", batch row 1 fully masked" if rows else "")
-                floor_errs.append(compare_floor(name, qg, kg, vg, mg, rows, rate))
+                (v2_floor_errs if Lc == LV2 else floor_errs).append(compare_floor(name, qg, kg, vg, mg, rows, rate))
                 del qg, kg, vg, mg
-
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def timed(q, k, v, m, Lc, peak):
         """One call between CUDA events and the device time, of K1 (rate 0 and
@@ -431,6 +461,7 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
 
     t16 = timed(q16, k16, v16, m16, L, PEAK_BF16_FLOPS)
     tr = timed(qr, kr, vr, mr, Lr, PEAK_BF16_FLOPS)
+    tv = timed(qv, kv, vv, mv, LV2, PEAK_BF16_FLOPS)
     t32 = timed(q32, k32, v32, m32, L, PEAK_FP32_FLOPS)
     t32["dropout_plain_ms"] = cuda_time_ms(
         lambda: ca.flash_cross_attention_reference(q32, k32, v32, m32, DROPOUT, DROP_SEED), warmup=2, iters=10)
@@ -439,8 +470,9 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
     plan = ca.attention_plan(B * H, Q, sms)
     plans = {qw: device_ms(torch, lambda: ca._forward_cuda(q16, k16, v16, m16, 0.0, None, query_warps=qw))
              for qw in (2, 4)}
-    for tag, Lc, t in (("bf16", L, t16), ("bf16", Lr, tr), ("fp32", L, t32)):
-        log(f"  timing {tag} B={B} H={H} Q={Q} L={Lc} ({int((~(m16 if Lc == L else mr)).sum())} unmasked) D={D}: "
+    masks = {L: m16, Lr: mr, LV2: mv}
+    for tag, Lc, t in (("bf16", L, t16), ("bf16", Lr, tr), ("bf16", LV2, tv), ("fp32", L, t32)):
+        log(f"  timing {tag} B={B} H={H} Q={Q} L={Lc} ({int((~masks[Lc]).sum())} unmasked) D={D}: "
             f"kernel_ms {t['ms']:.4f} ({t['dropout_ms']:.4f} with dropout {DROPOUT}), plain_ms {t['plain_ms']:.4f}, "
             f"library_ms (SDPA, boolean mask) {t['library_ms']:.4f} (one call between CUDA events); device time: "
             f"kernel {t['device_ms']:.4f} ({t['dropout_device_ms']:.4f} with dropout), SDPA "
@@ -501,7 +533,31 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
         "dropout_device_ms": t32["dropout_device_ms"],
         "dropout_plain_ms": t32["dropout_plain_ms"],
     }
-    return bf16_rec, fp32_rec
+    v2_rec = {
+        "name": f"flash_cross_attention_fwd_L{LV2}",
+        "route": "cuda",
+        "source": "petr_tpu_torch/csrc/flash_cross_attention.cu",
+        "replaces": "petr_tpu/ops/pallas/cross_attention.py:62::_kernel",
+        "launches": None,  # filled from the PETRv2 serving run (phase 8)
+        "shape": {"B": B, "H": H, "Q": Q, "L": LV2, "D": D, "unmasked": int((~mv).sum())},
+        "max_abs_err": v2_err,
+        "batch2_max_abs_err": v2_b2_err,
+        "batch2_query_warps": v2_plan,
+        "floor_max_abs_err": max(v2_floor_errs),
+        "ms": tv["ms"],
+        "plain_ms": tv["plain_ms"],
+        "bound_ms": tv["bound_ms"],
+        "bound_by": tv["bound_by"],
+        "bound_parts": tv["bound_parts"],
+        "library_ms": tv["library_ms"],
+        "device_ms": tv["device_ms"],
+        "library_device_ms": tv["library_device_ms"],
+        "device_ms_over_sdpa": tv["device_ms"] / tv["library_device_ms"],
+        "dropout_kernel_ms": tv["dropout_ms"],
+        "dropout_device_ms": tv["dropout_device_ms"],
+        "dropout_max_abs_err": v2_drop_err,
+    }
+    return bf16_rec, fp32_rec, v2_rec
 
 
 def rounded_plain_backward(torch, ca, q, k, v, mask, out, lse, gout, rate, seed):
@@ -566,7 +622,8 @@ def check_flash_backward(torch, ca, sm_clock_hz, card):
     Lr = 6 * 32 * 88  # the r50dcn decoder's keys: 6 views x 32 x 88 tokens
     cases = [(dtype, tag, rate, batch, L) for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"))
              for rate in (0.0, DROPOUT) for batch in (1, 2)]
-    cases += [(torch.bfloat16, "bf16", rate, 1, Lr) for rate in (0.0, DROPOUT)]  # the r50dcn train step's
+    cases += [(torch.bfloat16, "bf16", rate, 1, Lc) for rate in (0.0, DROPOUT)  # the r50dcn and PETRv2 steps'
+              for Lc in (Lr, LV2)]
     errs = {}
     for dtype, tag, rate, batch, Lc in cases:
         q, k, v, m = attention_inputs(torch, gen, batch, dtype, H, Q, Lc, D)
@@ -616,7 +673,8 @@ def check_flash_backward(torch, ca, sm_clock_hz, card):
     # flagship's L and the r50dcn decoder's (6 views x 32 x 88 tokens)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     timing = {}
-    for tag, dtype, Lt in (("bf16", torch.bfloat16, L), ("bf16", torch.bfloat16, Lr), ("fp32", torch.float32, L)):
+    for tag, dtype, Lt in (("bf16", torch.bfloat16, L), ("bf16", torch.bfloat16, Lr), ("bf16", torch.bfloat16, LV2),
+                           ("fp32", torch.float32, L)):
         q, k, v, m = attention_inputs(torch, gen, B, dtype, H, Q, Lt, D)
         gout = cotangent(B, dtype)
         out, lse = ca.flash_cross_attention(q, k, v, m, DROPOUT, DROP_SEED)
@@ -693,6 +751,30 @@ def check_flash_backward(torch, ca, sm_clock_hz, card):
                             "r50_library_device_ms": tr["library_device"], "r50_plain_ms": tr["plain"],
                             "r50_max_abs_err": max(errs[(tag, DROPOUT, 1, Lr)][g] for g in grads)})
             records.append(rec)
+    t = timing[("bf16", LV2)]
+    for which, name in (("dkdv", "flash_cross_attention_bwd_dkdv"), ("dq", "flash_cross_attention_bwd_dq")):
+        b_ms, b_by, parts = t["bounds"][which]
+        grads = ("dk", "dv") if which == "dkdv" else ("dq",)
+        records.append({
+            "name": f"{name}_L{LV2}",
+            "route": "cuda",
+            "source": "petr_tpu_torch/csrc/flash_cross_attention_bwd.cu",
+            "replaces": "petr_tpu/ops/pallas/cross_attention.py:198::_bwd_kernel",
+            "launches": None,  # filled from the PETRv2 train run (phase 8)
+            "shape": {"B": B, "H": H, "Q": Q, "L": LV2, "D": D},
+            "max_abs_err": max(errs[("bf16", DROPOUT, 1, LV2)][g] for g in grads),
+            "rate0_max_abs_err": max(errs[("bf16", 0.0, 1, LV2)][g] for g in grads),
+            "ms": t[(which, DROPOUT)],
+            "rate0_ms": t[(which, 0.0)],
+            "plain_ms": t["plain"],  # the whole plain backward (dq, dk and dv)
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "bound_parts": parts,
+            "library_ms": t["library"],  # SDPA's whole backward at rate 0
+            "device_ms": t[(which, DROPOUT, "device")],
+            "rate0_device_ms": t[(which, 0.0, "device")],
+            "library_device_ms": t["library_device"],
+        })
     return records
 
 
@@ -1075,12 +1157,39 @@ def make_cams(B, N, H=320, W=800):
     return np.linalg.inv(mats).astype(np.float32)
 
 
-def make_requests(cfg, n=3):
-    """``n`` serving requests drawn from SEED; request 1 has two views padded
-    (their tokens are masked in the decoder)."""
+def view_cams(cfg, B=1, ego_shift=2.0):
+    """img2lidar (B, N, 4, 4) of a config's views: ``make_cams``' 6 cameras,
+    and for a 2-frame config (PETRv2) the same 6 again for the previous
+    frame, expressed in the current frame's lidar coordinates: the ego car
+    drove ``ego_shift`` metres forward in between."""
     import numpy as np
 
-    N = cfg.data.num_views
+    H, W = cfg.data.image_size
+    cams = make_cams(B, cfg.data.num_views, H, W)
+    if cfg.data.num_frames == 1:
+        return cams
+    prev_to_cur = np.eye(4, dtype=np.float32)
+    prev_to_cur[0, 3] = -ego_shift
+    return np.concatenate([cams, prev_to_cur @ cams], axis=1).astype(np.float32)
+
+
+def frame_timestamps(rng, B=1, dt=0.5):
+    """(B, 12) lidar-relative timestamps: the current 6 views within 20 ms
+    of 0, the previous frame's 6 ``dt`` seconds later in the data layer's
+    convention (`petr_tpu/serve/streaming.py::self_padded_timestamp`)."""
+    import numpy as np
+
+    cur = rng.uniform(-0.02, 0.02, (B, 6))
+    return np.concatenate([cur, cur + dt], axis=1).astype(np.float32)
+
+
+def make_requests(cfg, n=3):
+    """``n`` serving requests drawn from SEED; request 1 has two views padded
+    (their tokens are masked in the decoder). A 2-frame config's requests
+    hold 12 views and their timestamps."""
+    import numpy as np
+
+    N = cfg.data.num_views * cfg.data.num_frames
     H, W = cfg.data.image_size
     rng = np.random.RandomState(SEED)
     requests = []
@@ -1089,12 +1198,21 @@ def make_requests(cfg, n=3):
         if r == 1:
             img_hw[2] = [H - 32, W - 96]
             img_hw[4] = [H, W - 160]
-        requests.append({
+        req = {
             "images": rng.randn(N, H, W, 3).astype(np.float32),
-            "img2lidar": make_cams(1, N, H, W)[0],
+            "img2lidar": view_cams(cfg)[0],
             "img_hw": img_hw,
-        })
+        }
+        if cfg.data.num_frames > 1:
+            req["timestamp"] = frame_timestamps(rng)[0]
+        requests.append(req)
     return requests
+
+
+def forward(model, args):
+    """The detector on the serving inputs (images, img2lidar, img_hw[,
+    timestamp]) as tensors."""
+    return model(*args[:3], timestamp=args[3] if len(args) > 3 else None)
 
 
 def compare_outputs(torch, what, a_out, b_out, tol, mean_tol, shape):
@@ -1123,13 +1241,11 @@ def serve_and_check(torch, cfg, model, counters, per_forward, plain_routes, tol,
     serving function, the served results)."""
     import numpy as np
 
-    from petr_tpu_torch.serve import InferenceServer, make_serving_fn
+    from petr_tpu_torch.serve import InferenceServer, make_serving_fn, serving_input_spec
 
-    N = cfg.data.num_views
-    H, W = cfg.data.image_size
     fn = make_serving_fn(cfg, model, device="cuda")
     requests = make_requests(cfg)
-    keys = ("images", "img2lidar", "img_hw")
+    keys = tuple(serving_input_spec(cfg))
     forwards = 0
 
     def counted(*args):
@@ -1142,7 +1258,7 @@ def serve_and_check(torch, cfg, model, counters, per_forward, plain_routes, tol,
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     t0 = time.perf_counter()
-    with InferenceServer(counted, batch_size=2, max_delay_ms=50.0) as server:
+    with InferenceServer(counted, batch_size=2, input_keys=keys, max_delay_ms=50.0) as server:
         futures = [server.submit(req) for req in requests]
         results = [f.result(timeout=600) for f in futures]
     serve_s = time.perf_counter() - t0
@@ -1180,12 +1296,12 @@ def serve_and_check(torch, cfg, model, counters, per_forward, plain_routes, tol,
     if not plain_routes:
         return launches, args, fn, results
     with torch.inference_mode():
-        out_k = model(*args)
+        out_k = forward(model, args)
         kept = [getattr(mod, attr) for mod, attr, _ in plain_routes]
         for mod, attr, plain in plain_routes:
             setattr(mod, attr, plain)
         try:
-            out_plain = model(*args)
+            out_plain = forward(model, args)
         finally:
             for (mod, attr, _), fn_kept in zip(plain_routes, kept):
                 setattr(mod, attr, fn_kept)
@@ -1201,10 +1317,11 @@ def serving_latency(torch, cfg, model, fn, results, card):
     CUDA events, and one profiler pass -> (forward ms, B=1 inputs)."""
     import numpy as np
 
-    N = cfg.data.num_views
+    from petr_tpu_torch.serve import serving_input_spec
+
+    N = cfg.data.num_views * cfg.data.num_frames
     H, W = cfg.data.image_size
-    keys = ("images", "img2lidar", "img_hw")
-    one = [np.stack([make_requests(cfg, 1)[0][k]]) for k in keys]
+    one = [np.stack([make_requests(cfg, 1)[0][k]]) for k in serving_input_spec(cfg)]
     for _ in range(3):
         fn(*one)
     lat = []
@@ -1216,12 +1333,12 @@ def serving_latency(torch, cfg, model, fn, results, card):
     np.testing.assert_allclose(np.sort(res1["scores"][0]), np.sort(results[0]["scores"]), atol=1e-2)
     one_t = [torch.as_tensor(a).cuda() for a in one]
     with torch.inference_mode():
-        fwd_ms = cuda_time_ms(lambda: model(*one_t), warmup=2, iters=10)
+        fwd_ms = cuda_time_ms(lambda: forward(model, one_t), warmup=2, iters=10)
     log(f"  serving step at B=1 ({N} views {H}x{W}): median {med * 1e3:.2f} ms over "
         f"{len(lat)} runs (host clock), {1.0 / med:.2f} samples/s; forward alone "
         f"{fwd_ms:.2f} ms (CUDA events, median of 10) [{card}]")
-    dev_ms, _ = profile(torch, lambda: model(*one_t), card)
-    return fwd_ms, dev_ms, one_t
+    dev_ms, per_kernel = profile(torch, lambda: forward(model, one_t), card)
+    return fwd_ms, dev_ms, one_t, per_kernel
 
 
 def check_serving(torch, ca, conv, card):
@@ -1245,7 +1362,7 @@ def check_serving(torch, ca, conv, card):
     launches, _, fn, results = serve_and_check(
         torch, cfg, model, {"K1": (ca, "LAUNCHES"), "K1 fp32": (ca, "LAUNCHES_FP32")}, {"K1": L, "K1 fp32": 0},
         [(layers, "flash_cross_attention", ca.flash_cross_attention_reference)], model_tol, MODEL_MEAN, card)
-    fwd_ms, dev_ms, one_t = serving_latency(torch, cfg, model, fn, results, card)
+    fwd_ms, dev_ms, one_t, _ = serving_latency(torch, cfg, model, fn, results, card)
 
     # the opt-in route: every OSA conv through K5, against the default (cuDNN)
     osa = 5 * sum(len(getattr(model.img_backbone, f"stage{s}")) for s in range(2, 6))
@@ -1371,13 +1488,14 @@ def profile(torch, fn, card, iters=5, unit="forward", inference=True):
 
 def make_train_batch(cfg, seed, valid_gt=40):
     """One synthetic batch of one sample, drawn from ``seed`` with numpy: 6
-    normalised views, ``make_cams`` cameras, ``max_gt`` GT rows of which
-    ``valid_gt`` are real: centres inside pc_range, positive sizes, any yaw,
-    small velocities, labels in [0, num_classes)."""
+    normalised views (12 and their timestamps for a 2-frame config),
+    ``view_cams`` cameras, ``max_gt`` GT rows of which ``valid_gt`` are
+    real: centres inside pc_range, positive sizes, any yaw, small
+    velocities, labels in [0, num_classes)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    N, (H, W), G = cfg.data.num_views, cfg.data.image_size, cfg.data.max_gt
+    N, (H, W), G = cfg.data.num_views * cfg.data.num_frames, cfg.data.image_size, cfg.data.max_gt
     pc = cfg.model.head.pc_range
     valid = np.zeros(G, bool)
     valid[rng.permutation(G)[:valid_gt]] = True
@@ -1388,14 +1506,17 @@ def make_train_batch(cfg, seed, valid_gt=40):
     ], -1).astype(np.float32)
     boxes[~valid] = 0.0  # padding rows
     labels = np.where(valid, rng.randint(0, cfg.model.head.num_classes, G), 0)
-    return {
+    batch = {
         "images": rng.randn(1, N, H, W, 3).astype(np.float32),
-        "img2lidar": make_cams(1, N, H, W),
+        "img2lidar": view_cams(cfg),
         "img_hw": np.tile(np.array([H, W], np.float32), (1, N, 1)),
         "gt_boxes": boxes[None],
         "gt_labels": labels[None].astype(np.int64),
         "gt_valid": valid[None],
     }
+    if cfg.data.num_frames > 1:
+        batch["timestamp"] = frame_timestamps(rng)
+    return batch
 
 
 def compare_steps(torch, name, a, b, loss_rtol, grad_rtol, floor=None):
@@ -1424,7 +1545,8 @@ def compare_steps(torch, name, a, b, loss_rtol, grad_rtol, floor=None):
         f"{tb.item():.6f} (relative error {loss_err:.2e}, tol {loss_rtol}); gradients of {len(rel)} "
         f"parameters (largest entry {top:.3e}), max abs err / max(max |grad|, {STEP_GRAD_FLOOR} x largest): "
         f"median {median:.2e}, worst "
-        + ", ".join(f"{n} {r:.2e} (err {raw[n][0]:.2e}, max |grad| {raw[n][1]:.2e})" for n, r in worst)
+        + ", ".join(f"{n} {r:.2e} (err {raw[n][0]:.2e}, max |grad| {raw[n][1]:.2e}"
+                    + ("" if floor is None else f"; the floor there {floor[n]:.2e}") + ")" for n, r in worst)
         + f" (tol {limit:.2e}" + ("" if floor is None else f", median tol {grad_rtol}") + ")")
     assert loss_err <= loss_rtol, f"{name}: loss differs by {loss_err:.3e}"
     assert worst[0][1] <= limit, f"{name}: gradient {worst[0][0]} differs by {worst[0][1]:.3e}"
@@ -1573,7 +1695,6 @@ def check_training(torch, ca, card):
     no_remat = grads_of(create_train_state(cfg_nr, SEED, 1000, device="cuda").model)
     compare_steps(torch, "remat on vs remat off (kernels)", with_kernels, no_remat,
                   STEP_LOSS_RTOL, STEP_GRAD_RTOL)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
     return launches, fp32_launches
 
 
@@ -1648,7 +1769,7 @@ def check_r50_serving(torch, ca, dcn, card):
                             "K1 fp32": (ca, "LAUNCHES_FP32")},
         {"K4": 9, "K1": cfg.model.head.num_layers, "K4 fp32": 0, "K1 fp32": 0}, [], None, None, card)
     check_r50_routes(torch, cfg, model, dcn, resnet, args)
-    fwd_ms, _, _ = serving_latency(torch, cfg, model, fn, results, card)
+    fwd_ms, _, _, _ = serving_latency(torch, cfg, model, fn, results, card)
     return launches, fwd_ms
 
 
@@ -1759,6 +1880,7 @@ def check_r50_training(torch, ca, dcn, card):
     state = create_train_state(cfg, SEED, total_steps=1000, device="cuda")
     model = state.model
     r50_random_weights(torch, cfg, model)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
     batches = [{k: torch.as_tensor(v).cuda() for k, v in make_train_batch(cfg, SEED + i).items()}
                for i in range(3)]
     log(f"  train state and 3 synthetic batches in {time.perf_counter() - t0:.1f} s")
@@ -1815,6 +1937,7 @@ def check_r50_training(torch, ca, dcn, card):
         f"({dev_ms:.3f} ms of device time in {med:.2f} ms) [{card}]")
     k2_ms = per_kernel.get("K2 dK/dV", 0.0) + per_kernel.get("K2 dQ", 0.0)
     log(f"  K2 (dK/dV + dQ) per step: {k2_ms:.3f} ms of device time [{card}]")
+    check_reproducible(torch, cfg, step_fn, initial, batches[0])
 
     # In fp32 the step is sensitive to the last bit: a ReLU whose input lies
     # within rounding of 0 switches, or a sampling point crosses a pixel
@@ -1860,11 +1983,271 @@ def check_r50_training(torch, ca, dcn, card):
     assert dcn.LAUNCHES_FP32 == 18, "the plain route launched K4"
     compare_steps(torch, "K4 vs its plain version (remat on)", with_kernel, plain, STEP_LOSS_RTOL, STEP_GRAD_RTOL,
                   floor=nudge)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
     return launches, fp32_k4_launches
 
 
-ALL_PHASES = {3, 4, 5, 6, 7}
+def check_reproducible(torch, cfg, step_fn, initial, batch):
+    """Two bf16 train steps from the same weights (``initial``, a
+    state_dict), batch and generator seed, each on a fresh optimizer: the
+    same ``grad_norm`` and the same parameters after the update, bit for
+    bit. (The DCN's plain backward, autograd of the bilinear gather, once
+    summed each pixel's gradient with atomics, ``ops/sampling.py``; and
+    cuDNN's weight gradient of the offset convs took a nondeterministic
+    algorithm until ``create_train_state`` pinned deterministic ones.)"""
+    from petr_tpu_torch.train import create_train_state
+
+    log("phase 7: two identical bf16 steps (same weights, batch and generator seed): bit for bit the same")
+    runs = []
+    for _ in range(2):
+        state = create_train_state(cfg, SEED, total_steps=1000, device="cuda")
+        state.model.load_state_dict(initial)
+        _, metrics = step_fn(state, batch, torch.Generator().manual_seed(SEED + 11))
+        runs.append((metrics["grad_norm"].clone(), metrics["loss"].clone(),
+                     {n: p.detach().clone() for n, p in state.model.named_parameters()}))
+        del state
+    (g0, l0, p0), (g1, l1, p1) = runs
+    differ = [n for n in p0 if not torch.equal(p0[n], p1[n])]
+    log(f"  loss {l0.item():.9g} / {l1.item():.9g}, grad_norm {g0.item():.9g} / {g1.item():.9g} "
+        f"({'equal' if torch.equal(g0, g1) else 'NOT equal'} bit for bit); {len(differ)} of {len(p0)} "
+        f"parameters differ after the update" + (f" (first: {differ[:3]})" if differ else ""))
+    assert torch.equal(l0, l1), "two identical steps gave different losses"
+    assert torch.equal(g0, g1), "two identical steps gave different grad_norm"
+    assert not differ, f"two identical steps left {len(differ)} parameters different"
+
+
+def check_petrv2_head_tail(torch, model, args):
+    """The v2 head's last stage recomputed here from the decoder's output:
+    layer l's cls logits are ``cls_branches[l]`` of the layer's output, and
+    its velocity codes ``reg_branches[l]``'s last two outputs divided by the
+    mean step from the current frame's timestamps to the previous frame's
+    (with_time; |dt| >= 1e-3). The decoder's output is caught by a hook on
+    the transformer."""
+    head = model.pts_bbox_head
+    caught = []
+    hook = head.transformer.register_forward_hook(lambda mod, inp, o: caught.append(o))
+    try:
+        with torch.inference_mode():
+            out = forward(model, args)
+    finally:
+        hook.remove()
+    dec = torch.nan_to_num(caught[0])
+    ts = args[3].float()
+    dt = (ts[:, 6:] - ts[:, :6]).mean(-1)
+    assert (dt.abs() >= 1e-3).all()
+    worst = 0.0
+    with torch.inference_mode():
+        for lvl in range(dec.shape[0]):
+            cls = head.cls_branches[lvl](dec[lvl]).float()
+            vel = head.reg_branches[lvl](dec[lvl]).float()[..., 8:] / dt[:, None, None]
+            for got, want in ((out["cls_logits"][lvl], cls), (out["bbox_codes"][lvl][..., 8:], vel)):
+                err = (got - want).abs().max().item()
+                worst = max(worst, err / max(want.abs().max().item(), 1e-30))
+    log(f"  the head's last stage recomputed from the decoder's output (each layer's own branches, "
+        f"velocities / mean frame step {dt.tolist()}): worst relative error {worst:.3e} (tol 1e-6)")
+    assert worst <= 1e-6, "the v2 head's branches or its velocity normalisation disagree with their recomputation"
+
+
+def check_petrv2(torch, ca, card):
+    """Phase 8: PETRv2 at full width in bf16 (random weights from SEED):
+    served through InferenceServer with timestamps, streamed, and trained."""
+    import dataclasses
+
+    import numpy as np
+
+    from petr_tpu_torch.configs import get_config
+    from petr_tpu_torch.models import layers
+    from petr_tpu_torch.serve import StreamingPETRv2, build_detector
+    from petr_tpu_torch.train import create_train_state, make_grad_fn, make_train_step
+
+    cfg = get_config(PETRV2)
+    mc, hc = cfg.model, cfg.model.head
+    L = hc.num_layers
+    assert cfg.data.num_frames == 2 and hc.with_fpe and hc.with_time and hc.with_multi_reg and not hc.shared_branches
+    log(f"phase 8: {PETRV2} serving at full width, random weights (seed {SEED}), {mc.compute_dtype}: "
+        f"{cfg.data.num_views} views x {cfg.data.num_frames} frames at {cfg.data.image_size}, FPE, with_time, "
+        f"RegLayer, unshared branches, L = {LV2} decoder keys")
+    t0 = time.perf_counter()
+    model = build_detector(cfg, seed=SEED, device="cuda")
+    log(f"  model built in {time.perf_counter() - t0:.1f} s: {sum(p.numel() for p in model.parameters())} "
+        f"parameters")
+    k1 = {"K1": (ca, "LAUNCHES"), "K1 fp32": (ca, "LAUNCHES_FP32")}
+    model_tol = {"cls_logits": (MODEL_ATOL, MODEL_RTOL), "bbox_codes": (MODEL_ATOL, MODEL_RTOL)}
+    serve_launches, args, fn, results = serve_and_check(
+        torch, cfg, model, k1, {"K1": L, "K1 fp32": 0},
+        [(layers, "flash_cross_attention", ca.flash_cross_attention_reference)], model_tol, MODEL_MEAN, card)
+    check_petrv2_head_tail(torch, model, args)
+    fwd_ms, dev_ms, _, per_kernel = serving_latency(torch, cfg, model, fn, results, card)
+    serving = {"forward_ms": fwd_ms, "forward_device_ms": dev_ms, "k1_device_ms_per_forward": per_kernel.get("K1")}
+
+    log("phase 8: streaming (StreamingPETRv2): prime, then 3 frames; each frame against the full 12-view forward "
+        "over (frame t, frame t - 1)")
+    H, W = cfg.data.image_size
+    rng = np.random.RandomState(SEED + 21)
+    frames = [torch.as_tensor(rng.randn(1, 6, H, W, 3).astype(np.float32)).cuda() for _ in range(4)]
+    cams = torch.as_tensor(view_cams(cfg)).cuda()
+    img_hw = torch.tensor([H, W], dtype=torch.float32, device="cuda").expand(1, 12, 2).contiguous()
+    stream = StreamingPETRv2(cfg, model, decode=False, device="cuda")
+    batches = []
+    hook = model.img_backbone.register_forward_pre_hook(lambda mod, inp: batches.append(inp[0].shape[0]))
+    try:
+        stream.prime(frames[0])
+        ca.LAUNCHES = ca.LAUNCHES_FP32 = 0
+        stream_err = []
+        for t in range(1, 4):
+            ts = torch.as_tensor(frame_timestamps(rng)).cuda()
+            got = stream.step(frames[t], cams, img_hw, ts)
+            n_backbone = len(batches)
+            with torch.inference_mode():
+                full = model(torch.cat([frames[t], frames[t - 1]], 1), cams, img_hw, timestamp=ts)
+            assert batches[n_backbone - 1] == 6 and batches[n_backbone] == 12, batches
+            errs = {}
+            for key in ("cls_logits", "bbox_codes"):
+                e = (got[key].float() - full[key].float()).abs()
+                errs[key] = (e.max().item(), e.mean().item())
+            log(f"  frame {t}: " + ", ".join(f"{k} max abs err {m:.4e} mean {a:.4e}" for k, (m, a) in errs.items())
+                + f" (ROUTE_TOL {ROUTE_TOL}, mean {ROUTE_MEAN})")
+            compare_outputs(torch, f"streaming frame {t} vs the full 12-view forward", got, full, ROUTE_TOL,
+                            ROUTE_MEAN, (L, 1, hc.num_query))
+            stream_err.append(errs)
+    finally:
+        hook.remove()
+    stream_batches = batches[1::2]  # the frames' own backbone runs (the full forwards' in between)
+    log(f"  backbone batch per call: prime {batches[0]}, frames {stream_batches} (6 views each), full forwards "
+        f"{batches[2::2]}; K1 launches over 3 frames and 3 full forwards: {ca.LAUNCHES} bf16, "
+        f"{ca.LAUNCHES_FP32} fp32 (expected {2 * 3 * L} and 0)")
+    assert batches[0] == 6 and stream_batches == [6, 6, 6], batches
+    assert (ca.LAUNCHES, ca.LAUNCHES_FP32) == (2 * 3 * L, 0)
+    with torch.inference_mode():
+        cached = stream._prev_feats
+        stream_ms = cuda_time_ms(lambda: model.forward_head(torch.cat([stream.model.extract_feats(frames[3]),
+                                                                        cached], 1), cams, img_hw, (H, W),
+                                                             timestamp=ts), warmup=2, iters=10)
+        full_ms = cuda_time_ms(lambda: model(torch.cat([frames[3], frames[2]], 1), cams, img_hw, timestamp=ts),
+                               warmup=2, iters=10)
+
+    def inference(fn):
+        def run():
+            with torch.inference_mode():
+                fn()
+        return run
+
+    stream_dev = device_ms(torch, inference(lambda: model.forward_head(
+        torch.cat([model.extract_feats(frames[3]), cached], 1), cams, img_hw, (H, W), timestamp=ts)), iters=5)
+    full_dev = device_ms(torch, inference(lambda: model(torch.cat([frames[3], frames[2]], 1), cams, img_hw,
+                                                        timestamp=ts)), iters=5)
+    log(f"  a streaming frame (backbone on 6 views + head) {stream_ms:.2f} ms, the full 12-view forward "
+        f"{full_ms:.2f} ms (CUDA events, median of 10); device time {stream_dev:.3f} and {full_dev:.3f} ms [{card}]")
+    del model, stream
+    torch.cuda.empty_cache()
+
+    log(f"phase 8: {PETRV2} training at full width, random weights (seed {SEED}), {mc.compute_dtype}, batch "
+        f"{cfg.train.optim.batch_size_per_device}, dropout {hc.dropout_rate}, GridMask on all 12 views, remat "
+        f"{mc.remat} (scope {mc.remat_scope}), code weights {cfg.train.optim.code_weights}")
+    assert hc.dropout_rate == DROPOUT and mc.use_grid_mask and mc.remat
+    state = create_train_state(cfg, SEED, total_steps=1000, device="cuda")
+    train_batches = [{k: torch.as_tensor(v).cuda() for k, v in make_train_batch(cfg, SEED + i).items()}
+                     for i in range(3)]
+    step_fn = make_train_step(cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    params = dict(state.model.named_parameters())
+    watched = ("img_backbone.stem.stem_1/conv.weight", "pts_bbox_head.fpe.conv_reduce.weight",
+               "pts_bbox_head.cls_branches.5.6.bias", "pts_bbox_head.reg_branches.5.task_heads.4.2.weight")
+    before = {n: params[n].detach().clone() for n in watched}
+    steps = [0]
+
+    def one_step():
+        _, metrics = step_fn(state, train_batches[steps[0] % len(train_batches)], gen)
+        steps[0] += 1
+        assert metrics["skipped"] == 0 and metrics["grad_nonfinite"] == 0, metrics
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"]), metrics
+        return metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):  # warm up
+        one_step()
+    torch.cuda.synchronize()
+    counters = {"K1": (ca, "LAUNCHES"), "K2 dK/dV": (ca, "DKDV_LAUNCHES"), "K2 dQ": (ca, "DQ_LAUNCHES"),
+                "K1 fp32": (ca, "LAUNCHES_FP32"), "K2 dK/dV fp32": (ca, "DKDV_LAUNCHES_FP32"),
+                "K2 dQ fp32": (ca, "DQ_LAUNCHES_FP32")}
+    m, times, host, train_launches = timed_steps(
+        torch, one_step, counters, {"K1": 2 * L, "K2 dK/dV": L, "K2 dQ": L, "K1 fp32": 0, "K2 dK/dV fp32": 0,
+                                    "K2 dQ fp32": 0}, 3, card, f"K1: {L} forward + {L} in the decoder's recompute")
+    log("  last step's metrics: " + ", ".join(f"{k} {float(v):.4f}" for k, v in m.items()))
+    for n in watched:
+        moved = (params[n].detach() - before[n]).abs().max().item()
+        log(f"  {n}: max |change| {moved:.3e} over {steps[0]} steps")
+        assert moved > 0, f"{n} did not move"
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  train step at batch 1 (12 views {H}x{W}): median {med:.2f} ms on CUDA events "
+        f"({', '.join(f'{t:.2f}' for t in times)}), host clock median {statistics.median(host) * 1e3:.2f} ms, "
+        f"{1e3 / med:.3f} samples/s; peak memory {peak:.3f} GiB [{card}]")
+    step_dev_ms, step_kernels = profile(torch, one_step, card, iters=2, unit="step", inference=False)
+    log(f"  device busy without the profiler: {100 * step_dev_ms / med:.1f}% of the median step "
+        f"({step_dev_ms:.3f} ms of device time in {med:.2f} ms) [{card}]")
+    del state, train_batches
+    torch.cuda.empty_cache()
+
+    log("phase 8: one fp32 step with the kernels against the same step on the plain versions, beside the plain "
+        "step with its images nudged one ulp up and one down")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(mc, compute_dtype="float32"))
+    grad_fn = make_grad_fn(cfg32)
+    model32 = create_train_state(cfg32, SEED, 1000, device="cuda").model
+    batch = {k: torch.as_tensor(v).cuda() for k, v in make_train_batch(cfg, SEED + 1).items()}
+    nudged = {d: dict(batch, images=torch.nextafter(batch["images"], torch.tensor(d * float("inf"), device="cuda")))
+              for d in (1, -1)}
+
+    def grads_of(plain=False, inputs=batch):
+        if plain:
+            layers.flash_cross_attention = ca.flash_cross_attention_plain
+        try:
+            return grad_fn(model32, inputs, torch.Generator().manual_seed(SEED + 7))
+        finally:
+            layers.flash_cross_attention = ca.flash_cross_attention
+
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    with_kernels = grads_of()
+    fp32_counts = (ca.LAUNCHES_FP32, ca.DKDV_LAUNCHES_FP32, ca.DQ_LAUNCHES_FP32, ca.LAUNCHES, ca.DKDV_LAUNCHES,
+                   ca.DQ_LAUNCHES)
+    log(f"  fp32 step: K1 fp32, K2 dK/dV fp32, K2 dQ fp32, K1 bf16, K2 dK/dV bf16, K2 dQ bf16 launches "
+        f"{fp32_counts} (expected {(2 * L, L, L, 0, 0, 0)})")
+    assert fp32_counts == (2 * L, L, L, 0, 0, 0), fp32_counts
+    plain = grads_of(plain=True)
+    # the floor: what a last-bit change of the input alone does to this
+    # step, per parameter the larger of a nudge up and a nudge down (a
+    # decoder FFN whose ReLU input lies within rounding of 0 switches, and
+    # its weight's gradient loses or gains one query's term)
+    nudges = [compare_steps(torch, f"plain versions, images nudged one ulp {way} vs not (the floor)",
+                            grads_of(plain=True, inputs=nudged[d]), plain, STEP_LOSS_RTOL, 1.0)
+              for d, way in ((1, "up"), (-1, "down"))]
+    floor = {n: max(nd[n] for nd in nudges) for n in nudges[0]}
+    assert ca.LAUNCHES_FP32 == 2 * L, "the plain route launched K1"
+    compare_steps(torch, "kernels vs plain versions (remat on)", with_kernels, plain, STEP_LOSS_RTOL,
+                  STEP_GRAD_RTOL, floor=floor)
+    del model32
+    torch.cuda.empty_cache()
+    return serve_launches, train_launches, {
+        **serving, "stream_frame_ms": stream_ms, "full_forward_ms": full_ms, "stream_frame_device_ms": stream_dev,
+        "full_forward_device_ms": full_dev, "stream_errors": stream_err,
+        "step_ms": times, "step_device_ms": step_dev_ms, "step_peak_gib": peak,
+        "k1_device_ms_per_step": step_kernels.get("K1"),
+        "k2_device_ms_per_step": step_kernels.get("K2 dK/dV", 0.0) + step_kernels.get("K2 dQ", 0.0)}
+
+
+ALL_PHASES = {3, 4, 5, 6, 7, 8}
+
+
+def training_phase(torch, fn, *args):
+    """``fn(*args)``, then cuDNN's algorithm flags as they were before:
+    ``create_train_state`` pins cuDNN's deterministic algorithms for the
+    process, and the serving phases run with the defaults."""
+    kept = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    try:
+        return fn(*args)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = kept
 
 
 def main() -> int:
@@ -1880,7 +2263,7 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--phases":
         phases = {int(p) for p in sys.argv[2].split(",")}
     elif len(sys.argv) != 1:
-        print("usage: chip_smoke.py [--phases 3,6]", file=sys.stderr)
+        print("usage: chip_smoke.py [--phases 3,8]", file=sys.stderr)
         return 2
     try:
         from petr_tpu_torch.ops import build
@@ -1918,11 +2301,11 @@ def main() -> int:
 
     records = []
     if 3 in phases:
-        k1, k1_fp32 = check_flash_attention(torch, ca, sm_clock_hz, card)
+        k1, k1_fp32, k1_v2 = check_flash_attention(torch, ca, sm_clock_hz, card)
         k2 = check_flash_backward(torch, ca, sm_clock_hz, card)
         k4, k4_fp32 = check_dcn(torch, dcn, card)
         k5, k5_fp32 = check_conv3x3(torch, conv, card)
-        records = [k1, k1_fp32, *k2, k4, k4_fp32, k5, k5_fp32]
+        records = [k1, k1_fp32, k1_v2, *k2, k4, k4_fp32, k5, k5_fp32]
     if 4 in phases:
         k1_launches, k5_launches, k5_fp32_launches, k5_times = check_serving(torch, ca, conv, card)
         if records:
@@ -1930,13 +2313,13 @@ def main() -> int:
             k5_fp32["launches_note"] = "the flagship's fp32 twin, one forward on the route"
             k5.update(k5_times)
     if 5 in phases:
-        train_launches, fp32_launches = check_training(torch, ca, card)
+        train_launches, fp32_launches = training_phase(torch, check_training, torch, ca, card)
         if records:
             k1["launches_train"] = train_launches["K1"]
             k2[0]["launches"] = train_launches["K2 dK/dV"]
             k2[1]["launches"] = train_launches["K2 dQ"]
             k1_fp32["launches"], k2[2]["launches"], k2[3]["launches"] = fp32_launches
-            for r in (k1_fp32, *k2[2:]):
+            for r in (k1_fp32, *k2[2:4]):
                 r["launches_note"] = "the flagship's fp32 train step"
     if 6 in phases:
         r50_launches, r50_fwd_ms = check_r50_serving(torch, ca, dcn, card)
@@ -1945,11 +2328,18 @@ def main() -> int:
             k4["r50_forward_ms"] = r50_fwd_ms
             k1["launches_r50"] = r50_launches["K1"]
     if 7 in phases:
-        r50_train, k4_fp32_launches = check_r50_training(torch, ca, dcn, card)
+        r50_train, k4_fp32_launches = training_phase(torch, check_r50_training, torch, ca, dcn, card)
         if records:
             k4["launches_train"] = r50_train["K4"]
             k4_fp32["launches"] = k4_fp32_launches
             k4_fp32["launches_note"] = "the r50dcn fp32 train step"
+    if 8 in phases:
+        v2_serve, v2_train, v2_times = training_phase(torch, check_petrv2, torch, ca, card)
+        if records:
+            k1_v2["launches"] = v2_serve["K1"]
+            k1_v2["launches_train"] = v2_train["K1"]
+            k1_v2.update({f"petrv2_{k}": v for k, v in v2_times.items()})
+            k2[4]["launches"], k2[5]["launches"] = v2_train["K2 dK/dV"], v2_train["K2 dQ"]
 
     if phases != ALL_PHASES:
         log(f"only phases {sorted(phases)} ran: no kernels record and no result line")

@@ -2,5 +2,6 @@ from petr_tpu_torch.models.detector import PETRDetector, TrainNoise, draw_train_
 from petr_tpu_torch.models.fpn import CPFPN
 from petr_tpu_torch.models.grid_mask import GridParams, exact_mask, grid_mask
 from petr_tpu_torch.models.petr_head import PETRHead
+from petr_tpu_torch.models.petrv2_head import PETRv2Head, RegLayer
 from petr_tpu_torch.models.transformer import PETRTransformer, PETRTransformerDecoder
 from petr_tpu_torch.models.vovnet import VoVNet

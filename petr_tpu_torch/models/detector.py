@@ -4,10 +4,14 @@ Counterpart of `petr_tpu/models/detector.py` (reference
 `models/detectors/petr3d.py:68-99`, sty61010/PETR): views fold into the
 batch for the backbone and unfold after the neck; the head consumes one FPN
 level, or, without the neck (``with_fpn=False``, the c5 presets), one
-backbone stage. The backbone is VoVNet or the r50dcn family's ResNet.
-Inputs keep petr_tpu's layout: images (B, N, H, W, 3), img2lidar
-(B, N, 4, 4), img_hw (B, N, 2). Submodules carry the reference checkpoint's
-names: ``img_backbone``, ``img_neck``, ``pts_bbox_head``.
+backbone stage. The backbone is VoVNet or the r50dcn family's ResNet; the
+head is ``PETRHead``, or ``PETRv2Head`` for the PETRv2 family (two frames as
+12 views, with ``timestamp`` (B, N)). Inputs keep petr_tpu's layout: images
+(B, N, H, W, 3), img2lidar (B, N, 4, 4), img_hw (B, N, 2). Submodules carry
+the reference checkpoint's names: ``img_backbone``, ``img_neck``,
+``pts_bbox_head``. The detector's two halves, ``extract_feats`` and
+``forward_head``, are petr_tpu's ``PETRFeatureNet`` and ``PETRHeadNet``
+over one ``state_dict``: the streaming runtime caches the first's output.
 
 In eval mode the forward is deterministic. In train mode it takes a
 ``TrainNoise``, all the randomness of one training forward drawn up front
@@ -38,6 +42,7 @@ from petr_tpu_torch.models.layers import (
     PointwiseConv2d,
 )
 from petr_tpu_torch.models.petr_head import FOCAL_PRIOR_BIAS, PETRHead
+from petr_tpu_torch.models.petrv2_head import PETRv2Head
 from petr_tpu_torch.models.resnet import STAGE_OUT, ModulatedDeformConv2dPack, ResNet
 from petr_tpu_torch.models.transformer import LayerSeeds
 from petr_tpu_torch.models.vovnet import SPECS, VoVNet
@@ -72,13 +77,8 @@ def _remat_scope(cfg: ModelConfig) -> str:
 
 def _unsupported(cfg: ModelConfig) -> str:
     """The ROADMAP.md item that ports what ``cfg`` needs, or '' if supported."""
-    head = cfg.head
-    if head.kind == "petrv2" or head.with_fpe or head.with_time or head.with_multi_reg:
-        return "the PETRv2 head: ROADMAP.md §1, item 8"
-    if head.kind == "depthr":
+    if cfg.head.kind == "depthr":
         return "the Depthr head: ROADMAP.md §1, item 9"
-    if not head.shared_branches:
-        return "unshared cls/reg branches: ROADMAP.md §1, item 8"
     if cfg.backbone.quant != "none":
         return f"backbone.quant={cfg.backbone.quant!r}: ROADMAP.md §1, item 11 (quant/ptq.py)"
     if cfg.backbone.bn_mode != "frozen":
@@ -115,7 +115,7 @@ class PETRDetector(nn.Module):
         self.img_backbone, channels = _backbone(config)
         # without the neck the head reads a backbone stage (C5 for the c5 presets)
         self.img_neck = CPFPN(channels, bb.fpn_out_channels, bb.fpn_num_outs) if bb.with_fpn else None
-        self.pts_bbox_head = PETRHead(
+        head_kwargs = dict(
             num_classes=hc.num_classes,
             in_channels=bb.fpn_out_channels if bb.with_fpn else channels[config.head_feat_level],
             embed_dim=hc.embed_dim,
@@ -134,7 +134,14 @@ class PETRDetector(nn.Module):
             dtype=self.dtype,
             dropout_rate=hc.dropout_rate,
             remat=config.remat and scope in ("all", "decoder"),
+            shared_branches=hc.shared_branches,
         )
+        # the dispatch of petr_tpu's `_apply_head` (`detector.py:130-137`)
+        if hc.kind == "petrv2" or hc.with_fpe or hc.with_time or hc.with_multi_reg:
+            self.pts_bbox_head = PETRv2Head(with_fpe=hc.with_fpe, with_time=hc.with_time,
+                                            with_multi_reg=hc.with_multi_reg, **head_kwargs)
+        else:
+            self.pts_bbox_head = PETRHead(**head_kwargs)
 
     def forward(
         self,
@@ -142,8 +149,11 @@ class PETRDetector(nn.Module):
         img2lidar: torch.Tensor,  # (B, N, 4, 4)
         img_hw: torch.Tensor,  # (B, N, 2)
         noise: Optional[TrainNoise] = None,  # train mode only
+        timestamp: Optional[torch.Tensor] = None,  # (B, N), for PETRv2's with_time
     ) -> Dict[str, torch.Tensor]:
-        B, N, H, W, C = images.shape
+        """petr_tpu's ``PETRDetector.__call__``: GridMask in training, then
+        ``extract_feats`` and ``forward_head``."""
+        H, W = images.shape[2:4]
         layer_seeds = None
         if self.training:
             if noise is None:
@@ -155,14 +165,35 @@ class PETRDetector(nn.Module):
                     images = grid_mask(images, noise.grid)
         elif noise is not None:
             raise ValueError("TrainNoise is for train mode; call model.train() first")
+        return self.forward_head(self.extract_feats(images), img2lidar, img_hw, (H, W),
+                                 timestamp=timestamp, layer_seeds=layer_seeds)
+
+    def extract_feats(self, images: torch.Tensor) -> torch.Tensor:
+        """Backbone and neck: images (B, N, H, W, 3) -> the head's feature
+        level (B, N, fh, fw, fc) in the compute dtype; petr_tpu's
+        ``PETRFeatureNet`` (`detector.py:205-223`). Each view is computed on
+        its own, so a frame's features can be cached and reused."""
+        B, N, H, W, C = images.shape
         x = images.reshape(B * N, H, W, C).permute(0, 3, 1, 2).contiguous().to(self.dtype)
         feats = self.img_backbone(x)
         if self.img_neck is not None:
             feats = self.img_neck(feats)
         f = feats[self.config.head_feat_level]  # (B*N, fc, fh, fw)
         fc, fh, fw = f.shape[1:]
-        f = f.permute(0, 2, 3, 1).reshape(B, N, fh, fw, fc)
-        return self.pts_bbox_head(f, img2lidar, img_hw, (H, W), layer_seeds)
+        return f.permute(0, 2, 3, 1).reshape(B, N, fh, fw, fc)
+
+    def forward_head(
+        self,
+        feats: torch.Tensor,  # (B, N, fh, fw, fc) from extract_feats
+        img2lidar: torch.Tensor,  # (B, N, 4, 4)
+        img_hw: torch.Tensor,  # (B, N, 2)
+        input_hw: Tuple[int, int],  # the (H, W) of the images the features came from
+        timestamp: Optional[torch.Tensor] = None,  # (B, N), for PETRv2's with_time
+        layer_seeds: Optional[Tuple[LayerSeeds, ...]] = None,  # training only
+    ) -> Dict[str, torch.Tensor]:
+        """The head over precomputed features -> per-layer ``cls_logits`` and
+        ``bbox_codes``; petr_tpu's ``PETRHeadNet`` (`detector.py:226-255`)."""
+        return self.pts_bbox_head(feats, img2lidar, img_hw, input_hw, layer_seeds, timestamp=timestamp)
 
 
 @torch.no_grad()
@@ -174,7 +205,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     through the deep ReLU backbone); linears and all biases: torch's
     U(+-1/sqrt(fan_in)); norms: identity; reference points: U(0, 1); the
     final cls bias: the focal prior; DCN offset convs: zeros, as in mmcv and
-    petr_tpu (`resnet.py:52`). BN running statistics stay 0 / 1.
+    petr_tpu (`resnet.py:52`). BN running statistics stay 0 / 1. Unshared
+    branches are drawn one by one, each layer's final cls bias set.
     """
     gen = torch.Generator().manual_seed(seed)
 
@@ -198,7 +230,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             module.reference_points.weight.copy_(
                 torch.rand(module.reference_points.weight.shape, generator=gen)
             )
-            module.cls_branches[0][-1].bias.fill_(FOCAL_PRIOR_BIAS)
+            for branch in module.cls_branches:
+                branch[-1].bias.fill_(FOCAL_PRIOR_BIAS)
         elif isinstance(module, AttentionProjections):
             fan = module.in_proj_weight.shape[1] + module.in_proj_weight.shape[0]
             uniform_(module.in_proj_weight, (6.0 / fan) ** 0.5)

@@ -172,6 +172,22 @@ class MLP(nn.Sequential):
         super().__init__(*layers)
 
 
+class SELayer(nn.Module):
+    """PETRv2's feature-guided PE gate (`petr_tpu/models/layers.py:400-420`,
+    reference `petrv2_head.py:48-60`): x * sigmoid(conv_expand(relu(
+    conv_reduce(gate_input)))), the two 1x1 convs acting on channels-last
+    input (``PointwiseConv2d``)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv_reduce = PointwiseConv2d(channels, channels)
+        self.conv_expand = PointwiseConv2d(channels, channels)
+
+    def forward(self, x: torch.Tensor, gate_input: torch.Tensor) -> torch.Tensor:
+        gate = self.conv_expand(torch.relu(self.conv_reduce(gate_input)))
+        return x * torch.sigmoid(gate)
+
+
 class FFN(nn.Module):
     """Transformer feed-forward block (no residual; the caller adds it).
 

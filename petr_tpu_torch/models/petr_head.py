@@ -7,14 +7,17 @@ reference's module names (``input_proj``, ``position_encoder``,
 ``cls_branches``, ``reg_branches``, ``transformer``). Channels-last
 (B, N, H, W, C) features; padding masks come from an ``img_hw`` array. The
 3D PE stays fp32 up to ``position_encoder``; the decoder computes in
-``dtype``. Only the flagship's shared branches are ported. The head has no
-dropout of its own: a training forward passes the decoder layers' seeds
-through to the transformer.
+``dtype``. The cls/reg branches are one module applied at every decoder
+layer (``shared_branches``, PETR's reference) or one per layer (PETRv2's
+deep copies). The head has no dropout of its own: a training forward passes
+the decoder layers' seeds through to the transformer. ``PETRv2Head``
+(`models/petrv2_head.py`) extends it through ``_guide_pos_embed`` and
+``_scale_velocity``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -63,6 +66,16 @@ class RegBranch(nn.Sequential):
         super().__init__(*layers)
 
 
+def branch_list(make: Callable[[], nn.Module], num_layers: int, shared: bool) -> nn.ModuleList:
+    """One branch per decoder layer: the same module ``num_layers`` times
+    (the reference PETR applies ONE branch at every layer,
+    `petr_head.py:244-247`, and its state_dict lists it once per layer), or
+    ``num_layers`` modules of their own (PETRv2's deep copies)."""
+    if shared:
+        return nn.ModuleList([make()] * num_layers)
+    return nn.ModuleList(make() for _ in range(num_layers))
+
+
 class PETRHead(nn.Module):
     def __init__(
         self,
@@ -85,6 +98,7 @@ class PETRHead(nn.Module):
         dtype: torch.dtype = torch.float32,
         dropout_rate: float = 0.0,
         remat: bool = False,
+        shared_branches: bool = True,
     ):
         super().__init__()
         self.embed_dim = embed_dim
@@ -105,12 +119,11 @@ class PETRHead(nn.Module):
         self.transformer = PETRTransformer(
             num_layers, embed_dim, num_heads, ffn_dim, use_flash, dtype, dropout_rate, remat
         )
-        # the reference applies ONE branch module at every decoder layer
-        # (`petr_head.py:244-247`); its state_dict lists it once per layer
-        cls_branch = ClsBranch(embed_dim, num_reg_fcs, num_classes)
-        reg_branch = RegBranch(embed_dim, num_reg_fcs, code_size)
-        self.cls_branches = nn.ModuleList([cls_branch] * num_layers)
-        self.reg_branches = nn.ModuleList([reg_branch] * num_layers)
+        self.shared_branches = shared_branches
+        self.cls_branches = branch_list(lambda: ClsBranch(embed_dim, num_reg_fcs, num_classes),
+                                        num_layers, shared_branches)
+        self.reg_branches = branch_list(lambda: RegBranch(embed_dim, num_reg_fcs, code_size),
+                                        num_layers, shared_branches)
 
     def forward(
         self,
@@ -119,6 +132,7 @@ class PETRHead(nn.Module):
         img_hw: torch.Tensor,  # (B, N, 2) valid (h, w) per view before padding
         pad_hw: Tuple[int, int],  # padded input (H, W)
         layer_seeds: Optional[Sequence[LayerSeeds]] = None,  # training only
+        timestamp: Optional[torch.Tensor] = None,  # (B, N); read by PETRv2Head only
     ) -> Dict[str, torch.Tensor]:
         B, N, H, W, _ = feats.shape
         pad_h, pad_w = pad_hw
@@ -141,6 +155,7 @@ class PETRHead(nn.Module):
             depth_mode=self.depth_mode,
         )
         pos_embed = self.position_encoder(inverse_sigmoid(coords3d).to(self.dtype))
+        pos_embed = self._guide_pos_embed(pos_embed, x)
         if self.with_multiview:
             sin_embed = sine_posemb_2d_multiview(masks, num_feats=self.embed_dim // 2)
             pos_embed = pos_embed + self.adapt_pos3d(sin_embed.to(self.dtype))
@@ -153,10 +168,14 @@ class PETRHead(nn.Module):
         outs_dec = self.transformer(x, masks, query_embed, pos_embed, layer_seeds)  # (L, B, Q, C)
         outs_dec = torch.nan_to_num(outs_dec)
 
-        # the shared branches run once over the stacked (L, B, Q, C) outputs
         ref = inverse_sigmoid(reference_points)  # (Q, 3) fp32
-        all_cls = self.cls_branches[0](outs_dec).float()
-        reg_out = self.reg_branches[0](outs_dec).float()
+        if self.shared_branches:  # one application over the stacked (L, B, Q, C) outputs
+            all_cls = self.cls_branches[0](outs_dec).float()
+            reg_out = self.reg_branches[0](outs_dec).float()
+        else:  # layer l's own branches on layer l's output
+            all_cls = torch.stack([b(o).float() for b, o in zip(self.cls_branches, outs_dec)])
+            reg_out = torch.stack([b(o).float() for b, o in zip(self.reg_branches, outs_dec)])
+        reg_out = self._scale_velocity(reg_out, timestamp)
         xy = torch.sigmoid(reg_out[..., 0:2] + ref[:, 0:2])
         z = torch.sigmoid(reg_out[..., 4:5] + ref[:, 2:3])
 
@@ -167,3 +186,14 @@ class PETRHead(nn.Module):
         cz = z * (pc[5] - pc[2]) + pc[2]
         all_reg = torch.cat([cx, cy, reg_out[..., 2:4], cz, reg_out[..., 5:]], dim=-1)
         return {"cls_logits": all_cls, "bbox_codes": all_reg}
+
+    def _guide_pos_embed(self, pos_embed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The 3D PE as the decoder sees it: unchanged in PETR; PETRv2's
+        feature-guided PE gates it by the projected features ``x``."""
+        return pos_embed
+
+    def _scale_velocity(self, reg_out: torch.Tensor, timestamp: Optional[torch.Tensor]) -> torch.Tensor:
+        """The (L, B, Q, code_size) fp32 regression output before the centres
+        are decoded: unchanged in PETR; PETRv2's ``with_time`` divides the
+        velocity codes by the frames' time step."""
+        return reg_out

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Mutation check of the port's bf16 tensor-core kernels, on one CUDA card.
+"""Mutation check of the port on one CUDA card: its bf16 tensor-core
+kernels, the r50dcn step's reproducibility and PETRv2's with_time.
 
-    python3 -m petr_tpu_torch.mutants [--out DIR]
+    python3 -m petr_tpu_torch.mutants [--out DIR] [NAME ...]
 
-For each mutant it copies ``petr_tpu_torch/`` and ``chip_smoke.py`` into a
-temporary directory, makes one change to one kernel source there (never in
-the checkout), and runs ``chip_smoke.py --phases 3`` in the copy, which
-builds the mutated kernel and must fail one of its checks: exit 1 with an
-AssertionError (a subset of phases exits 1 even when it passes). Each run's
-output goes to ``DIR/<mutant>.log`` (default ``build/mutants``); a
-line per mutant says its exit code and the first failed check. Exits 0 when
-every mutant was caught, 1 otherwise.
+For each mutant (every one, or those NAMEd) it copies ``petr_tpu_torch/``
+and ``chip_smoke.py`` into a temporary directory, makes one change to one
+source there (never in the checkout), and runs ``chip_smoke.py --phases P``
+in the copy with the mutant's phases, which must fail one of its checks:
+exit 1 with an AssertionError (a subset of phases exits 1 even when it
+passes). Each run's output goes to ``DIR/<mutant>.log`` (default
+``build/mutants``); a line per mutant says its exit code and the first
+failed check. Exits 0 when every mutant run was caught, 1 otherwise.
 """
 
 from __future__ import annotations
@@ -25,53 +26,70 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# name -> (source under petr_tpu_torch/csrc, text, its replacement)
+# name -> (source under petr_tpu_torch, text, its replacement, the phases that must catch it)
 MUTANTS = {
     "k5_tap_shift": (
-        "conv3x3_bn_relu.cu",
+        "csrc/conv3x3_bn_relu.cu",
         "const int shift = (t / 3) * L.hc + t % 3;",
         "const int shift = (t / 3) * L.hc + t % 3 + (t == 1);",  # tap (0, 1) reads column kw = 2
+        "3",
     ),
     "k2_hash_row_col_swapped": (
-        "flash_cross_attention_bwd.cu",
+        "csrc/flash_cross_attention_bwd.cu",
         "dropout_keep(mix, qi, key, thresh)",  # dK/dV: the fragment's (key, query) fed as (row, column)
         "dropout_keep(mix, key, qi, thresh)",
+        "3",
     ),
     "k1_hash_query_key_swapped": (
-        "flash_cross_attention.cu",
+        "csrc/flash_cross_attention.cu",
         "dropout_keep(mix, qrow, key, thresh)",  # the bf16 forward: (key, query) fed as (row, column)
         "dropout_keep(mix, key, qrow, thresh)",
+        "3",
     ),
     "k4_corner_weight_fy_swapped": (
-        "deform_conv.cu",
+        "csrc/deform_conv.cu",
         "__fmul_rn(__fmul_rn(cv.at(2, i + u), wx0), wy1)",  # the bf16 kernel: corner (y0 + 1, x0) weighted by 1 - fy
         "__fmul_rn(__fmul_rn(cv.at(2, i + u), wx0), wy0)",
+        "3",
+    ),
+    "gather_backward_with_atomics": (
+        "ops/sampling.py",
+        "        v = gather_rows(flat, idx)\n",  # the fix reverted: torch.gather's backward, a scatter_add
+        "        v = torch.gather(flat, 1, idx[..., None].expand(B, idx.shape[1], C))\n",
+        "7",
+    ),
+    "v2_dt_sign_swapped": (
+        "models/petrv2_head.py",
+        "dt = (ts[:, 1] - ts[:, 0]).mean(-1)",  # with_time: the previous frame's step negated
+        "dt = (ts[:, 0] - ts[:, 1]).mean(-1)",
+        "8",
     ),
 }
 
 
-def run(name: str, source: str, text: str, replacement: str, out: Path) -> bool:
+def run(name: str, source: str, text: str, replacement: str, phases: str, out: Path) -> bool:
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
         shutil.copytree(ROOT / "petr_tpu_torch", work / "petr_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy(ROOT / "chip_smoke.py", work / "chip_smoke.py")
-        path = work / "petr_tpu_torch" / "csrc" / source
+        path = work / "petr_tpu_torch" / source
         code = path.read_text()
         if code.count(text) != 1:
             print(f"mutant {name}: the text to change occurs {code.count(text)} times in {source}")
             return False
         path.write_text(code.replace(text, replacement))
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "3"], cwd=work,
+        proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", phases], cwd=work,
                               capture_output=True, text=True)
         elapsed = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     (out / f"{name}.log").write_text(log)
     failed = [line for line in log.splitlines() if line.startswith("AssertionError")]
-    last_check = [line for line in proc.stdout.splitlines() if "max abs err" in line][-1:]
+    last_check = [line for line in proc.stdout.splitlines() if "max abs err" in line or "bit for bit" in line
+                  or "relative error" in line][-1:]
     caught = proc.returncode == 1 and bool(failed)
-    print(f"mutant {name} ({source}): exit {proc.returncode} after {elapsed:.1f} s, "
+    print(f"mutant {name} ({source}, phases {phases}): exit {proc.returncode} after {elapsed:.1f} s, "
           f"{'caught' if caught else 'NOT caught'}: {failed[0] if failed else 'no assertion failed'}"
           + (f"; last comparison: {last_check[0].strip()}" if last_check else ""), flush=True)
     return caught
@@ -80,9 +98,13 @@ def run(name: str, source: str, text: str, replacement: str, out: Path) -> bool:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=ROOT / "build" / "mutants")
+    parser.add_argument("names", nargs="*", help=f"the mutants to run, of {', '.join(MUTANTS)} (default: all)")
     args = parser.parse_args()
+    unknown = sorted(set(args.names) - set(MUTANTS))
+    if unknown:
+        parser.error(f"unknown mutants {unknown}")
     args.out.mkdir(parents=True, exist_ok=True)
-    results = [run(name, *spec, args.out) for name, spec in MUTANTS.items()]
+    results = [run(name, *MUTANTS[name], args.out) for name in (args.names or MUTANTS)]
     return 0 if all(results) else 1
 
 

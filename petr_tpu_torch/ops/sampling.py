@@ -7,11 +7,62 @@ where it lies inside the plane and counts as 0 where it does not
 (`sampling.py:32-38`), so a point half a pixel outside an edge gets half of
 the edge pixel. ``bilinear_sample_batched`` is the same over a leading batch
 axis, as ``jax.vmap(bilinear_sample)``; the DCN's plain version uses it.
+
+Its corner reads go through ``gather_rows``, whose backward sums in a fixed
+order: ``torch.gather``'s backward on CUDA is a ``scatter_add`` with
+atomics, so wherever one pixel is a corner of several samples its gradient
+was summed in the order the atomics landed, and the bf16 r50dcn train step
+(whose DCN backward is autograd of this formulation) gave another
+``grad_norm`` on every run.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def sum_into_rows_sorted(out: torch.Tensor, idx: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """out (B, R, C) += grad (B, P, C) summed into rows idx (B, P), by
+    ``index_put_(accumulate=True)`` over the flattened rows: on CUDA that
+    sorts the row indices (a stable sort) and adds each row's run of
+    contributions in the order of the points, with no atomics."""
+    B, R, C = out.shape
+    rows = (idx + torch.arange(B, device=idx.device)[:, None] * R).reshape(-1)
+    out.view(B * R, C).index_put_((rows,), grad.reshape(-1, C), accumulate=True)
+    return out
+
+
+class _GatherRows(torch.autograd.Function):
+    """flat (B, R, C), idx (B, P) -> flat[b, idx[b, p]] as (B, P, C).
+
+    Forward: ``torch.gather``. Backward: each source row's contributions
+    summed in a fixed order, the same on every run: on CUDA by
+    ``sum_into_rows_sorted``; on the CPU by ``scatter_add_``, which sums
+    serially in the points' order (there ``index_put_``'s accumulation is
+    the one that is not reproducible)."""
+
+    @staticmethod
+    def forward(ctx, flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.rows = flat.shape[1]
+        B, P = idx.shape
+        return torch.gather(flat, 1, idx[..., None].expand(B, P, flat.shape[2]))
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        B, P, C = grad.shape
+        out = grad.new_zeros(B, ctx.rows, C)
+        if grad.device.type == "cuda":
+            return sum_into_rows_sorted(out, idx, grad), None
+        return out.scatter_add_(1, idx[..., None].expand(B, P, C), grad), None
+
+
+def gather_rows(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``torch.gather(flat, 1, idx[..., None].expand(...))`` for flat
+    (B, R, C) and idx (B, P) int64, with a backward that sums each row's
+    gradient in a fixed order (``_GatherRows``)."""
+    return _GatherRows.apply(flat, idx)
 
 
 def bilinear_sample_batched(feat: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
@@ -30,7 +81,7 @@ def bilinear_sample_batched(feat: torch.Tensor, xy: torch.Tensor) -> torch.Tenso
     def gather(yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
         inb = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
         idx = yi.clamp(0, H - 1).long() * W + xi.clamp(0, W - 1).long()  # (B, P)
-        v = torch.gather(flat, 1, idx[..., None].expand(B, idx.shape[1], C))
+        v = gather_rows(flat, idx)
         return torch.where(inb[..., None], v, 0.0)
 
     v00 = gather(y0, x0)

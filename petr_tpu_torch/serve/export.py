@@ -9,7 +9,7 @@ numpy arrays.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,28 +41,47 @@ def build_detector(
     return model.to(device).eval()
 
 
+def serving_input_spec(cfg: ExperimentConfig, batch_size: int = 1) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """The serving call's positional inputs in order -> (shape, dtype):
+    images, img2lidar, img_hw, and timestamp for a 2-frame config
+    (`petr_tpu/serve/export.py:31-46`). Its keys are ``InferenceServer``'s
+    ``input_keys``."""
+    N = cfg.data.num_views * cfg.data.num_frames
+    H, W = cfg.data.image_size
+    spec = {
+        "images": ((batch_size, N, H, W, 3), "float32"),
+        "img2lidar": ((batch_size, N, 4, 4), "float32"),
+        "img_hw": ((batch_size, N, 2), "float32"),
+    }
+    if cfg.data.num_frames > 1:
+        spec["timestamp"] = ((batch_size, N), "float32")
+    return spec
+
+
 def make_serving_fn(
     cfg: ExperimentConfig,
     model: PETRDetector,
     device: Union[str, torch.device] = "cuda",
 ) -> Callable[..., Dict[str, np.ndarray]]:
-    """``fn(images, img2lidar, img_hw)`` over batched numpy inputs in
-    petr_tpu's layout -> dict of numpy boxes (B, max_det, 9), scores,
-    labels and valid (B, max_det). Moves ``model`` to ``device``."""
+    """``fn(images, img2lidar, img_hw)``, or ``fn(images, img2lidar, img_hw,
+    timestamp)`` for a 2-frame config (PETRv2), over batched numpy inputs
+    in petr_tpu's layout (``serving_input_spec``) -> dict of numpy boxes
+    (B, max_det, 9), scores, labels and valid (B, max_det). Moves ``model``
+    to ``device``."""
     if cfg.model.head.kind == "depthr":
         raise NotImplementedError(
             "the depthr head needs GT depth at test time (oracle); it has no serving path"
         )
     device = resolve_device(device)
     model = model.to(device).eval()
+    n_inputs = len(serving_input_spec(cfg))
 
-    def fn(images, img2lidar, img_hw) -> Dict[str, np.ndarray]:
+    def fn(*inputs) -> Dict[str, np.ndarray]:
+        if len(inputs) != n_inputs:
+            raise TypeError(f"{cfg.name} serves {list(serving_input_spec(cfg))}, got {len(inputs)} inputs")
         with torch.inference_mode():
-            args = [
-                torch.as_tensor(np.asarray(a), dtype=torch.float32).to(device)
-                for a in (images, img2lidar, img_hw)
-            ]
-            out = model(*args)
+            args = [torch.as_tensor(np.asarray(a), dtype=torch.float32).to(device) for a in inputs]
+            out = model(*args[:3], timestamp=args[3] if n_inputs == 4 else None)
             dec = nms_free_decode(
                 out["cls_logits"][-1],
                 out["bbox_codes"][-1],

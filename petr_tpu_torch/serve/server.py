@@ -27,7 +27,9 @@ class InferenceServer:
             inputs in ``input_keys`` order returning a dict of numpy arrays
             with a leading batch axis, e.g. ``make_serving_fn(cfg, model)``.
         batch_size: the batch every call is padded to.
-        input_keys: positional order of per-sample input arrays.
+        input_keys: positional order of per-sample input arrays
+            (``serving_input_spec(cfg)``'s keys; a PETRv2 config adds
+            ``timestamp``, batched and padded like the others).
         max_delay_ms: how long the dispatcher waits to fill a batch before
             dispatching a padded partial one.
     """

@@ -19,6 +19,7 @@ Batch dict contract (tensors or numpy arrays, statically shaped):
     gt_boxes   (B, G, 9)       float32, gravity-center z
     gt_labels  (B, G)          int
     gt_valid   (B, G)          bool
+    timestamp  (B, N)          float32, 2-frame configs (PETRv2) only
 """
 
 from __future__ import annotations
@@ -36,6 +37,12 @@ from petr_tpu_torch.train.losses import petr_set_loss
 from petr_tpu_torch.train.optim import build_optimizer, clip_by_global_norm, global_norm, make_lr_schedule
 
 BATCH_KEYS = ("images", "img2lidar", "img_hw", "gt_boxes", "gt_labels", "gt_valid")
+
+
+def batch_keys(cfg: ExperimentConfig) -> Tuple[str, ...]:
+    """The batch keys a step of ``cfg`` reads: ``BATCH_KEYS``, and
+    ``timestamp`` when it has 2 frames."""
+    return BATCH_KEYS + (("timestamp",) if cfg.data.num_frames > 1 else ())
 Grads = Dict[str, torch.Tensor]
 
 
@@ -65,7 +72,14 @@ def create_train_state(
 ) -> TrainState:
     """The detector of ``cfg`` with random weights drawn from ``seed``, on
     ``device`` (the card unless the caller asks for the CPU), in train
-    mode, with its optimizer and LR schedule."""
+    mode, with its optimizer and LR schedule.
+
+    Sets ``torch.backends.cudnn.deterministic = True`` for the process, so
+    that a step is reproducible bit for bit: with cuDNN's default choice
+    the weight gradient of the r50dcn offset convs (3x3, 27 outputs) came
+    out of an algorithm that sums in another order on every run
+    (`petr_tpu_torch/repro_bisect.py`)."""
+    torch.backends.cudnn.deterministic = True
     device = resolve_device(device)
     model = init_weights(PETRDetector(cfg.model), seed).to(device).train()
     optimizer = build_optimizer(
@@ -74,8 +88,8 @@ def create_train_state(
     return TrainState(0, model, optimizer, make_lr_schedule(cfg.train.optim, total_steps))
 
 
-def _to_device(batch, device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(batch[k]).to(device) for k in BATCH_KEYS}
+def _to_device(batch, keys: Tuple[str, ...], device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(batch[k]).to(device) for k in keys}
 
 
 def make_grad_fn(cfg: ExperimentConfig):
@@ -85,13 +99,14 @@ def make_grad_fn(cfg: ExperimentConfig):
     ``indices`` injects a precomputed assignment into the set loss.
     """
     ocfg = cfg.train.optim
+    keys = batch_keys(cfg)
 
     def grad_fn(model: PETRDetector, batch, generator: torch.Generator,
                 indices: Optional[np.ndarray] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Grads, np.ndarray]:
         device = next(model.parameters()).device
-        b = _to_device(batch, device)
+        b = _to_device(batch, keys, device)
         noise = draw_train_noise(cfg.model, b["images"].shape[2], generator)
-        outputs = model(b["images"], b["img2lidar"], b["img_hw"], noise=noise)
+        outputs = model(b["images"], b["img2lidar"], b["img_hw"], noise=noise, timestamp=b.get("timestamp"))
         total, losses, indices = petr_set_loss(
             outputs, b["gt_boxes"], b["gt_labels"], b["gt_valid"],
             num_classes=cfg.model.head.num_classes, cls_weight=ocfg.cls_weight,
@@ -106,12 +121,13 @@ def make_grad_fn(cfg: ExperimentConfig):
     return grad_fn
 
 
-def accumulate_grads(grad_fn, model: PETRDetector, batch, generator: torch.Generator, accum: int):
+def accumulate_grads(grad_fn, model: PETRDetector, batch, generator: torch.Generator, accum: int,
+                     keys: Tuple[str, ...] = BATCH_KEYS):
     """Gradient accumulation over ``accum`` sequential micro-batches, mmcv
     GradientCumulativeOptimizerHook semantics as petr_tpu's: each micro-batch
     is normalised by its own avg_factor, the gradients are averaged, one
-    update per step. Micro-batch i takes samples [i::accum] and draws its
-    randomness from ``generator`` in turn.
+    update per step. Micro-batch i takes samples [i::accum] of ``keys``
+    (``batch_keys(cfg)``) and draws its randomness from ``generator`` in turn.
 
     Returns (mean total, per-loss means, averaged grads).
     """
@@ -120,7 +136,7 @@ def accumulate_grads(grad_fn, model: PETRDetector, batch, generator: torch.Gener
         raise ValueError(f"batch size {bsz} not divisible by grad_accum={accum}")
     totals, losses, grads = [], [], None
     for i in range(accum):
-        t, l, g, _ = grad_fn(model, {k: batch[k][i::accum] for k in BATCH_KEYS}, generator)
+        t, l, g, _ = grad_fn(model, {k: batch[k][i::accum] for k in keys}, generator)
         totals.append(t)
         losses.append(l)
         grads = g if grads is None else {n: grads[n] + g[n] for n in grads}
@@ -146,7 +162,7 @@ def make_train_step(cfg: ExperimentConfig):
         if accum <= 1:
             total, losses, grads, _ = grad_fn(state.model, batch, generator)
         else:
-            total, losses, grads = accumulate_grads(grad_fn, state.model, batch, generator, accum)
+            total, losses, grads = accumulate_grads(grad_fn, state.model, batch, generator, accum, batch_keys(cfg))
         names = list(grads)
         gnorm = global_norm([grads[n] for n in names])
         nonfinite = int(sum((~torch.isfinite(g)).sum() for g in grads.values()))

@@ -1,12 +1,17 @@
 """petr_tpu param tree -> port ``state_dict``.
 
 The inverse of `petr_tpu/utils/torch_convert.py::convert_state_dict` for the
-modules the port has (VoVNet and the r50dcn ResNet, CPFPN, the PETR head):
+modules the port has (VoVNet and the r50dcn ResNet, CPFPN, the PETR and
+PETRv2 heads):
 flax conv kernels HWIO -> OIHW, Dense kernels
 (in, out) -> (out, in) (or (out, in, 1, 1) where the reference has a 1x1
 conv), q/k/v Dense layers packed into ``in_proj_weight`` / ``in_proj_bias``,
-flax LayerNorm/BatchNorm leaf names -> torch names. The shared cls/reg
-branches appear once per decoder layer, as in the reference ``state_dict``.
+flax LayerNorm/BatchNorm leaf names -> torch names. Shared cls/reg
+branches (``cls_branch``) appear once per decoder layer, as in the reference
+``state_dict``; unshared ones (``cls_branch_{l}``) map to layer l. A
+``reg_branch`` with ``task{g}_*`` leaves is PETRv2's ``RegLayer``: its
+trunk ``fc{i}`` goes to ``reg_branch.{3i}`` and its groups to
+``task_heads.{g}.{0,2}``.
 
 Parameter trees come as nested dicts of numpy arrays (``jax.device_get``
 of a petr_tpu ``params``); nothing here imports JAX. Any tree shaped like
@@ -128,6 +133,10 @@ def _head(p: str):
         index = (_POSENC_INDEX if mod == "position_encoder" else _MLP_INDEX)[fc]
         name, fn = _param(leaf, _lin if mod == "query_embedding" else _pointwise)
         return f"{mod}.{index}.{name}", fn
+    m = re.fullmatch(r"fpe\.(conv_reduce|conv_expand)\.(kernel|bias)", p)
+    if m:
+        name, fn = _param(m.group(2), _conv)
+        return f"fpe.{m.group(1)}.{name}", fn
     m = re.fullmatch(r"transformer\.decoder\.post_norm\.(scale|bias)", p)
     if m:
         return f"transformer.decoder.post_norm.{_LN[m.group(1)]}", _same
@@ -149,6 +158,19 @@ def _head(p: str):
         if m2:
             return f"{pre}norms.{int(m2.group(1)) - 1}.{_LN[m2.group(2)]}", _same
     return None
+
+
+def _branch_index(kind: str, sub: str, multi_reg: bool) -> str:
+    """The port's child path of a branch leaf's module ``sub``."""
+    if kind == "cls":
+        return str(_CLS_INDEX[sub])
+    if not multi_reg:
+        return str(_REG_INDEX[sub])
+    m = re.fullmatch(r"fc(\d+)", sub)
+    if m:  # the RegLayer trunk: Linear, ReLU, Dropout per fc
+        return f"reg_branch.{3 * int(m.group(1))}"
+    g, part = re.fullmatch(r"task(\d+)_(fc|out)", sub).groups()
+    return f"task_heads.{g}.{0 if part == 'fc' else 2}"
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -180,6 +202,7 @@ def state_dict_from_jax(
     leftover = []
     layers = {int(m.group(1)) for k in flat
               if (m := re.match(r"head\.transformer\.decoder\.layer(\d+)\.", k))}
+    multi_reg = any(re.match(r"head\.reg_branch(_\d+)?\.task\d+_", k) for k in flat)
     for key, val in flat.items():
         top, _, p = key.partition(".")
         if top == "head":
@@ -188,12 +211,16 @@ def state_dict_from_jax(
                 lvl, att, which, leaf = m.groups()
                 qkv.setdefault((lvl, att), {})[f"{which}.{leaf}"] = val
                 continue
-            m = re.fullmatch(r"(cls|reg)_branch\.(\w+)\.(kernel|scale|bias)", p)
+            m = re.fullmatch(r"(cls|reg)_branch(?:_(\d+))?\.(\w+)\.(kernel|scale|bias)", p)
             if m:
-                kind, sub, leaf = m.groups()
-                index = (_CLS_INDEX if kind == "cls" else _REG_INDEX)[sub]
+                kind, lvl, sub, leaf = m.groups()
+                index = _branch_index(kind, sub, multi_reg)
                 name = "bias" if leaf == "bias" else "weight"
-                branches[f"{kind}_branches.{{}}.{index}.{name}"] = _lin(val) if leaf == "kernel" else val
+                val = _lin(val) if leaf == "kernel" else val
+                if lvl is None:  # shared: the same module at every layer
+                    branches[f"{kind}_branches.{{}}.{index}.{name}"] = val
+                else:
+                    sd[f"pts_bbox_head.{kind}_branches.{lvl}.{index}.{name}"] = val
                 continue
         rule = {"backbone": _backbone, "neck": _neck, "head": _head}.get(top)
         mapped = rule(p) if rule else None
@@ -239,7 +266,8 @@ def named_parameters_from_jax(
 
     Leaves the port keeps as buffers (the BN statistics, which petr_tpu
     keeps as params and differentiates) are dropped, and a shared branch
-    appears once, as ``named_parameters`` lists it.
+    appears once, as ``named_parameters`` lists it; an unshared one once per
+    layer.
     """
     sd = state_dict_from_jax(tree, model)
     return {name: sd[name] for name, _ in model.named_parameters()}

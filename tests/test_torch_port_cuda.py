@@ -44,7 +44,8 @@ def _inputs(B, H, Q, L, D, dtype, seed, masked_row=False):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize(
     "B,H,Q,L,D",
-    [(1, 8, 900, 6000, 32), (2, 4, 37, 61, 16), (2, 2, 130, 520, 64), (1, 1, 1, 1, 32)],
+    [(1, 8, 900, 6000, 32), (2, 4, 37, 61, 16), (2, 2, 130, 520, 64), (1, 1, 1, 1, 32),
+     (1, 8, 900, 12000, 32), (2, 8, 900, 12000, 32)],  # PETRv2's 12 views, at B = 1 and 2
 )
 def test_kernel_matches_plain_version(cuda, dtype, B, H, Q, L, D):
     q, k, v, mask = _inputs(B, H, Q, L, D, dtype, seed=Q + L, masked_row=B > 1)
@@ -143,7 +144,8 @@ def _assert_within(got, want, tol):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("query_warps", [2, 4])
 @pytest.mark.parametrize("B,H,Q,L,D", [(1, 8, 900, 6000, 32), (2, 4, 37, 61, 16), (2, 2, 130, 1000, 64),
-                                       (2, 3, 77, 301, 32), (1, 1, 1, 1, 32), (1, 8, 900, 16896, 32)])
+                                       (2, 3, 77, 301, 32), (1, 1, 1, 1, 32), (1, 8, 900, 16896, 32),
+                                       (1, 8, 900, 12000, 32), (2, 8, 900, 12000, 32)])
 def test_bf16_forward_matches_its_rounding_floor(cuda, rate, query_warps, B, H, Q, L, D):
     q, k, v, mask = _grid_inputs(B, H, Q, L, D, seed=Q + 7 * L, masked_row=B > 1)
     before = ca.LAUNCHES
@@ -202,7 +204,7 @@ def _k2_counts(dtype):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("B,H,Q,L,D", [(1, 8, 900, 6000, 32), (1, 8, 900, 16896, 32), (2, 4, 37, 61, 16),
                                        (2, 2, 130, 520, 64), (2, 3, 77, 301, 32), (2, 2, 45, 1000, 16),
-                                       (3, 1, 201, 333, 64)])
+                                       (3, 1, 201, 333, 64), (1, 8, 900, 12000, 32)])
 def test_backward_kernels_match_plain_version(cuda, dtype, rate, B, H, Q, L, D):
     q, k, v, mask = _inputs(B, H, Q, L, D, dtype, seed=Q + 3 * L, masked_row=B > 1)
     gout = torch.randn(B, H, Q, D, device="cuda").to(dtype)
@@ -463,3 +465,38 @@ def test_tiny_r50dcn_detector_on_the_card_matches_the_cpu(cuda):
     assert dcn.LAUNCHES_FP32 == before + 9  # fp32: K4's CUDA-core variant
     for key in ("cls_logits", "bbox_codes"):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-3, atol=2e-3)
+
+
+def test_tiny_petrv2_on_the_card_matches_the_cpu(cuda):
+    """tiny_debug_v2 (fp32, 12 views, FPE, with_time, unshared branches):
+    K1's fp32 variant once per decoder layer, the outputs as on the CPU;
+    the streaming runtime's frame on the card equal to the full forward."""
+    from petr_tpu_torch.configs import get_config
+    from petr_tpu_torch.serve import StreamingPETRv2, build_detector
+
+    cfg = get_config("tiny_debug_v2")
+    N, (H, W) = 12, cfg.data.image_size
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randn(2, N, H, W, 3, generator=gen)
+    img2lidar = torch.eye(4).expand(2, N, 4, 4).clone()
+    img2lidar[..., :3, 3] = torch.randn(2, N, 3, generator=gen)
+    img_hw = torch.tensor([H, W], dtype=torch.float32).expand(2, N, 2).clone()
+    img_hw[1, 9] = torch.tensor([16.0, 48.0])
+    ts = torch.cat([torch.zeros(2, 6), torch.full((2, 6), 0.5)], 1)
+    cpu_model = build_detector(cfg, seed=0, device="cpu")
+    gpu_model = build_detector(cfg, seed=0, device="cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    args = (images, img2lidar, img_hw)
+    with torch.inference_mode():
+        want = cpu_model(*args, timestamp=ts)
+        before = ca.LAUNCHES_FP32
+        got = gpu_model(*(a.cuda() for a in args), timestamp=ts.cuda())
+        torch.cuda.synchronize()
+    assert ca.LAUNCHES_FP32 == before + cfg.model.head.num_layers  # fp32: K1's CUDA-core variant
+    for key in ("cls_logits", "bbox_codes"):
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-3, atol=2e-3)
+    stream = StreamingPETRv2(cfg, gpu_model, decode=False, device="cuda")
+    stream.prime(images[:, 6:])
+    frame = stream.step(images[:, :6], img2lidar, img_hw, ts)
+    for key in ("cls_logits", "bbox_codes"):
+        torch.testing.assert_close(frame[key], got[key], rtol=1e-4, atol=1e-4)
