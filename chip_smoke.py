@@ -73,7 +73,10 @@ nothing of petr_tpu. Phases, each fatal on failure:
    weights from a seed with the offset convs redrawn, through
    ``InferenceServer`` as in phase 4: K4 launches 9 and K1 6 times per
    forward; outputs against direct calls and against K4's plain version;
-   B=1 latency and one profiler pass.
+   B=1 latency and one profiler pass. Then the no-neck preset
+   ``petr_r50_c5_1408x512`` (the head on C5, L = 4,224 decoder keys),
+   served the same way (3 requests, K4 9 and K1 6 per forward) and timed
+   at B=1.
 7. r50dcn training: its bf16 train step at batch 1 (dropout 0.1, GridMask,
    remat): K4 launches 18 times per step (9 in the bottlenecks' recompute),
    K1 12 and each K2 kernel 6; finite loss and gradients, DCN weights and
@@ -98,8 +101,24 @@ nothing of petr_tpu. Phases, each fatal on failure:
    kernel 6 times per step; step time, peak memory, one profiler pass; one
    fp32 step with the kernels against the plain versions, beside the plain
    step with its images nudged by one ulp.
-
-``--phases 3,8`` runs only the phases named (1 and 2 always run), prints no
+9. Depthr: ``depthr_r50_c5_512x1408_gtdepth`` at full width (6 views of
+   512x1408, ResNet-50 with DCNv2 in stages 3 and 4, C5 only; a GT-depth
+   encoder over 81-bin LID maps at stride 8; 6 Depthr layers over L =
+   4,224 depth tokens, the attention on its plain branch) in bf16, random
+   weights as phase 6. Batches whose GT boxes mostly straddle two cameras:
+   the depth maps' covered share per view, above 0 in every view a box
+   counts in, and equal on the card and the CPU bit for bit. Evaluation:
+   ``make_eval_step`` on 3 batches, K4 9 times per forward (bf16 only, no
+   K1); the rebinding: other images with the same cameras and boxes give
+   the same outputs bit for bit; B=1 forwards on CUDA events and one
+   profiler pass, with the backbone's share of the device time (its
+   output reaches nothing); the bf16 outputs and decode against an fp32
+   twin on the plain routes. Training: 2 warm-up and 3 timed bf16 steps
+   (dropout 0.1, GridMask, remat, the BN affine frozen), K4 9 times per
+   step (no gradient reaches the backbone, so its checkpointed bottlenecks
+   are never recomputed); step time, peak memory, one profiler pass; two
+   identical steps bit for bit; one fp32 step with K4 against the plain
+   version, equal bit for bit. runs only the phases named (1 and 2 always run), prints no
 kernels record and no result line, and exits 1 either way: a failed check
 raises an AssertionError; ``--phases 3`` alone checks and times every kernel. With no
 arguments every phase runs. The line before the last is the kernels' JSON
@@ -147,8 +166,11 @@ STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_FLOOR = 1e-4, 1e-3, 1e-3
 # the r50dcn fp32 step's worst gradient against that of a one-ulp nudge of
 # its images (check_r50_training)
 NUDGE_MARGIN = 3.0
-# the r50dcn preset, and the fp32 SM peak of one H100 SXM (data sheet)
+# the r50dcn presets, and the fp32 SM peak of one H100 SXM (data sheet)
 R50 = "petr_r50_p4_1408x512"
+R50_C5 = "petr_r50_c5_1408x512"
+# Depthr: the r50dcn backbone (C5, no neck) and a decoder over 6 x 16 x 44 depth tokens
+DEPTHR = "depthr_r50_c5_512x1408_gtdepth"
 # PETRv2: two frames of 6 views at 320x800, p4 -> L = 12 x 20 x 50 decoder keys
 PETRV2 = "petrv2_vov_p4_800x320"
 LV2 = 12 * 20 * 50
@@ -1742,9 +1764,9 @@ def r50_random_weights(torch, cfg, model, weight_std=0.15):
     from petr_tpu_torch.models import resnet
 
     drawn = resnet.redraw_offset_convs(model, SEED + 1, weight_std=weight_std)
-    req = make_requests(cfg, 1)[0]
-    normalize_bn_statistics(torch, model, *[torch.as_tensor(req[k][None]).cuda()
-                                            for k in ("images", "img2lidar", "img_hw")])
+    images = torch.as_tensor(make_requests(cfg, 1)[0]["images"]).cuda()  # (N, H, W, 3)
+    # every BN is in the backbone: its input as extract_feats gives it
+    normalize_bn_statistics(torch, model.img_backbone, images.permute(0, 3, 1, 2).contiguous().to(model.dtype))
     return drawn
 
 
@@ -1770,7 +1792,26 @@ def check_r50_serving(torch, ca, dcn, card):
         {"K4": 9, "K1": cfg.model.head.num_layers, "K4 fp32": 0, "K1 fp32": 0}, [], None, None, card)
     check_r50_routes(torch, cfg, model, dcn, resnet, args)
     fwd_ms, _, _, _ = serving_latency(torch, cfg, model, fn, results, card)
-    return launches, fwd_ms
+    del model
+    torch.cuda.empty_cache()
+
+    # the no-neck preset: the same backbone at the same shape, the head on C5
+    c5 = get_config(R50_C5)
+    H, W = c5.data.image_size
+    log(f"phase 6: {R50_C5} serving at full width (no neck: the head reads C5, L = {c5.data.num_views} x "
+        f"{H // 32} x {W // 32} = {c5.data.num_views * (H // 32) * (W // 32)} decoder keys), random weights as above")
+    model = build_detector(c5, seed=SEED, device="cuda")
+    assert r50_random_weights(torch, c5, model) == 9 and model.img_neck is None
+    c5_launches, _, fn, results = serve_and_check(
+        torch, c5, model, {"K4": (dcn, "LAUNCHES"), "K1": (ca, "LAUNCHES"), "K4 fp32": (dcn, "LAUNCHES_FP32"),
+                           "K1 fp32": (ca, "LAUNCHES_FP32")},
+        {"K4": 9, "K1": c5.model.head.num_layers, "K4 fp32": 0, "K1 fp32": 0}, [], None, None, card)
+    c5_ms, c5_dev_ms, _, c5_kernels = serving_latency(torch, c5, model, fn, results, card)
+    del model
+    torch.cuda.empty_cache()
+    return launches, fwd_ms, {"launches_r50_c5": c5_launches["K4"], "r50_c5_forward_ms": c5_ms,
+                              "r50_c5_forward_device_ms": c5_dev_ms,
+                              "r50_c5_k4_device_ms_per_forward": c5_kernels.get("K4")}
 
 
 def check_r50_routes(torch, cfg, model, dcn, resnet, args):
@@ -1986,7 +2027,7 @@ def check_r50_training(torch, ca, dcn, card):
     return launches, fp32_k4_launches
 
 
-def check_reproducible(torch, cfg, step_fn, initial, batch):
+def check_reproducible(torch, cfg, step_fn, initial, batch, phase=7):
     """Two bf16 train steps from the same weights (``initial``, a
     state_dict), batch and generator seed, each on a fresh optimizer: the
     same ``grad_norm`` and the same parameters after the update, bit for
@@ -1996,7 +2037,7 @@ def check_reproducible(torch, cfg, step_fn, initial, batch):
     algorithm until ``create_train_state`` pinned deterministic ones.)"""
     from petr_tpu_torch.train import create_train_state
 
-    log("phase 7: two identical bf16 steps (same weights, batch and generator seed): bit for bit the same")
+    log(f"phase {phase}: two identical bf16 steps (same weights, batch and generator seed): bit for bit the same")
     runs = []
     for _ in range(2):
         state = create_train_state(cfg, SEED, total_steps=1000, device="cuda")
@@ -2236,7 +2277,292 @@ def check_petrv2(torch, ca, card):
         "k2_device_ms_per_step": step_kernels.get("K2 dK/dV", 0.0) + step_kernels.get("K2 dQ", 0.0)}
 
 
-ALL_PHASES = {3, 4, 5, 6, 7, 8}
+def make_depthr_batch(cfg, seed):
+    """One sample for the Depthr head (the GT-depth oracle), drawn from
+    ``seed`` with numpy: ``make_train_batch``'s views and labels, the
+    cameras' ``lidar2img``, and ``valid_gt`` boxes placed so that most
+    straddle two cameras: two thirds at a bearing between two cameras, 5
+    to 20 m away, a third ahead of one, 6 to 40 m away (inside the LID
+    range, 60 m); 2 to 5 m in size, any yaw. The other rows of ``max_gt``
+    are padding."""
+    import numpy as np
+
+    batch = make_train_batch(cfg, seed)
+    rng = np.random.RandomState(seed + 1000)
+    valid = batch["gt_valid"][0]
+    g = int(valid.sum())
+    n = cfg.data.num_views
+    between = rng.rand(g) < 2 / 3
+    bearing = 2 * np.pi * (rng.randint(0, n, g) + 0.5 * between) / n + rng.uniform(-0.03, 0.03, g)
+    dist = np.where(between, rng.uniform(5.0, 20.0, g), rng.uniform(6.0, 40.0, g))
+    boxes = np.zeros_like(batch["gt_boxes"][0])
+    boxes[valid] = np.concatenate([
+        (dist * np.cos(bearing))[:, None], (dist * np.sin(bearing))[:, None], rng.uniform(-1, 1, (g, 1)),
+        rng.uniform(2.0, 5.0, (g, 3)), rng.uniform(-np.pi, np.pi, (g, 1)), rng.uniform(-1, 1, (g, 2)),
+    ], -1)
+    batch["gt_boxes"] = boxes[None].astype(np.float32)
+    batch["lidar2img"] = np.linalg.inv(batch["img2lidar"]).astype(np.float32)
+    return batch
+
+
+def boxes_per_view(batch, H, W):
+    """(N, G) bool: box g counts in view n by gt_depth_maps' rule (a corner
+    inside the image at a depth above 1, all corners in front), in fp64."""
+    import numpy as np
+
+    b = batch["gt_boxes"][0].astype(np.float64)
+    signs = np.array([[sx, sy, sz] for sx in (-0.5, 0.5) for sy in (-0.5, 0.5) for sz in (-0.5, 0.5)])
+    local = signs[None] * b[:, None, 3:6]
+    c, s = np.cos(b[:, 6])[:, None], np.sin(b[:, 6])[:, None]
+    corners = np.stack([local[..., 0] * c - local[..., 1] * s, local[..., 0] * s + local[..., 1] * c,
+                        local[..., 2]], -1) + b[:, None, :3]
+    hom = np.concatenate([corners, np.ones(corners.shape[:-1] + (1,))], -1)
+    uvd = np.einsum("nij,gkj->ngki", batch["lidar2img"][0, :, :3].astype(np.float64), hom)
+    u, v, d = uvd[..., 0] / uvd[..., 2], uvd[..., 1] / uvd[..., 2], uvd[..., 2]
+    inside = (u > 0) & (u < W) & (v > 0) & (v < H) & (d > 1.0)
+    return inside.any(-1) & (d > 0.1).all(-1) & batch["gt_valid"][0][None]
+
+
+def check_depth_maps(torch, cfg, batch):
+    """GT depth maps of a phase-9 batch: the share of pixels covered in each
+    view, above 0 in every view that a box counts in; the maps on the card
+    equal to the CPU's bit for bit (elementwise fp32 sums in a fixed
+    order). Returns the share per view."""
+    from petr_tpu_torch.models.depth_encoder import gt_depth_maps
+
+    H, W = cfg.data.image_size
+    hc = cfg.model.head
+    inputs = [torch.as_tensor(batch[k]) for k in ("gt_boxes", "gt_valid", "lidar2img")]
+    cpu = gt_depth_maps(*inputs, (H, W), hc.depth_map_down_scale)
+    card = gt_depth_maps(*[t.cuda() for t in inputs], (H, W), hc.depth_map_down_scale).cpu()
+    in_view = boxes_per_view(batch, H, W)
+    share = (cpu[0] > 0).float().mean(dim=(1, 2)).tolist()
+    views = in_view.sum(0)[batch["gt_valid"][0]]
+    log(f"  depth maps {tuple(cpu.shape)} (stride {hc.depth_map_down_scale}): covered share per view "
+        + ", ".join(f"{x:.4f}" for x in share) + f"; boxes per view {in_view.sum(1).tolist()}; of "
+        f"{int(batch['gt_valid'].sum())} boxes {int((views >= 2).sum())} count in two or more views, "
+        f"{int((views == 1).sum())} in one, {int((views == 0).sum())} in none; depths "
+        f"{cpu[cpu > 0].min().item():.3f} to {cpu.max().item():.3f} m")
+    for n, (x, k) in enumerate(zip(share, in_view.sum(1))):
+        assert k == 0 or x > 0, f"view {n}: {k} boxes count in it but no pixel is painted"
+    assert sum(share) > 0, "no pixel painted: the phase would test nothing"
+    differ = int((card != cpu).sum())
+    log(f"  the maps on the card against the CPU: {differ} of {cpu.numel()} pixels differ (must be 0)")
+    assert differ == 0, "gt_depth_maps differs between the card and the CPU"
+    return share
+
+
+def check_depthr(torch, ca, dcn, card):
+    """Phase 9: the Depthr preset at full width in bf16, evaluated with the
+    GT boxes (make_eval_step) and trained (make_train_step)."""
+    import dataclasses
+
+    import numpy as np
+
+    from petr_tpu_torch.configs import get_config
+    from petr_tpu_torch.models import PETRDetector, resnet
+    from petr_tpu_torch.serve import build_detector, decode_last_layer
+    from petr_tpu_torch.train import create_train_state, make_eval_step, make_grad_fn, make_train_step
+
+    cfg = get_config(DEPTHR)
+    mc, hc = cfg.model, cfg.model.head
+    H, W = cfg.data.image_size
+    L, Q = hc.num_layers, hc.num_query
+    keys = 6 * (H // 32) * (W // 32)
+    assert hc.kind == "depthr" and not mc.backbone.with_fpn and mc.backbone.dcn_stages == (2, 3)
+    log(f"phase 9: {DEPTHR} evaluated at full width, random weights (seed {SEED}, offset convs redrawn from seed "
+        f"{SEED + 1}, BN statistics normalised on one request), {mc.compute_dtype}: 6 views of {H}x{W}, ResNet-50 "
+        f"with DCNv2 in stages 3-4, C5 only (no neck), {L} Depthr layers, {Q} queries, L = {keys} depth tokens "
+        f"({hc.depth_bins} + 1 LID bins, maps at stride {hc.depth_map_down_scale}, encoder x"
+        f"{hc.depth_encoder_down_scale}); attention on the plain branch")
+    t0 = time.perf_counter()
+    model = build_detector(cfg, seed=SEED, device="cuda")
+    assert r50_random_weights(torch, cfg, model) == 9
+    log(f"  model built in {time.perf_counter() - t0:.1f} s: {sum(p.numel() for p in model.parameters())} "
+        f"parameters")
+    batches = [make_depthr_batch(cfg, SEED + 30 + i) for i in range(3)]
+    share = check_depth_maps(torch, cfg, batches[0])
+
+    # evaluation: 3 batches through the eval step, launches counted
+    eval_step = make_eval_step(cfg)
+    args_device = next(model.parameters()).device
+    eval_step(model, batches[0])  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dcn.LAUNCHES = dcn.LAUNCHES_FP32 = ca.LAUNCHES = ca.LAUNCHES_FP32 = 0
+    decoded = [eval_step(model, b) for b in batches]
+    launches = {"K4": dcn.LAUNCHES, "K4 fp32": dcn.LAUNCHES_FP32, "K1": ca.LAUNCHES, "K1 fp32": ca.LAUNCHES_FP32}
+    eval_peak = torch.cuda.max_memory_allocated() / 2**30
+    k = min(cfg.max_det, Q * hc.num_classes)
+    for d in decoded:
+        assert d["boxes"].device == args_device and d["boxes"].shape == (1, k, 9), (d["boxes"].device, d["boxes"].shape)
+        assert torch.isfinite(d["boxes"]).all() and torch.isfinite(d["scores"]).all()
+    log(f"  make_eval_step on 3 batches: launches {launches} (expected K4 27, 9 per forward, and no other: the "
+        f"decoder's attention is the plain branch); boxes {tuple(decoded[0]['boxes'].shape)} on the card, finite, "
+        f"{[int(d['valid'].sum()) for d in decoded]} valid; peak memory {eval_peak:.3f} GiB [{card}]")
+    assert launches == {"K4": 27, "K4 fp32": 0, "K1": 0, "K1 fp32": 0}, launches
+
+    # the rebinding: other images, the same cameras and boxes, the same outputs
+    args = {k: torch.as_tensor(v).cuda() for k, v in batches[0].items()}
+    oracle = {k: args[k] for k in ("gt_boxes", "gt_valid", "lidar2img")}
+    other = torch.as_tensor(np.random.RandomState(SEED + 40).randn(*batches[0]["images"].shape)
+                            .astype(np.float32)).cuda()
+    with torch.inference_mode():
+        out = model(args["images"], args["img2lidar"], args["img_hw"], **oracle)
+        out_other = model(other, args["img2lidar"], args["img_hw"], **oracle)
+        feats = [model.extract_feats(x) for x in (args["images"], other)]
+    feat_diff = (feats[0].float() - feats[1].float()).abs().max().item()
+    same = all(torch.equal(out[key], out_other[key]) for key in out)
+    log(f"  the rebinding: other images (C5 features differ by up to {feat_diff:.3e}), the same cameras and "
+        f"boxes: outputs {'equal' if same else 'NOT equal'} bit for bit")
+    assert feat_diff > 0
+    assert same, "the Depthr outputs depend on the images: the decoder reads the image features"
+
+    # time: B=1 forwards on CUDA events, device time from one profiler pass,
+    # and the backbone's share of it (the dead path)
+    def fwd():
+        return model(args["images"], args["img2lidar"], args["img_hw"], **oracle)
+
+    with torch.inference_mode():
+        fwd_ms = cuda_time_ms(fwd, warmup=2, iters=10)
+        backbone_ms = cuda_time_ms(lambda: model.extract_feats(args["images"]), warmup=2, iters=10)
+    log(f"  forward at B=1: {fwd_ms:.2f} ms on CUDA events (median of 10), the backbone alone "
+        f"{backbone_ms:.2f} ms [{card}]")
+    dev_ms, per_kernel = profile(torch, fwd, card)
+
+    def backbone():
+        with torch.inference_mode():
+            model.extract_feats(args["images"])
+
+    backbone_dev = device_ms(torch, backbone, iters=5)
+    log(f"  the backbone (ResNet-50-DCN to C5, whose output reaches nothing) takes {backbone_dev:.3f} ms of the "
+        f"forward's {dev_ms:.3f} ms of device time ({100 * backbone_dev / dev_ms:.1f}%); K4 "
+        f"{per_kernel.get('K4', 0.0):.3f} ms of it [{card}]")
+
+    # the bf16 decode against an fp32 twin on the plain routes
+    model32 = PETRDetector(dataclasses.replace(mc, compute_dtype="float32")).cuda().eval()
+    model32.load_state_dict(model.state_dict())
+    resnet.modulated_deform_conv = dcn.modulated_deform_conv_plain
+    try:
+        with torch.inference_mode():
+            out32 = model32(args["images"], args["img2lidar"], args["img_hw"], **oracle)
+    finally:
+        resnet.modulated_deform_conv = dcn.modulated_deform_conv
+    compare_outputs(torch, "bf16 vs the fp32 twin on the plain routes", out, out32, ROUTE_TOL, ROUTE_MEAN, (L, 1, Q))
+    # the decoded scores, sorted: a score s moves by s (1 - s) times its
+    # logit's error, which ROUTE_TOL bounds by atol + rtol |logit|; sorting
+    # keeps the largest such bound over the scores, and the mean is held to
+    # ROUTE_MEAN times the largest slope
+    s16, s32 = decode_last_layer(cfg, out)["scores"][0], decode_last_layer(cfg, out32)["scores"][0]
+    atol, rtol = ROUTE_TOL["cls_logits"]
+    slope = s32 * (1 - s32)
+    limit = (slope * (atol + rtol * torch.logit(s32).abs())).max().item()
+    mean_limit = ROUTE_MEAN * slope.max().item()
+    err = (s16 - s32).abs()
+    log(f"  decoded scores (sorted; {s32.min().item():.4f} to {s32.max().item():.4f}), bf16 vs the fp32 twin: max "
+        f"abs err {err.max().item():.4e} (tol {limit:.4e}), mean {err.mean().item():.4e} (tol {mean_limit:.4e})")
+    assert err.max().item() <= limit and err.mean().item() <= mean_limit, "the bf16 decode disagrees with fp32"
+    del model, model32
+    torch.cuda.empty_cache()
+
+    # training
+    log(f"phase 9: {DEPTHR} training at full width, {mc.compute_dtype}, batch "
+        f"{cfg.train.optim.batch_size_per_device}, dropout {hc.dropout_rate}, GridMask on, remat {mc.remat} "
+        f"(scope {mc.remat_scope}), backbone BN affine frozen")
+    assert hc.dropout_rate == DROPOUT and mc.use_grid_mask and mc.remat and not mc.backbone.train_bn_affine
+    state = create_train_state(cfg, SEED, total_steps=1000, device="cuda")
+    model = state.model
+    r50_random_weights(torch, cfg, model)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    train_batches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()} for b in batches]
+    step_fn = make_train_step(cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    params = dict(model.named_parameters())
+    watched = ("pts_bbox_head.depth_gt_encoder.depth_head.0.0.weight",
+               "pts_bbox_head.depth_gt_encoder.depth_pos_embed.weight",
+               f"pts_bbox_head.transformer.decoder.layers.{L - 1}.attentions.2.attn.in_proj_weight",
+               "pts_bbox_head.cls_branches.0.6.bias")
+    frozen = {n for n, p in params.items() if not p.requires_grad}
+    before = {n: params[n].detach().clone() for n in (*watched, *frozen)}
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+    steps = [0]
+
+    def one_step():
+        _, metrics = step_fn(state, train_batches[steps[0] % len(train_batches)], gen)
+        steps[0] += 1
+        assert metrics["skipped"] == 0 and metrics["grad_nonfinite"] == 0, metrics
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"]), metrics
+        return metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):  # warm up
+        one_step()
+    torch.cuda.synchronize()
+    counters = {"K4": (dcn, "LAUNCHES"), "K4 fp32": (dcn, "LAUNCHES_FP32"), "K1": (ca, "LAUNCHES"),
+                "K2 dK/dV": (ca, "DKDV_LAUNCHES"), "K2 dQ": (ca, "DQ_LAUNCHES")}
+    m, times, host, train_launches = timed_steps(
+        torch, one_step, counters, {"K4": 9, "K4 fp32": 0, "K1": 0, "K2 dK/dV": 0, "K2 dQ": 0}, 3, card,
+        "K4: 9 in the forward; no gradient reaches the backbone, so its bottlenecks are never recomputed")
+    log("  last step's metrics: " + ", ".join(f"{k} {float(v):.4f}" for k, v in m.items()))
+    for n in watched:
+        moved = (params[n].detach() - before[n]).abs().max().item()
+        log(f"  {n}: max |change| {moved:.3e} over {steps[0]} steps")
+        assert moved > 0, f"{n} did not move"
+    for n in frozen:
+        assert torch.equal(params[n].detach(), before[n]), f"frozen {n} moved"
+    for n, b in model.named_buffers():
+        assert torch.equal(b, buffers[n]), f"buffer {n} moved"
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {len(frozen)} frozen tensors (the backbone's BN affine) and {len(buffers)} buffers unchanged; train step "
+        f"at batch 1: median {med:.2f} ms on CUDA events ({', '.join(f'{t:.2f}' for t in times)}), host clock "
+        f"median {statistics.median(host) * 1e3:.2f} ms, {1e3 / med:.3f} samples/s; peak memory {peak:.3f} GiB "
+        f"[{card}]")
+    step_dev_ms, step_kernels = profile(torch, one_step, card, iters=2, unit="step", inference=False)
+    log(f"  device busy without the profiler: {100 * step_dev_ms / med:.1f}% of the median step "
+        f"({step_dev_ms:.3f} ms of device time in {med:.2f} ms) [{card}]")
+    check_reproducible(torch, cfg, step_fn, initial, train_batches[0], phase=9)
+    del state, model
+    torch.cuda.empty_cache()
+
+    # one fp32 step with K4 against the same step on its plain version: the
+    # backbone's output reaches no loss, so the two must agree bit for bit
+    log("phase 9: one fp32 step with K4 against the same step on its plain version")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(mc, compute_dtype="float32"))
+    grad_fn = make_grad_fn(cfg32)
+    model32 = create_train_state(cfg32, SEED, 1000, device="cuda").model
+    r50_random_weights(torch, cfg32, model32)
+
+    def grads_of(plain=False):
+        if plain:
+            resnet.modulated_deform_conv = dcn.modulated_deform_conv_plain
+        try:
+            return grad_fn(model32, train_batches[1], torch.Generator().manual_seed(SEED + 7))
+        finally:
+            resnet.modulated_deform_conv = dcn.modulated_deform_conv
+
+    dcn.LAUNCHES = dcn.LAUNCHES_FP32 = 0
+    with_kernel = grads_of()
+    fp32_launches = (dcn.LAUNCHES_FP32, dcn.LAUNCHES)
+    plain = grads_of(plain=True)
+    differ = [n for n in plain[2] if not torch.equal(with_kernel[2][n], plain[2][n])]
+    log(f"  fp32 step: K4 fp32 launches {fp32_launches[0]}, bf16 {fp32_launches[1]} (expected 9 and 0); loss "
+        f"{with_kernel[0].item():.9g} vs {plain[0].item():.9g}; {len(differ)} of {len(plain[2])} gradients differ "
+        f"(must be 0)")
+    assert fp32_launches == (9, 0), fp32_launches
+    assert dcn.LAUNCHES_FP32 == 9, "the plain route launched K4"
+    assert torch.equal(with_kernel[0], plain[0]) and not differ, differ[:3]
+    del model32
+    torch.cuda.empty_cache()
+    return launches, train_launches, {
+        "depthr_depth_map_share": share, "depthr_forward_ms": fwd_ms, "depthr_forward_device_ms": dev_ms,
+        "depthr_backbone_device_ms": backbone_dev, "depthr_k4_device_ms_per_forward": per_kernel.get("K4"),
+        "depthr_eval_peak_gib": eval_peak, "depthr_step_ms": times, "depthr_step_device_ms": step_dev_ms,
+        "depthr_step_peak_gib": peak, "depthr_k4_device_ms_per_step": step_kernels.get("K4")}
+
+
+ALL_PHASES = {3, 4, 5, 6, 7, 8, 9}
 
 
 def training_phase(torch, fn, *args):
@@ -2322,11 +2648,12 @@ def main() -> int:
             for r in (k1_fp32, *k2[2:4]):
                 r["launches_note"] = "the flagship's fp32 train step"
     if 6 in phases:
-        r50_launches, r50_fwd_ms = check_r50_serving(torch, ca, dcn, card)
+        r50_launches, r50_fwd_ms, c5_times = check_r50_serving(torch, ca, dcn, card)
         if records:
             k4["launches"] = r50_launches["K4"]
             k4["r50_forward_ms"] = r50_fwd_ms
             k1["launches_r50"] = r50_launches["K1"]
+            k4.update(c5_times)
     if 7 in phases:
         r50_train, k4_fp32_launches = training_phase(torch, check_r50_training, torch, ca, dcn, card)
         if records:
@@ -2340,6 +2667,13 @@ def main() -> int:
             k1_v2["launches_train"] = v2_train["K1"]
             k1_v2.update({f"petrv2_{k}": v for k, v in v2_times.items()})
             k2[4]["launches"], k2[5]["launches"] = v2_train["K2 dK/dV"], v2_train["K2 dQ"]
+
+    if 9 in phases:
+        d_eval, d_train, d_times = training_phase(torch, check_depthr, torch, ca, dcn, card)
+        if records:
+            k4["launches_depthr"] = d_eval["K4"] // 3
+            k4["launches_depthr_train"] = d_train["K4"] // 3
+            k4.update(d_times)
 
     if phases != ALL_PHASES:
         log(f"only phases {sorted(phases)} ran: no kernels record and no result line")

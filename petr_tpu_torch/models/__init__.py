@@ -1,3 +1,5 @@
+from petr_tpu_torch.models.depth_encoder import DepthGTEncoder, bin_depth_indices, gt_depth_maps, lid_bin_values
+from petr_tpu_torch.models.depthr_head import DepthrDecoderLayer, DepthrHead
 from petr_tpu_torch.models.detector import PETRDetector, TrainNoise, draw_train_noise, init_weights
 from petr_tpu_torch.models.fpn import CPFPN
 from petr_tpu_torch.models.grid_mask import GridParams, exact_mask, grid_mask

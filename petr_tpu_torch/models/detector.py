@@ -9,7 +9,9 @@ head is ``PETRHead``, or ``PETRv2Head`` for the PETRv2 family (two frames as
 12 views, with ``timestamp`` (B, N)). Inputs keep petr_tpu's layout: images
 (B, N, H, W, 3), img2lidar (B, N, 4, 4), img_hw (B, N, 2). Submodules carry
 the reference checkpoint's names: ``img_backbone``, ``img_neck``,
-``pts_bbox_head``. The detector's two halves, ``extract_feats`` and
+``pts_bbox_head``. The Depthr head (``kind="depthr"``) also reads the GT
+boxes and cameras, ``gt_boxes``, ``gt_valid`` and ``lidar2img``, at test
+time too (an oracle). The detector's two halves, ``extract_feats`` and
 ``forward_head``, are petr_tpu's ``PETRFeatureNet`` and ``PETRHeadNet``
 over one ``state_dict``: the streaming runtime caches the first's output.
 
@@ -32,6 +34,8 @@ from torch import nn
 
 from petr_tpu_torch.configs.config import ModelConfig
 from petr_tpu_torch.models.fpn import CPFPN
+from petr_tpu_torch.models.depth_encoder import DepthGTEncoder, GroupNorm
+from petr_tpu_torch.models.depthr_head import DepthrHead
 from petr_tpu_torch.models.grid_mask import GridParams, draw_grid_params, grid_mask
 from petr_tpu_torch.models.layers import (
     AttentionProjections,
@@ -77,8 +81,6 @@ def _remat_scope(cfg: ModelConfig) -> str:
 
 def _unsupported(cfg: ModelConfig) -> str:
     """The ROADMAP.md item that ports what ``cfg`` needs, or '' if supported."""
-    if cfg.head.kind == "depthr":
-        return "the Depthr head: ROADMAP.md §1, item 9"
     if cfg.backbone.quant != "none":
         return f"backbone.quant={cfg.backbone.quant!r}: ROADMAP.md §1, item 11 (quant/ptq.py)"
     if cfg.backbone.bn_mode != "frozen":
@@ -136,10 +138,15 @@ class PETRDetector(nn.Module):
             remat=config.remat and scope in ("all", "decoder"),
             shared_branches=hc.shared_branches,
         )
-        # the dispatch of petr_tpu's `_apply_head` (`detector.py:130-137`)
+        # the dispatch of petr_tpu's `_apply_head` (`detector.py:130-154`)
         if hc.kind == "petrv2" or hc.with_fpe or hc.with_time or hc.with_multi_reg:
             self.pts_bbox_head = PETRv2Head(with_fpe=hc.with_fpe, with_time=hc.with_time,
                                             with_multi_reg=hc.with_multi_reg, **head_kwargs)
+        elif hc.kind == "depthr":
+            self.pts_bbox_head = DepthrHead(
+                depth_bins=hc.depth_bins, depth_map_min=hc.depth_map_min, depth_map_max=hc.depth_map_max,
+                depth_map_down_scale=hc.depth_map_down_scale,
+                depth_encoder_down_scale=hc.depth_encoder_down_scale, **head_kwargs)
         else:
             self.pts_bbox_head = PETRHead(**head_kwargs)
 
@@ -150,6 +157,9 @@ class PETRDetector(nn.Module):
         img_hw: torch.Tensor,  # (B, N, 2)
         noise: Optional[TrainNoise] = None,  # train mode only
         timestamp: Optional[torch.Tensor] = None,  # (B, N), for PETRv2's with_time
+        gt_boxes: Optional[torch.Tensor] = None,  # (B, G, 9), Depthr's oracle inputs
+        gt_valid: Optional[torch.Tensor] = None,  # (B, G)
+        lidar2img: Optional[torch.Tensor] = None,  # (B, N, 4, 4)
     ) -> Dict[str, torch.Tensor]:
         """petr_tpu's ``PETRDetector.__call__``: GridMask in training, then
         ``extract_feats`` and ``forward_head``."""
@@ -166,7 +176,8 @@ class PETRDetector(nn.Module):
         elif noise is not None:
             raise ValueError("TrainNoise is for train mode; call model.train() first")
         return self.forward_head(self.extract_feats(images), img2lidar, img_hw, (H, W),
-                                 timestamp=timestamp, layer_seeds=layer_seeds)
+                                 timestamp=timestamp, layer_seeds=layer_seeds,
+                                 gt_boxes=gt_boxes, gt_valid=gt_valid, lidar2img=lidar2img)
 
     def extract_feats(self, images: torch.Tensor) -> torch.Tensor:
         """Backbone and neck: images (B, N, H, W, 3) -> the head's feature
@@ -190,10 +201,18 @@ class PETRDetector(nn.Module):
         input_hw: Tuple[int, int],  # the (H, W) of the images the features came from
         timestamp: Optional[torch.Tensor] = None,  # (B, N), for PETRv2's with_time
         layer_seeds: Optional[Tuple[LayerSeeds, ...]] = None,  # training only
+        gt_boxes: Optional[torch.Tensor] = None,  # (B, G, 9), Depthr's oracle inputs
+        gt_valid: Optional[torch.Tensor] = None,  # (B, G)
+        lidar2img: Optional[torch.Tensor] = None,  # (B, N, 4, 4)
     ) -> Dict[str, torch.Tensor]:
         """The head over precomputed features -> per-layer ``cls_logits`` and
-        ``bbox_codes``; petr_tpu's ``PETRHeadNet`` (`detector.py:226-255`)."""
-        return self.pts_bbox_head(feats, img2lidar, img_hw, input_hw, layer_seeds, timestamp=timestamp)
+        ``bbox_codes``; petr_tpu's ``PETRHeadNet`` (`detector.py:226-255`).
+        The oracle inputs reach the Depthr head, which needs them, and no
+        other."""
+        oracle = {}
+        if isinstance(self.pts_bbox_head, DepthrHead):
+            oracle = dict(gt_boxes=gt_boxes, gt_valid=gt_valid, lidar2img=lidar2img)
+        return self.pts_bbox_head(feats, img2lidar, img_hw, input_hw, layer_seeds, timestamp=timestamp, **oracle)
 
 
 @torch.no_grad()
@@ -205,8 +224,10 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     through the deep ReLU backbone); linears and all biases: torch's
     U(+-1/sqrt(fan_in)); norms: identity; reference points: U(0, 1); the
     final cls bias: the focal prior; DCN offset convs: zeros, as in mmcv and
-    petr_tpu (`resnet.py:52`). BN running statistics stay 0 / 1. Unshared
-    branches are drawn one by one, each layer's final cls bias set.
+    petr_tpu (`resnet.py:52`); Depthr's depth embedding: N(0, 1), as
+    petr_tpu's (`depth_encoder.py:157-162`). BN running statistics stay 0 /
+    1. Unshared branches are drawn one by one, each layer's final cls bias
+    set.
     """
     gen = torch.Generator().manual_seed(seed)
 
@@ -222,7 +243,7 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
                 uniform_(module.weight, fan_in ** -0.5)
             if module.bias is not None:
                 uniform_(module.bias, fan_in ** -0.5)
-        elif isinstance(module, (FrozenBatchNorm, LayerNorm)):
+        elif isinstance(module, (FrozenBatchNorm, LayerNorm, GroupNorm)):
             module.weight.fill_(1.0)
             module.bias.zero_()
     for module in model.modules():
@@ -239,5 +260,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(module, ModulatedDeformConv2dPack):
             module.conv_offset.weight.zero_()
             module.conv_offset.bias.zero_()
+        elif isinstance(module, DepthGTEncoder):
+            emb = module.depth_pos_embed.weight
+            emb.copy_(torch.randn(emb.shape, generator=gen))
     return model
 

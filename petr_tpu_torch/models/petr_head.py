@@ -99,6 +99,7 @@ class PETRHead(nn.Module):
         dropout_rate: float = 0.0,
         remat: bool = False,
         shared_branches: bool = True,
+        make_layer: Optional[Callable[[], nn.Module]] = None,
     ):
         super().__init__()
         self.embed_dim = embed_dim
@@ -117,7 +118,7 @@ class PETRHead(nn.Module):
         self.reference_points = nn.Embedding(num_query, 3)
         self.query_embedding = MLP(3 * QUERY_POS_FEATS, (embed_dim, embed_dim))
         self.transformer = PETRTransformer(
-            num_layers, embed_dim, num_heads, ffn_dim, use_flash, dtype, dropout_rate, remat
+            num_layers, embed_dim, num_heads, ffn_dim, use_flash, dtype, dropout_rate, remat, make_layer
         )
         self.shared_branches = shared_branches
         self.cls_branches = branch_list(lambda: ClsBranch(embed_dim, num_reg_fcs, num_classes),
@@ -134,6 +135,15 @@ class PETRHead(nn.Module):
         layer_seeds: Optional[Sequence[LayerSeeds]] = None,  # training only
         timestamp: Optional[torch.Tensor] = None,  # (B, N); read by PETRv2Head only
     ) -> Dict[str, torch.Tensor]:
+        x, masks, pos_embed, query_embed = self._embed(feats, img2lidar, img_hw, pad_hw)
+        outs_dec = self.transformer(x, masks, query_embed, pos_embed, layer_seeds)  # (L, B, Q, C)
+        return self._predict(outs_dec, timestamp)
+
+    def _embed(self, feats: torch.Tensor, img2lidar: torch.Tensor, img_hw: torch.Tensor,
+               pad_hw: Tuple[int, int]) -> Tuple[torch.Tensor, ...]:
+        """What the decoder reads: the projected features x (B, N, H, W, C),
+        the padding masks (B, N, H, W), the keys' positional embedding
+        (B, N, H, W, C) and the query embedding (Q, C)."""
         B, N, H, W, _ = feats.shape
         pad_h, pad_w = pad_hw
         dev = feats.device
@@ -164,11 +174,13 @@ class PETRHead(nn.Module):
         query_embed = self.query_embedding(
             pos2posemb3d(reference_points, QUERY_POS_FEATS).to(self.dtype)
         )
+        return x, masks, pos_embed, query_embed
 
-        outs_dec = self.transformer(x, masks, query_embed, pos_embed, layer_seeds)  # (L, B, Q, C)
+    def _predict(self, outs_dec: torch.Tensor, timestamp: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The decoder's (L, B, Q, C) outputs -> per-layer ``cls_logits`` and
+        ``bbox_codes``, centres in metric pc_range."""
         outs_dec = torch.nan_to_num(outs_dec)
-
-        ref = inverse_sigmoid(reference_points)  # (Q, 3) fp32
+        ref = inverse_sigmoid(self.reference_points.weight)  # (Q, 3) fp32
         if self.shared_branches:  # one application over the stacked (L, B, Q, C) outputs
             all_cls = self.cls_branches[0](outs_dec).float()
             reg_out = self.reg_branches[0](outs_dec).float()

@@ -19,7 +19,7 @@ and its recompute draws the same masks again from the same seeds.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -29,6 +29,21 @@ from petr_tpu_torch.models.layers import FFN, LayerNorm, MultiheadAttention, dro
 
 # (flash seed, dropout seed) of one decoder layer's training forward
 LayerSeeds = Tuple[int, int]
+
+
+def layer_noise(layer: nn.Module, seeds: Optional[LayerSeeds], device: torch.device
+                ) -> Tuple[float, Optional[int], Optional[torch.Generator]]:
+    """A decoder layer's dropout rate in its mode, its flash seed, and a
+    ``torch.Generator`` on ``device`` seeded for the layer's other drops
+    (None, None at rate 0)."""
+    rate = layer.dropout_rate if layer.training else 0.0
+    if rate == 0.0:
+        return rate, None, None
+    if seeds is None:
+        raise ValueError("a decoder layer in train mode with dropout needs its seeds")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seeds[1])
+    return rate, seeds[0], gen
 
 
 class PETRDecoderLayer(nn.Module):
@@ -54,14 +69,7 @@ class PETRDecoderLayer(nn.Module):
         key_padding_mask: Optional[torch.Tensor],  # (B, L) True = pad
         seeds: Optional[LayerSeeds] = None,
     ) -> torch.Tensor:
-        rate = self.dropout_rate if self.training else 0.0
-        flash_seed, gen = None, None
-        if rate > 0.0:
-            if seeds is None:
-                raise ValueError("a decoder layer in train mode with dropout needs its seeds")
-            flash_seed = seeds[0]
-            gen = torch.Generator(device=query.device)
-            gen.manual_seed(seeds[1])
+        rate, flash_seed, gen = layer_noise(self, seeds, query.device)
         q_in = query + query_pos
         sa = self.attentions[0](q_in, q_in, query, generator=gen)
         if rate > 0.0:
@@ -78,26 +86,31 @@ class PETRDecoderLayer(nn.Module):
 
 
 class PETRTransformerDecoder(nn.Module):
-    """Stack of decoder layers returning all intermediate outputs (L, B, Q, C)."""
+    """Stack of decoder layers returning all intermediate outputs (L, B, Q, C).
+
+    ``make_layer`` builds each layer (default: ``PETRDecoderLayer``); the
+    Depthr head's layers also take the depth tokens, ``depth``."""
 
     def __init__(self, num_layers: int = 6, embed_dim: int = 256, num_heads: int = 8,
                  ffn_dim: int = 2048, use_flash: bool = False, dropout_rate: float = 0.0,
-                 remat: bool = False):
+                 remat: bool = False, make_layer: Optional[Callable[[], nn.Module]] = None):
         super().__init__()
         self.remat = remat
-        self.layers = nn.ModuleList(
-            PETRDecoderLayer(embed_dim, num_heads, ffn_dim, use_flash, dropout_rate)
-            for _ in range(num_layers)
-        )
+        if make_layer is None:
+            def make_layer():
+                return PETRDecoderLayer(embed_dim, num_heads, ffn_dim, use_flash, dropout_rate)
+        self.layers = nn.ModuleList(make_layer() for _ in range(num_layers))
         self.post_norm = LayerNorm(embed_dim)
 
     def forward(self, query, memory, query_pos, key_pos, key_padding_mask=None,
-                layer_seeds: Optional[Sequence[LayerSeeds]] = None):
+                layer_seeds: Optional[Sequence[LayerSeeds]] = None, depth: Optional[torch.Tensor] = None):
         remat = self.remat and self.training and torch.is_grad_enabled()
         outs = []
         for i, layer in enumerate(self.layers):
             seeds = None if layer_seeds is None else tuple(layer_seeds[i])
             args = (query, memory, query_pos, key_pos, key_padding_mask, seeds)
+            if depth is not None:
+                args += (depth,)
             query = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
             outs.append(self.post_norm(query))
         return torch.stack(outs, dim=0)
@@ -113,11 +126,11 @@ class PETRTransformer(nn.Module):
     def __init__(self, num_layers: int = 6, embed_dim: int = 256, num_heads: int = 8,
                  ffn_dim: int = 2048, use_flash: bool = False,
                  dtype: torch.dtype = torch.float32, dropout_rate: float = 0.0,
-                 remat: bool = False):
+                 remat: bool = False, make_layer: Optional[Callable[[], nn.Module]] = None):
         super().__init__()
         self.dtype = dtype
         self.decoder = PETRTransformerDecoder(
-            num_layers, embed_dim, num_heads, ffn_dim, use_flash, dropout_rate, remat
+            num_layers, embed_dim, num_heads, ffn_dim, use_flash, dropout_rate, remat, make_layer
         )
 
     def forward(
@@ -127,6 +140,7 @@ class PETRTransformer(nn.Module):
         query_embed: torch.Tensor,  # (Q, C)
         pos_embed: torch.Tensor,  # (B, N, H, W, C)
         layer_seeds: Optional[Sequence[LayerSeeds]] = None,
+        depth: Optional[torch.Tensor] = None,  # (B, N, H, W, C) Depthr's depth tokens
     ) -> torch.Tensor:
         B, N, H, W, C = feats.shape
         memory = feats.reshape(B, N * H * W, C)
@@ -135,4 +149,6 @@ class PETRTransformer(nn.Module):
         Q = query_embed.shape[0]
         query_pos = query_embed[None].expand(B, Q, C).to(self.dtype)
         target = torch.zeros((B, Q, C), dtype=self.dtype, device=feats.device)
-        return self.decoder(target, memory, query_pos, key_pos, key_padding_mask, layer_seeds)
+        if depth is not None:
+            depth = depth.reshape(B, N * H * W, C).to(self.dtype)
+        return self.decoder(target, memory, query_pos, key_pos, key_padding_mask, layer_seeds, depth)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Mutation check of the port on one CUDA card: its bf16 tensor-core
-kernels, the r50dcn step's reproducibility and PETRv2's with_time.
+kernels, the r50dcn step's reproducibility, PETRv2's with_time and the
+Depthr decoder's key/value rebinding.
 
     python3 -m petr_tpu_torch.mutants [--out DIR] [NAME ...]
 
@@ -57,6 +58,12 @@ MUTANTS = {
         "        v = gather_rows(flat, idx)\n",  # the fix reverted: torch.gather's backward, a scatter_add
         "        v = torch.gather(flat, 1, idx[..., None].expand(B, idx.shape[1], C))\n",
         "7",
+    ),
+    "depthr_view_attends_memory": (
+        "models/depthr_head.py",
+        "kv = memory if self.attend_memory else depth",  # cross_view_attn reads the image features
+        "kv = memory",
+        "9",
     ),
     "v2_dt_sign_swapped": (
         "models/petrv2_head.py",

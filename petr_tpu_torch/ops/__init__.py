@@ -1,4 +1,4 @@
-from petr_tpu_torch.ops.boxes import decode_bbox, encode_bbox
+from petr_tpu_torch.ops.boxes import box_corners, decode_bbox, encode_bbox
 from petr_tpu_torch.ops.cross_attention import (
     flash_cross_attention,
     flash_cross_attention_backward_reference,

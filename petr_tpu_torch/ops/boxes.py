@@ -6,7 +6,8 @@ Counterpart of `petr_tpu/ops/boxes.py` (reference
     raw box   : (cx, cy, cz, w, l, h, yaw[, vx, vy])          (9-dim)
     normalized: (cx, cy, log w, log l, cz, log h, sin yaw, cos yaw[, vx, vy])
 
-cz sits at index 4 of the normalized code, not index 2.
+cz sits at index 4 of the normalized code, not index 2. ``box_corners``
+gives the 8 corners of gravity-centre boxes (Depthr's GT depth maps).
 """
 
 from __future__ import annotations
@@ -38,3 +39,23 @@ def decode_bbox(codes: torch.Tensor) -> torch.Tensor:
     if codes.shape[-1] > 8:
         parts += [codes[..., 8:9], codes[..., 9:10]]
     return torch.cat(parts, dim=-1)
+
+
+def box_corners(boxes: torch.Tensor) -> torch.Tensor:
+    """8 corners of gravity-center boxes, (..., 8, 3); petr_tpu's
+    ``box_corners`` (`petr_tpu/ops/boxes.py:85-105`).
+
+    mmdet3d 0.17 LiDAR boxes: at yaw=0 dim w spans x and l spans y; yaw
+    rotates about +z. Corner order is the (x, y, z) sign lattice (---, --+,
+    -+-, ..., +++) in the box-local frame.
+    """
+    signs = torch.tensor(
+        [[sx, sy, sz] for sx in (-0.5, 0.5) for sy in (-0.5, 0.5) for sz in (-0.5, 0.5)],
+        dtype=boxes.dtype, device=boxes.device,
+    )  # (8, 3)
+    local = signs * boxes[..., None, 3:6]  # (..., 8, 3)
+    yaw = boxes[..., 6:7]
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    x = local[..., 0] * c - local[..., 1] * s
+    y = local[..., 0] * s + local[..., 1] * c
+    return torch.stack([x, y, local[..., 2]], dim=-1) + boxes[..., None, :3]

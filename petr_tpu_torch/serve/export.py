@@ -1,7 +1,8 @@
 """Serving step: forward + NMS-free decode of the last decoder layer.
 
-Counterpart of `petr_tpu/serve/export.py::make_serving_fn` together with
-`petr_tpu/train/train_step.py::make_eval_step`. petr_tpu exports the jitted
+Counterpart of `petr_tpu/serve/export.py::make_serving_fn`; its decode,
+``decode_last_layer``, is also the eval step's
+(`train/train_step.py::make_eval_step`). petr_tpu exports the jitted
 step as a StableHLO artifact; PyTorch runs eagerly, so here the step is a
 plain function over a model that lives on the device. It takes and returns
 numpy arrays.
@@ -9,7 +10,7 @@ numpy arrays.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,6 +40,20 @@ def build_detector(
     device = resolve_device(device)
     model = init_weights(PETRDetector(eval_model_config(cfg.model)), seed)
     return model.to(device).eval()
+
+
+def decode_last_layer(cfg: ExperimentConfig, outputs: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``nms_free_decode`` of the last decoder layer of the detector's
+    outputs, with ``cfg``'s limits; the serving step and the eval step
+    (`train/train_step.py::make_eval_step`) share it."""
+    return nms_free_decode(
+        outputs["cls_logits"][-1],
+        outputs["bbox_codes"][-1],
+        max_num=cfg.max_det,
+        num_classes=cfg.model.head.num_classes,
+        post_center_range=cfg.post_center_range,
+        score_threshold=cfg.score_threshold,
+    )
 
 
 def serving_input_spec(cfg: ExperimentConfig, batch_size: int = 1) -> Dict[str, Tuple[Tuple[int, ...], str]]:
@@ -82,14 +97,6 @@ def make_serving_fn(
         with torch.inference_mode():
             args = [torch.as_tensor(np.asarray(a), dtype=torch.float32).to(device) for a in inputs]
             out = model(*args[:3], timestamp=args[3] if n_inputs == 4 else None)
-            dec = nms_free_decode(
-                out["cls_logits"][-1],
-                out["bbox_codes"][-1],
-                max_num=cfg.max_det,
-                num_classes=cfg.model.head.num_classes,
-                post_center_range=cfg.post_center_range,
-                score_threshold=cfg.score_threshold,
-            )
-            return {k: v.cpu().numpy() for k, v in dec.items()}
+            return {k: v.cpu().numpy() for k, v in decode_last_layer(cfg, out).items()}
 
     return fn

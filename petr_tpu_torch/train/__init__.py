@@ -7,6 +7,7 @@ from petr_tpu_torch.train.train_step import (
     accumulate_grads,
     batch_keys,
     create_train_state,
+    make_eval_step,
     make_grad_fn,
     make_train_step,
 )

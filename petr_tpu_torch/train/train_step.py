@@ -20,6 +20,10 @@ Batch dict contract (tensors or numpy arrays, statically shaped):
     gt_labels  (B, G)          int
     gt_valid   (B, G)          bool
     timestamp  (B, N)          float32, 2-frame configs (PETRv2) only
+    lidar2img  (B, N, 4, 4)    float32, the Depthr head's GT-depth oracle only
+
+``make_eval_step`` is petr_tpu's eval step: the eval forward, then the
+NMS-free decode of the last decoder layer, on the model's device.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 
 from petr_tpu_torch.configs.config import ExperimentConfig
 from petr_tpu_torch.models.detector import PETRDetector, draw_train_noise, init_weights
-from petr_tpu_torch.serve.export import resolve_device
+from petr_tpu_torch.serve.export import decode_last_layer, resolve_device
 from petr_tpu_torch.train.losses import petr_set_loss
 from petr_tpu_torch.train.optim import build_optimizer, clip_by_global_norm, global_norm, make_lr_schedule
 
@@ -40,9 +44,22 @@ BATCH_KEYS = ("images", "img2lidar", "img_hw", "gt_boxes", "gt_labels", "gt_vali
 
 
 def batch_keys(cfg: ExperimentConfig) -> Tuple[str, ...]:
-    """The batch keys a step of ``cfg`` reads: ``BATCH_KEYS``, and
-    ``timestamp`` when it has 2 frames."""
-    return BATCH_KEYS + (("timestamp",) if cfg.data.num_frames > 1 else ())
+    """The batch keys a step of ``cfg`` reads: ``BATCH_KEYS``, ``timestamp``
+    when it has 2 frames, and ``lidar2img`` for the Depthr head."""
+    return (BATCH_KEYS + (("timestamp",) if cfg.data.num_frames > 1 else ())
+            + (("lidar2img",) if cfg.model.head.kind == "depthr" else ()))
+
+
+def _forward(model: PETRDetector, b: Dict[str, torch.Tensor], noise=None) -> Dict[str, torch.Tensor]:
+    """The detector on a batch on its device: the Depthr head's oracle
+    inputs when the batch holds ``lidar2img`` (`petr_tpu/train/
+    train_step.py:55-58, 93-97, 341-348`)."""
+    oracle = {}
+    if "lidar2img" in b:
+        oracle = dict(gt_boxes=b["gt_boxes"], gt_valid=b["gt_valid"], lidar2img=b["lidar2img"])
+    return model(b["images"], b["img2lidar"], b["img_hw"], noise=noise, timestamp=b.get("timestamp"), **oracle)
+
+
 Grads = Dict[str, torch.Tensor]
 
 
@@ -106,7 +123,7 @@ def make_grad_fn(cfg: ExperimentConfig):
         device = next(model.parameters()).device
         b = _to_device(batch, keys, device)
         noise = draw_train_noise(cfg.model, b["images"].shape[2], generator)
-        outputs = model(b["images"], b["img2lidar"], b["img_hw"], noise=noise, timestamp=b.get("timestamp"))
+        outputs = _forward(model, b, noise)
         total, losses, indices = petr_set_loss(
             outputs, b["gt_boxes"], b["gt_labels"], b["gt_valid"],
             num_classes=cfg.model.head.num_classes, cls_weight=ocfg.cls_weight,
@@ -176,3 +193,24 @@ def make_train_step(cfg: ExperimentConfig):
         return state, metrics
 
     return train_step
+
+
+def make_eval_step(cfg: ExperimentConfig):
+    """``eval_step(model, batch)`` -> dict of boxes (B, max_det, 9), scores,
+    labels and valid (B, max_det), tensors on the model's device: the
+    forward of ``model`` in eval mode, then the NMS-free decode of its last
+    decoder layer (petr_tpu's ``make_eval_step``, `train_step.py:325-366`).
+    It reads ``batch_keys(cfg)`` but the GT labels; a Depthr model reads
+    the GT boxes and cameras at test time too (an oracle)."""
+    keys = tuple(k for k in batch_keys(cfg) if k != "gt_labels")
+    if cfg.model.head.kind != "depthr":
+        keys = tuple(k for k in keys if not k.startswith("gt_"))
+
+    def eval_step(model: PETRDetector, batch) -> Dict[str, torch.Tensor]:
+        if model.training:
+            raise ValueError("eval_step takes a model in eval mode (model.eval())")
+        device = next(model.parameters()).device
+        with torch.inference_mode():
+            return decode_last_layer(cfg, _forward(model, _to_device(batch, keys, device)))
+
+    return eval_step

@@ -1,8 +1,8 @@
 """petr_tpu param tree -> port ``state_dict``.
 
 The inverse of `petr_tpu/utils/torch_convert.py::convert_state_dict` for the
-modules the port has (VoVNet and the r50dcn ResNet, CPFPN, the PETR and
-PETRv2 heads):
+modules the port has (VoVNet and the r50dcn ResNet, CPFPN, the PETR,
+PETRv2 and Depthr heads; petr_tpu's converter has no Depthr names):
 flax conv kernels HWIO -> OIHW, Dense kernels
 (in, out) -> (out, in) (or (out, in, 1, 1) where the reference has a 1x1
 conv), q/k/v Dense layers packed into ``in_proj_weight`` / ``in_proj_bias``,
@@ -11,7 +11,12 @@ branches (``cls_branch``) appear once per decoder layer, as in the reference
 ``state_dict``; unshared ones (``cls_branch_{l}``) map to layer l. A
 ``reg_branch`` with ``task{g}_*`` leaves is PETRv2's ``RegLayer``: its
 trunk ``fc{i}`` goes to ``reg_branch.{3i}`` and its groups to
-``task_heads.{g}.{0,2}``.
+``task_heads.{g}.{0,2}``. The Depthr head's decoder layers sit directly
+under ``head`` (``layer{l}``, ``post_norm``); they map to the port's
+``transformer.decoder``, its three attentions to ``attentions.{0,1,2}``, its
+four norms to ``norms.{0..3}``, and its ``depth_gt_encoder`` (``conv{i}``,
+``gn{i}``, ``depth_pos_embed``) to the reference module's
+``depth_head.{i}.{0,1}`` and ``depth_pos_embed.weight``.
 
 Parameter trees come as nested dicts of numpy arrays (``jax.device_get``
 of a petr_tpu ``params``); nothing here imports JAX. Any tree shaped like
@@ -34,6 +39,9 @@ _CLS_INDEX = {"fc0": 0, "ln0": 1, "fc1": 3, "ln1": 4, "out": 6}
 _REG_INDEX = {"fc0": 0, "fc1": 2, "out": 4}
 _MLP_INDEX = {"fc0": 0, "fc1": 2}
 _POSENC_INDEX = {"fc1": 0, "fc2": 2}
+# decoder attentions: PETR's self/cross, Depthr's self/depth/view
+_ATTN_INDEX = {"self_attn": 0, "cross_attn": 1, "cross_depth_attn": 1, "cross_view_attn": 2}
+_ATTN = "|".join(_ATTN_INDEX)
 
 
 def _conv(w):  # HWIO -> OIHW
@@ -133,6 +141,15 @@ def _head(p: str):
         index = (_POSENC_INDEX if mod == "position_encoder" else _MLP_INDEX)[fc]
         name, fn = _param(leaf, _lin if mod == "query_embedding" else _pointwise)
         return f"{mod}.{index}.{name}", fn
+    m = re.fullmatch(r"depth_gt_encoder\.(conv|gn)(\d+)\.(kernel|scale|bias)", p)
+    if m:
+        kind, i, leaf = m.groups()
+        if kind == "conv":
+            name, fn = _param(leaf, _conv)
+            return f"depth_gt_encoder.depth_head.{i}.0.{name}", fn
+        return f"depth_gt_encoder.depth_head.{i}.1.{_LN[leaf]}", _same
+    if p == "depth_gt_encoder.depth_pos_embed":
+        return "depth_gt_encoder.depth_pos_embed.weight", _same
     m = re.fullmatch(r"fpe\.(conv_reduce|conv_expand)\.(kernel|bias)", p)
     if m:
         name, fn = _param(m.group(2), _conv)
@@ -144,17 +161,16 @@ def _head(p: str):
     if m:
         lvl, rest = m.groups()
         pre = f"transformer.decoder.layers.{lvl}."
-        m2 = re.fullmatch(r"(self_attn|cross_attn)\.out_proj\.(kernel|bias)", rest)
+        m2 = re.fullmatch(rf"({_ATTN})\.out_proj\.(kernel|bias)", rest)
         if m2:
-            att = 0 if m2.group(1) == "self_attn" else 1
             name, fn = _param(m2.group(2), _lin)
-            return f"{pre}attentions.{att}.attn.out_proj.{name}", fn
+            return f"{pre}attentions.{_ATTN_INDEX[m2.group(1)]}.attn.out_proj.{name}", fn
         m2 = re.fullmatch(r"ffn\.(fc1|fc2)\.(kernel|bias)", rest)
         if m2:
             name, fn = _param(m2.group(2), _lin)
             sub = "layers.0.0" if m2.group(1) == "fc1" else "layers.1"
             return f"{pre}ffns.0.{sub}.{name}", fn
-        m2 = re.fullmatch(r"norm([123])\.(scale|bias)", rest)
+        m2 = re.fullmatch(r"norm([1234])\.(scale|bias)", rest)
         if m2:
             return f"{pre}norms.{int(m2.group(1)) - 1}.{_LN[m2.group(2)]}", _same
     return None
@@ -174,12 +190,15 @@ def _branch_index(kind: str, sub: str, multi_reg: bool) -> str:
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """Dotted leaf paths; the Depthr head's ``head.layer{l}`` and
+    ``head.post_norm`` go under ``head.transformer.decoder`` as PETR's."""
     out = {}
     for k, v in tree.items():
         key = f"{prefix}{k}"
         if isinstance(v, Mapping):
             out.update(_flatten(v, key + "."))
         else:
+            key = re.sub(r"^head\.(layer\d+|post_norm)\.", r"head.transformer.decoder.\1.", key)
             out[key] = np.asarray(v, dtype=np.float32)
     return out
 
@@ -206,7 +225,7 @@ def state_dict_from_jax(
     for key, val in flat.items():
         top, _, p = key.partition(".")
         if top == "head":
-            m = re.fullmatch(r"transformer\.decoder\.layer(\d+)\.(self_attn|cross_attn)\.([qkv])_proj\.(kernel|bias)", p)
+            m = re.fullmatch(rf"transformer\.decoder\.layer(\d+)\.({_ATTN})\.([qkv])_proj\.(kernel|bias)", p)
             if m:
                 lvl, att, which, leaf = m.groups()
                 qkv.setdefault((lvl, att), {})[f"{which}.{leaf}"] = val
@@ -238,7 +257,7 @@ def state_dict_from_jax(
                    if f"{w}.{leaf}" not in parts]
         if missing:
             raise KeyError(f"decoder layer {lvl} {att}: missing {missing}")
-        pre = f"pts_bbox_head.transformer.decoder.layers.{lvl}.attentions.{0 if att == 'self_attn' else 1}.attn."
+        pre = f"pts_bbox_head.transformer.decoder.layers.{lvl}.attentions.{_ATTN_INDEX[att]}.attn."
         sd[pre + "in_proj_weight"] = np.concatenate([_lin(parts[f"{w}.kernel"]) for w in "qkv"], 0)
         sd[pre + "in_proj_bias"] = np.concatenate([parts[f"{w}.bias"] for w in "qkv"], 0)
     for template, val in branches.items():

@@ -500,3 +500,77 @@ def test_tiny_petrv2_on_the_card_matches_the_cpu(cuda):
     frame = stream.step(images[:, :6], img2lidar, img_hw, ts)
     for key in ("cls_logits", "bbox_codes"):
         torch.testing.assert_close(frame[key], got[key], rtol=1e-4, atol=1e-4)
+
+
+def test_tiny_depthr_on_the_card_matches_the_cpu(cuda):
+    """depthr_r50_c5_512x1408_gtdepth with a tiny head at 64x192 (fp32):
+    the GT depth maps on the card equal to the CPU's bit for bit, K4's
+    fp32 variant 9 times per forward, the outputs as on the CPU (rtol
+    1e-3, atol 2e-3, as the r50dcn detector above) and unchanged by other
+    images, and an eval step's boxes on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from petr_tpu_torch.configs import get_config
+    from petr_tpu_torch.models.depth_encoder import gt_depth_maps
+    from petr_tpu_torch.models.resnet import redraw_offset_convs
+    from petr_tpu_torch.ops import dcn
+    from petr_tpu_torch.serve import build_detector
+    from petr_tpu_torch.train import make_eval_step
+
+    cfg = get_config("depthr_r50_c5_512x1408_gtdepth")
+    N, H, W, G = 6, 64, 192, 16
+    head = dataclasses.replace(cfg.model.head, num_query=32, embed_dim=64, num_layers=2, num_heads=4, ffn_dim=128,
+                               depth_num=8)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, head=head, compute_dtype="float32"),
+                              data=dataclasses.replace(cfg.data, image_size=(H, W), max_gt=G))
+    rng = np.random.RandomState(0)
+    l2i = np.zeros((1, N, 4, 4))
+    for i in range(N):
+        yaw = 2 * np.pi * i / N
+        R = np.array([[-np.sin(yaw), np.cos(yaw), 0], [0, 0, -1], [np.cos(yaw), np.sin(yaw), 0]])
+        E = np.eye(4)
+        E[:3, :3] = R
+        E[:3, 3] = -R @ np.array([np.cos(yaw), np.sin(yaw), 1.5])
+        K = np.eye(4)
+        K[0, 0] = K[1, 1] = W / 2
+        K[0, 2], K[1, 2] = W / 2, H / 2
+        l2i[0, i] = K @ E
+    bearing = 2 * np.pi * np.arange(G) / N + rng.uniform(-0.3, 0.3, G)
+    dist = rng.uniform(5, 30, G)
+    boxes = np.concatenate([(dist * np.cos(bearing))[:, None], (dist * np.sin(bearing))[:, None],
+                            rng.uniform(-1, 1, (G, 1)), rng.uniform(1, 4, (G, 3)), rng.uniform(-3, 3, (G, 1)),
+                            rng.uniform(-1, 1, (G, 2))], -1)[None]
+    batch = {
+        "images": torch.from_numpy(rng.randn(1, N, H, W, 3).astype(np.float32)),
+        "img2lidar": torch.from_numpy(np.linalg.inv(l2i).astype(np.float32)),
+        "img_hw": torch.tensor([H, W], dtype=torch.float32).expand(1, N, 2).clone(),
+        "gt_boxes": torch.from_numpy(boxes.astype(np.float32)),
+        "gt_valid": torch.from_numpy(rng.rand(1, G) < 0.9),
+        "lidar2img": torch.from_numpy(l2i.astype(np.float32)),
+    }
+    maps = [gt_depth_maps(*[batch[k].to(d) for k in ("gt_boxes", "gt_valid", "lidar2img")], (H, W), 8).cpu()
+            for d in ("cpu", "cuda")]
+    assert (maps[0] > 0).any() and torch.equal(maps[0], maps[1])
+    models = []
+    for device in ("cpu", "cuda"):
+        model = build_detector(cfg, seed=0, device="cpu")
+        redraw_offset_convs(model, seed=1)
+        models.append(model.to(device))
+    oracle = ("gt_boxes", "gt_valid", "lidar2img")
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        want = models[0](batch["images"], batch["img2lidar"], batch["img_hw"], **{k: batch[k] for k in oracle})
+        on_card = {k: v.cuda() for k, v in batch.items()}
+        before = dcn.LAUNCHES_FP32
+        got = models[1](on_card["images"], on_card["img2lidar"], on_card["img_hw"], **{k: on_card[k] for k in oracle})
+        other = models[1](torch.randn_like(on_card["images"]), on_card["img2lidar"], on_card["img_hw"],
+                          **{k: on_card[k] for k in oracle})
+        torch.cuda.synchronize()
+    assert dcn.LAUNCHES_FP32 == before + 18  # two forwards, 9 DCN convs each
+    for key in ("cls_logits", "bbox_codes"):
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-3, atol=2e-3)
+        assert torch.equal(other[key], got[key]), key
+    dec = make_eval_step(cfg)(models[1], batch)
+    assert dec["boxes"].is_cuda and torch.isfinite(dec["boxes"]).all()

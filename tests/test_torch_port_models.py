@@ -215,11 +215,12 @@ def test_tiny_debug_detector_matches(tiny, bf16_model, dtype):
 @pytest.mark.parametrize(
     "name,overrides",
     [
-        # PETRv2 and unshared branches are ported (tests/test_torch_port_petrv2.py)
+        # PETRv2, unshared branches and Depthr are ported
+        # (tests/test_torch_port_petrv2.py, tests/test_torch_port_depthr.py)
         ("petrv2_vov_p4_800x320", ("model.backbone.quant=int8",)),
         ("tiny_debug_v2", ("model.backbone.bn_mode=batch",)),
-        ("depthr_r50_c5_512x1408_gtdepth", ()),
-        ("petr_vov_p4_800x320", ("model.head.kind=depthr",)),
+        ("depthr_r50_c5_512x1408_gtdepth", ("model.backbone.quant=int8",)),
+        ("petr_vov_p4_800x320", ("model.head.kind=depthr", "model.backbone.bn_mode=batch")),
         ("petr_vov_p4_800x320", ("model.backbone.quant=int8",)),
         ("petr_vov_p4_800x320", ("model.backbone.bn_mode=batch",)),
     ],
