@@ -118,7 +118,23 @@ nothing of petr_tpu. Phases, each fatal on failure:
    step (no gradient reaches the backbone, so its checkpointed bottlenecks
    are never recomputed); step time, peak memory, one profiler pass; two
    identical steps bit for bit; one fp32 step with K4 against the plain
-   version, equal bit for bit. runs only the phases named (1 and 2 always run), prints no
+   version, equal bit for bit.
+10. evaluation: synthetic scenes rendered by the port at 900x1600 (4
+   scenes of 3 frames, 2 held out: 6 val and 6 train samples, 96 JPEGs);
+   one flagship bf16 train step on a train-split loader batch (training
+   IDA, GridMask), a checkpoint, and step 2 from the restored state equal
+   to the uninterrupted one bit for bit (loss, ``grad_norm``, weights,
+   AdamW moments); the flagship scored from that checkpoint by
+   ``evaluate_model`` (K1 6 times per batch, bf16 only), its outputs,
+   decode and metrics held to K1's plain route, and by ``python -m
+   petr_tpu_torch.cli.test`` in a process of its own (the same metric
+   lines, a submission entry per val token, the same scores); the
+   loader's host time per batch, the eval step on CUDA events, the share
+   of an eval pass the card waits on the loader, samples/s; PETRv2
+   streamed through ``cli.test --streaming`` (4 of 6 frames from the
+   feature cache; K1 6 per frame) and each frame held to the 12-view eval
+   forward and eval step of the same sample.
+``--phases 3,8`` runs only the phases named (1 and 2 always run), prints no
 kernels record and no result line, and exits 1 either way: a failed check
 raises an AssertionError; ``--phases 3`` alone checks and times every kernel. With no
 arguments every phase runs. The line before the last is the kernels' JSON
@@ -128,6 +144,7 @@ it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -2562,7 +2579,324 @@ def check_depthr(torch, ca, dcn, card):
         "depthr_step_peak_gib": peak, "depthr_k4_device_ms_per_step": step_kernels.get("K4")}
 
 
-ALL_PHASES = {3, 4, 5, 6, 7, 8, 9}
+# The synthetic-scene evaluation of phase 10: scenes rendered at the
+# flagship's nuScenes source size (900x1600) by the port's renderer, seed
+# SEED; 4 scenes of 3 frames, 2 held out (6 val and 6 train samples, each
+# with a warm-up sweep), 6 objects each, scored over the 3 classes present.
+EVAL_SCENES = dict(n_scenes=4, frames_per_scene=3, n_objects=6, val_scenes=2, seed=SEED)
+EVAL_CLASSES = "car,bus,pedestrian"
+# The flagship's metrics on the K1 route against the plain route, each
+# metric within this: the outputs differ by one bf16 step here and there
+# (MODEL_*), which can flip one centre-distance match of the 36 GT boxes;
+# one match moves a class's AP at one threshold by up to 1/12, its AP by a
+# quarter of that, mAP by a third again (0.007), a TP error mean by more.
+METRIC_ROUTE_TOL = 2e-2
+# A streaming frame's decoded scores against the 12-view eval step's,
+# sorted: the bound ROUTE_TOL's (0.3, 3e-2) on a logit puts on its score
+# through the sigmoid, whose slope is at most 1/4 and at most e^-|x| (0.09
+# at |x| = 1.7, less elsewhere).
+STREAM_SCORE_TOL = 0.1
+# The CLI's submission (one process) against the phase's (another), the
+# same weights and inputs on the same card: each token's sorted scores.
+SUBMISSION_TOL = 1e-6
+
+
+@contextlib.contextmanager
+def torch_defaults(torch):
+    """TF32 and cuDNN's algorithm flags at torch's defaults, which cli.test's
+    own process runs with (phase 1 turned TF32 off), then as they were."""
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    torch.backends.cudnn.deterministic = torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
+
+
+def run_cli(args, label):
+    """``python -m petr_tpu_torch.cli.test ARGS`` from this script's directory
+    in a process of its own: it must exit 0. Returns (stdout, wall s)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "petr_tpu_torch.cli.test", *args], cwd=root,
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    log(f"  {label}: python -m petr_tpu_torch.cli.test {' '.join(args)} -> exit {proc.returncode} in {wall:.1f} s")
+    for line in proc.stdout.splitlines():
+        log(f"    | {line}")
+    assert proc.returncode == 0, f"cli.test exited {proc.returncode}:\n{proc.stderr[-4000:]}"
+    return proc.stdout, wall
+
+
+def printed_metrics(stdout):
+    """The CLI's metric lines ``name: value`` -> {name: value as printed}."""
+    lines = [line.split(": ", 1) for line in stdout.splitlines() if ": " in line
+             and not line.startswith(("inference:", "streaming:"))]
+    return dict(lines)
+
+
+def check_eval(torch, ca, card):
+    """Phase 10: the port's data, metrics, evaluation, checkpoints and
+    evaluation CLI on synthetic scenes rendered at 900x1600: a bf16 train
+    step, a checkpoint and a resume bit for bit; the flagship scored
+    through ``evaluate_model`` and through ``cli.test`` on that checkpoint
+    (K1 6 times per batch), against K1's plain route; the host's data cost;
+    PETRv2 streamed through ``cli.test --streaming`` and held frame by
+    frame to its 12-view eval step."""
+    import os
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from petr_tpu_torch.cli.test import run_streaming_inference
+    from petr_tpu_torch.configs import get_config
+    from petr_tpu_torch.data import Loader, NuScenesDataset, collate_batch, generate_synthetic_scenes
+    from petr_tpu_torch.data.transforms import sample_ida_params
+    from petr_tpu_torch.metrics.nuscenes import evaluate_detections, ground_truth_from_infos
+    from petr_tpu_torch.metrics.submission import build_submission
+    from petr_tpu_torch.models import layers
+    from petr_tpu_torch.serve import build_detector, decode_last_layer
+    from petr_tpu_torch.train import checkpoint, create_train_state, evaluate, make_eval_step, make_train_step
+
+    cfg = get_config(FLAGSHIP)
+    L, hc = cfg.model.head.num_layers, cfg.model.head
+    H, W = cfg.data.src_hw
+    classes = tuple(EVAL_CLASSES.split(","))
+    times = {}
+    with torch_defaults(torch), tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        splits = generate_synthetic_scenes(f"{tmp}/synth", image_hw=(H, W), **EVAL_SCENES)
+        times["render_s"] = time.perf_counter() - t0
+        val, train = splits["val"], splits["train"]
+        n_jpeg = sum(name.endswith(".jpg") for name in os.listdir(f"{tmp}/synth"))
+        log(f"phase 10: rendered {EVAL_SCENES['n_scenes']} scenes of {EVAL_SCENES['frames_per_scene']} frames "
+            f"(seed {SEED}, {EVAL_SCENES['n_objects']} objects, {EVAL_SCENES['val_scenes']} held out) at {H}x{W}: "
+            f"{len(val)} val and {len(train)} train samples, {n_jpeg} JPEGs with the warm-up sweeps, in "
+            f"{times['render_s']:.3f} s")
+        assert (len(val), len(train), n_jpeg) == (6, 6, 4 * 4 * 6)
+        val_pkl = f"{tmp}/synth/synth_infos_val.pkl"
+        with open(val_pkl, "rb") as f:
+            assert [i["token"] for i in pickle.load(f)["infos"]] == [i["token"] for i in val]
+
+        # -- a train step, a checkpoint, and the resume --------------------
+        log(f"phase 10: {FLAGSHIP} {cfg.model.compute_dtype} train step on a train-split loader batch (training IDA from {H}x{W}, "
+            f"GridMask {cfg.model.use_grid_mask}, dropout {hc.dropout_rate}), save, restore into a fresh state, "
+            "step 2 from both")
+        try:
+            train_ds = NuScenesDataset(train, cfg.data, training=True)
+            b1, b2 = list(Loader(train_ds, 1, seed=SEED).epoch(0))[:2]
+            assert b1["images"].shape == (1, 6, *cfg.data.image_size, 3)
+            step_fn = make_train_step(cfg)
+            state = create_train_state(cfg, SEED, total_steps=1000, device="cuda")
+            gen = torch.Generator().manual_seed(SEED)
+            _, m1 = step_fn(state, b1, gen)
+            assert m1["skipped"] == 0 and torch.isfinite(m1["loss"]), m1
+            ckpt = checkpoint.save_checkpoint(f"{tmp}/ckpts", state.step, state, meta={"config": FLAGSHIP})
+            fresh = create_train_state(cfg, SEED + 1, total_steps=1000, device="cuda")
+            checkpoint.restore_checkpoint(ckpt, fresh)
+            gen_b = torch.Generator()
+            gen_b.set_state(gen.get_state())
+            _, m_a = step_fn(state, b2, gen)
+            _, m_b = step_fn(fresh, b2, gen_b)
+            ta = dict(state.model.state_dict())
+            tb = dict(fresh.model.state_dict())
+            for name, opt in (("a", state.optimizer), ("b", fresh.optimizer)):
+                for i, s in opt.state_dict()["state"].items():
+                    (ta if name == "a" else tb).update({f"adam.{i}.{k}": v for k, v in s.items()})
+            differ = [k for k in ta if not torch.equal(ta[k], tb[k].to(ta[k].device))]
+            n_moments = sum(k.startswith("adam.") for k in ta)
+            log(f"  step 2 uninterrupted / restored: loss {m_a['loss'].item():.9g} / {m_b['loss'].item():.9g}, "
+                f"grad_norm {m_a['grad_norm'].item():.9g} / {m_b['grad_norm'].item():.9g}; {len(differ)} of "
+                f"{len(ta)} tensors (weights, buffers, {n_moments} AdamW moments and step counts) differ bit for "
+                f"bit" + (f" (first: {differ[:3]})" if differ else "") + f"; step {state.step} / {fresh.step}")
+            assert torch.equal(m_a["loss"], m_b["loss"]), "the restored step gave another loss"
+            assert torch.equal(m_a["grad_norm"], m_b["grad_norm"]), "the restored step gave another grad_norm"
+            assert not differ, f"the restored step left {len(differ)} tensors different: {differ[:5]}"
+            assert state.step == fresh.step == 2
+            del state, fresh, ta, tb
+            torch.cuda.empty_cache()
+        finally:  # create_train_state pinned cuDNN's deterministic algorithms; the CLI runs without
+            torch.backends.cudnn.deterministic = torch.backends.cudnn.benchmark = False
+
+        # -- evaluate_model on the checkpoint, K1 against the plain route ----
+        log(f"phase 10: {FLAGSHIP} evaluated on the checkpoint of step 1 ({ckpt}): test-mode IDA {H}x{W} -> "
+            f"{cfg.data.final_dim}, batch 1, scored over {EVAL_CLASSES}")
+        model = build_detector(cfg, seed=SEED + 1, device="cuda")  # other weights until the checkpoint's load
+        checkpoint.load_params(ckpt, model)
+        ds = NuScenesDataset(val, cfg.data, training=False)
+        ca.LAUNCHES = ca.LAUNCHES_FP32 = 0
+        metrics = evaluate.evaluate_model(cfg, model, ds, classes=classes)
+        launches = {"K1": ca.LAUNCHES, "K1 fp32": ca.LAUNCHES_FP32}
+        log(f"  evaluate_model: {', '.join(f'{k} {v:.6f}' for k, v in metrics.items())}")
+        log(f"  K1 launches over {len(val)} eval batches: {launches} (expected {L} bf16 per batch, 0 fp32)")
+        assert launches == {"K1": L * len(val), "K1 fp32": 0}, launches
+        batches = list(Loader(ds, 1, shuffle=False, drop_last=False).epoch(0))
+        tokens, det_k = evaluate._decode_dataset(cfg, model, ds, 1)
+        assert tokens == [i["token"] for i in val]
+        kept = layers.flash_cross_attention
+        layers.flash_cross_attention = ca.flash_cross_attention_plain
+        try:
+            _, det_p = evaluate._decode_dataset(cfg, model, ds, 1)
+            metrics_plain = evaluate.evaluate_model(cfg, model, ds, classes=classes)
+            with torch.inference_mode():
+                out_p = [model(*[torch.as_tensor(b[k]).cuda() for k in ("images", "img2lidar", "img_hw")])
+                         for b in batches]
+        finally:
+            layers.flash_cross_attention = kept
+        with torch.inference_mode():
+            out_k = [model(*[torch.as_tensor(b[k]).cuda() for k in ("images", "img2lidar", "img_hw")])
+                     for b in batches]
+        # Two bf16 routes that round P at other points: the raw outputs under
+        # ROUTE_TOL, the decode under phase 4's MODEL_* limits below. On the
+        # card a bbox code of every rendered scene moved by 0.0999 m: one
+        # bf16 step (2^-8) of a centre logit near 0 times the sigmoid's slope
+        # 1/4 times the 102.4 m range, past MODEL_ATOL + MODEL_RTOL x |code|
+        # for a centre within 5 m of the car
+        for i, (a, b) in enumerate(zip(out_k, out_p)):
+            compare_outputs(torch, f"eval batch {i}: K1 vs its plain version", a, b, ROUTE_TOL, ROUTE_MEAN,
+                            (L, 1, hc.num_query))
+        s_k, s_p = np.sort(det_k["scores"], -1), np.sort(det_p["scores"], -1)
+        err = np.abs(s_k - s_p)
+        log(f"  decoded scores (sorted), K1 vs plain route: max abs err {err.max():.4e}, mean {err.mean():.4e} "
+            f"(MODEL_ATOL {MODEL_ATOL}, MODEL_MEAN {MODEL_MEAN})")
+        assert err.max() <= MODEL_ATOL and err.mean() <= MODEL_MEAN, "decoded scores: K1 vs plain route disagree"
+        for i in range(len(tokens)):  # labels and boxes where no near-tie can swap ranks
+            sk, order_k = det_k["scores"][i], np.argsort(-det_k["scores"][i], kind="stable")
+            order_p = np.argsort(-det_p["scores"][i], kind="stable")
+            gap = -np.diff(sk[order_k])
+            apart = np.ones(len(sk), bool)
+            apart[1:] &= gap > 2 * MODEL_ATOL
+            apart[:-1] &= gap > 2 * MODEL_ATOL
+            np.testing.assert_array_equal(det_k["labels"][i][order_k][apart], det_p["labels"][i][order_p][apart])
+            np.testing.assert_allclose(det_k["boxes"][i][order_k][apart], det_p["boxes"][i][order_p][apart],
+                                       rtol=0, atol=0.5)
+        worst = max(abs(metrics[k] - metrics_plain[k]) for k in metrics)
+        log(f"  metrics, K1 vs plain route: largest difference {worst:.6f} (METRIC_ROUTE_TOL {METRIC_ROUTE_TOL}); "
+            f"plain: {', '.join(f'{k} {v:.6f}' for k, v in metrics_plain.items())}")
+        assert list(metrics) == list(metrics_plain) and worst <= METRIC_ROUTE_TOL, "metrics: K1 vs plain disagree"
+
+        # -- the evaluation CLI on the same checkpoint -----------------------
+        sub_path = f"{tmp}/submission.json"
+        out, cli_wall = run_cli(["--config", FLAGSHIP, "--infos", val_pkl, "--ckpt", ckpt, "--classes",
+                                 EVAL_CLASSES, "--out", sub_path], "the CLI")
+        printed = printed_metrics(out)
+        want = {k: f"{v:.4f}" for k, v in metrics.items()}
+        assert printed == want, f"the CLI printed {printed}, evaluate_model gave {want}"
+        line = next(s for s in out.splitlines() if s.startswith("inference:"))
+        times["cli_samples_per_s"] = float(line.split("(")[1].split()[0])
+        times["cli_wall_s"] = cli_wall
+        with open(sub_path) as f:
+            sub = json.load(f)
+        info_by_token = {i["token"]: i for i in val}
+        mine = build_submission(evaluate._preds_from_det(tokens, det_k, info_by_token), val)
+        assert sorted(sub["results"]) == sorted(tokens), sorted(sub["results"])
+        sub_err = 0.0
+        for tok in tokens:
+            a = np.sort([d["detection_score"] for d in sub["results"][tok]])
+            b = np.sort([d["detection_score"] for d in mine["results"][tok]])
+            assert a.shape == b.shape, (tok, a.shape, b.shape)
+            sub_err = max(sub_err, float(np.abs(a - b).max()) if len(a) else 0.0)
+        log(f"  the CLI's metrics equal evaluate_model's as printed; its submission holds {len(sub['results'])} "
+            f"tokens (one per val sample), {sum(len(v) for v in sub['results'].values())} boxes in range, each "
+            f"token's sorted scores within {sub_err:.3e} of this process's (SUBMISSION_TOL {SUBMISSION_TOL})")
+        assert sub_err <= SUBMISSION_TOL, "the CLI's detections differ from evaluate_model's"
+
+        # -- the host's data cost beside the card's --------------------------
+        ida = sample_ida_params(np.random.default_rng(0), (H, W), cfg.data.final_dim, cfg.data.resize_lim,
+                                cfg.data.bot_pct_lim, cfg.data.rot_lim, cfg.data.rand_flip, False)
+        host = []
+        for i in range(len(ds)):
+            t0 = time.perf_counter()
+            collate_batch([ds.get(i, seed=i)])
+            host.append((time.perf_counter() - t0) * 1e3)
+        eval_step = make_eval_step(cfg)
+        dev_ms = cuda_time_ms(lambda: eval_step(model, batches[0]), warmup=3, iters=10)
+        wait = 0.0
+        t_all = time.perf_counter()
+        it = iter(Loader(ds, 1, shuffle=False, drop_last=False).epoch(0))
+        n = 0
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            wait += time.perf_counter() - t0
+            if batch is None:
+                break
+            {k: v.cpu() for k, v in eval_step(model, batch).items()}
+            n += 1
+        wall = time.perf_counter() - t_all
+        times.update({"loader_ms_per_batch": host, "eval_step_ms": dev_ms, "eval_wall_s": wall,
+                      "loader_wait_share": wait / wall, "eval_samples_per_s": n / wall})
+        log(f"  the loader's host time per batch of 1 (6 views of {H}x{W}: JPEG decode, bicubic resize to "
+            f"{ida.resize_dims[0]}x{ida.resize_dims[1]}, crop {ida.crop}, normalisation, collation): median "
+            f"{statistics.median(host):.3f} ms (" + ", ".join(f"{t:.3f}" for t in host) + ")")
+        log(f"  the eval step (copy in, forward, decode) on CUDA events: median {dev_ms:.3f} ms per batch of 1")
+        log(f"  an eval pass through Loader (4 threads) and the eval step: {n} samples in {wall:.4f} s, "
+            f"{n / wall:.4f} samples/s; the card waited on the loader {100 * wait / wall:.2f}% of it; the CLI: "
+            f"{times['cli_samples_per_s']} samples/s, {cli_wall:.3f} s with its start [{card}]")
+        del model
+        torch.cuda.empty_cache()
+
+        # -- PETRv2 streamed through the CLI -------------------------------
+        v2 = get_config(PETRV2)
+        L2 = v2.model.head.num_layers
+        log(f"phase 10: {PETRV2} streamed over the same val scenes (random weights, seed {SEED}, as cli.test builds "
+            "without --ckpt)")
+        out, v2_wall = run_cli(["--streaming", "--config", PETRV2, "--infos", val_pkl, "--classes", EVAL_CLASSES],
+                               "the CLI, streaming")
+        assert "streaming: 4/6 frames served from the feature cache" in out, out
+        model = build_detector(v2, seed=SEED, device="cuda")
+        ds2 = NuScenesDataset(val, v2.data, training=False)
+        frames = []
+        head = model.forward_head
+
+        def recording_head(*args, **kwargs):
+            result = head(*args, **kwargs)
+            frames.append(result)
+            return result
+
+        model.forward_head = recording_head
+        ca.LAUNCHES = ca.LAUNCHES_FP32 = 0
+        try:
+            preds, n_frames, stream_wall = run_streaming_inference(v2, model, ds2, device="cuda")
+        finally:
+            del model.forward_head
+        stream_launches = {"K1": ca.LAUNCHES, "K1 fp32": ca.LAUNCHES_FP32}
+        log(f"  this process: {n_frames} frames in {stream_wall:.4f} s; K1 launches {stream_launches} (expected "
+            f"{L2} bf16 per frame at L = {LV2}, 0 fp32)")
+        assert stream_launches == {"K1": L2 * n_frames, "K1 fp32": 0}, stream_launches
+        stream_metrics = evaluate_detections(ground_truth_from_infos(val), preds, classes=classes)
+        assert printed_metrics(out) == {k: f"{v:.4f}" for k, v in stream_metrics.items()}, (
+            printed_metrics(out), stream_metrics)
+        eval2 = make_eval_step(v2)
+        index = {i["token"]: k for k, i in enumerate(val)}
+        for tok, got in zip(preds, frames):
+            b = collate_batch([ds2.get(index[tok], seed=index[tok])])
+            with torch.inference_mode():
+                full = model(*[torch.as_tensor(b[k]).cuda() for k in ("images", "img2lidar", "img_hw")],
+                             timestamp=torch.as_tensor(b["timestamp"]).cuda())
+            compare_outputs(torch, f"{tok}: streaming frame vs the 12-view forward", got, full, ROUTE_TOL,
+                            ROUTE_MEAN, (L2, 1, v2.model.head.num_query))
+            det = {k: v.cpu().numpy() for k, v in eval2(model, b).items()}
+            mine = decode_last_layer(v2, got)
+            a, c = np.sort(mine["scores"][0].cpu().numpy()), np.sort(det["scores"][0])
+            err = np.abs(a - c).max()
+            assert err <= STREAM_SCORE_TOL, f"{tok}: the streamed decode's scores are {err} from the eval step's"
+        log(f"  every frame's outputs held to the 12-view eval forward of the same sample under ROUTE_TOL, its "
+            f"decoded scores to make_eval_step's within STREAM_SCORE_TOL {STREAM_SCORE_TOL}; metrics as the CLI "
+            f"printed: {', '.join(f'{k} {v:.6f}' for k, v in stream_metrics.items())}")
+        times.update({"stream_frames_per_s": n_frames / stream_wall, "stream_cli_wall_s": v2_wall})
+        del model
+        torch.cuda.empty_cache()
+    return launches["K1"] // len(val), stream_launches["K1"] // n_frames, times
+
+
+ALL_PHASES = {3, 4, 5, 6, 7, 8, 9, 10}
 
 
 def training_phase(torch, fn, *args):
@@ -2607,6 +2941,12 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}")
     sm_clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     log(f"  max SM clock {sm_clock_hz / 1e6:.0f} MHz")
+    try:  # the data layer decodes, resamples and renders through Pillow
+        import PIL
+
+        log(f"  Pillow {PIL.__version__}")
+    except ImportError:
+        log("  Pillow: absent")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2674,6 +3014,13 @@ def main() -> int:
             k4["launches_depthr"] = d_eval["K4"] // 3
             k4["launches_depthr_train"] = d_train["K4"] // 3
             k4.update(d_times)
+
+    if 10 in phases:
+        eval_per_batch, stream_per_frame, eval_times = check_eval(torch, ca, card)
+        if records:
+            k1["launches_eval"] = eval_per_batch
+            k1["eval"] = eval_times
+            k1_v2["launches_stream_eval"] = stream_per_frame
 
     if phases != ALL_PHASES:
         log(f"only phases {sorted(phases)} ran: no kernels record and no result line")

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Mutation check of the port on one CUDA card: its bf16 tensor-core
-kernels, the r50dcn step's reproducibility, PETRv2's with_time and the
-Depthr decoder's key/value rebinding.
+kernels, the r50dcn step's reproducibility, PETRv2's with_time, the
+Depthr decoder's key/value rebinding, the checkpoint's resume and the
+evaluation's route through K1.
 
     python3 -m petr_tpu_torch.mutants [--out DIR] [NAME ...]
 
@@ -70,6 +71,19 @@ MUTANTS = {
         "dt = (ts[:, 1] - ts[:, 0]).mean(-1)",  # with_time: the previous frame's step negated
         "dt = (ts[:, 0] - ts[:, 1]).mean(-1)",
         "8",
+    ),
+    "checkpoint_drops_optimizer_state": (
+        "train/checkpoint.py",
+        '    state.optimizer.load_state_dict(payload["optimizer"])\n',  # the AdamW moments stay fresh
+        "",
+        "10",
+    ),
+    "eval_skips_k1": (
+        "train/evaluate.py",
+        "        det = eval_step(model, batch)\n",  # every attention on its plain (non-flash) branch
+        '        [setattr(m, "use_flash", False) for m in model.modules() if hasattr(m, "use_flash")]\n'
+        "        det = eval_step(model, batch)\n",
+        "10",
     ),
 }
 

@@ -574,3 +574,51 @@ def test_tiny_depthr_on_the_card_matches_the_cpu(cuda):
         assert torch.equal(other[key], got[key]), key
     dec = make_eval_step(cfg)(models[1], batch)
     assert dec["boxes"].is_cuda and torch.isfinite(dec["boxes"]).all()
+
+
+def test_tiny_evaluate_model_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """train.evaluate_model with tiny_debug (fp32) over 2 rendered synthetic
+    scenes: K1's fp32 variant once per decoder layer per eval batch, the
+    decoded scores (sorted) within 1e-5 of the CPU's, the labels and boxes
+    at every rank whose score stands 2e-5 apart from its neighbours equal
+    and within 1e-3, and the same metric dict within 1e-6."""
+    import numpy as np
+
+    from petr_tpu_torch.configs import get_config
+    from petr_tpu_torch.data import NuScenesDataset, generate_synthetic_scenes
+    from petr_tpu_torch.serve import build_detector
+    from petr_tpu_torch.train import evaluate
+
+    cfg = get_config("tiny_debug")
+    val = generate_synthetic_scenes(str(tmp_path), n_scenes=2, frames_per_scene=2, image_hw=(64, 160),
+                                    val_scenes=2, seed=1)["val"]
+    ds = NuScenesDataset(val, cfg.data, training=False, src_hw=(64, 160))
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = build_detector(cfg, seed=0, device=device)
+        rec = {}
+        decode = evaluate._decode_dataset
+        evaluate._decode_dataset = lambda *a, **k: rec.setdefault("det", decode(*a, **k))
+        try:
+            before = ca.LAUNCHES_FP32
+            metrics = evaluate.evaluate_model(cfg, model, ds, batch_size=2, classes=("car", "bus", "pedestrian"))
+            launches = ca.LAUNCHES_FP32 - before
+        finally:
+            evaluate._decode_dataset = decode
+        runs[device] = (metrics, rec["det"][1], launches)
+    assert runs["cuda"][2] == cfg.model.head.num_layers * 2 and runs["cpu"][2] == 0
+    (want, wdet, _), (got, gdet, _) = runs["cpu"], runs["cuda"]
+    for i in range(len(val)):
+        ws, gs = wdet["scores"][i], gdet["scores"][i]
+        np.testing.assert_allclose(np.sort(gs), np.sort(ws), rtol=0, atol=1e-5)
+        ow, og = np.argsort(-ws, kind="stable"), np.argsort(-gs, kind="stable")
+        gap = -np.diff(ws[ow])
+        apart = np.ones(len(ws), bool)
+        apart[1:] &= gap > 2e-5
+        apart[:-1] &= gap > 2e-5
+        np.testing.assert_array_equal(gdet["labels"][i][og][apart], wdet["labels"][i][ow][apart])
+        np.testing.assert_allclose(gdet["boxes"][i][og][apart], wdet["boxes"][i][ow][apart], rtol=0, atol=1e-3)
+    assert list(got) == list(want)
+    for k, v in want.items():
+        assert abs(got[k] - v) <= 1e-6, (k, got[k], v)

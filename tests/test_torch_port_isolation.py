@@ -35,7 +35,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
     code = (
         "import sys\n"
         "import petr_tpu_torch, petr_tpu_torch.configs, petr_tpu_torch.ops, "
-        "petr_tpu_torch.models, petr_tpu_torch.serve, petr_tpu_torch.train, petr_tpu_torch.utils\n"
+        "petr_tpu_torch.models, petr_tpu_torch.serve, petr_tpu_torch.train, petr_tpu_torch.utils, "
+        "petr_tpu_torch.data, petr_tpu_torch.metrics, petr_tpu_torch.metrics.submission, "
+        "petr_tpu_torch.train.evaluate, petr_tpu_torch.train.checkpoint, petr_tpu_torch.cli.test\n"
         "from petr_tpu_torch.ops import build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
