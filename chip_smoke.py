@@ -38,7 +38,9 @@ nothing of petr_tpu. Phases, each fatal on failure:
    tensor-core kernel at each of the 10 shapes of the flagship's route,
    timed at each beside cuDNN and its bound and summed over a forward's 80
    launches, the fp32 CUDA-core kernel at stages 2 and 4, both with and
-   without the BN/ReLU epilogue.
+   without the BN/ReLU epilogue. Then K1 and K2 in fp32 and bf16 and the
+   bf16 K4 at the synthetic recipes' shapes (phase 11), held and timed
+   alike (records ``*_synth``).
 4. serving: the flagship ``petr_vov_p4_800x320`` at full width with random
    weights drawn from a seed, in bf16, answering requests through
    ``InferenceServer`` (batch 2, one batch partial and padded). Launch
@@ -134,6 +136,24 @@ nothing of petr_tpu. Phases, each fatal on failure:
    streamed through ``cli.test --streaming`` (4 of 6 frames from the
    feature cache; K1 6 per frame) and each frame held to the 12-view eval
    forward and eval step of the same sample.
+11. training from the command line: synthetic scenes at 128x320 (6 scenes
+   of 4 frames, 1 held out: 20 train and 4 val samples); one synth_small
+   fp32 step with bn_mode="batch", remat on and off: the same BN running
+   statistics, one EMA of the step's batch moments; ``python -m
+   petr_tpu_torch.cli.train`` on synth_small_r50dcn (bf16) at batch 2 with
+   ``--eval-infos`` in a process of its own, sent SIGTERM after a logged
+   step of its second epoch (exit 0, a checkpoint at the step boundary),
+   then ``--resume`` (it resumes at that step and replays the epoch to its
+   end); the CLI again in this process for 3 steps: the same losses and
+   gradient norms bit for bit, K1 6, K2 3 + 3 and K4 18 launches per step
+   on their bf16 variants (K4 12 at the stride-16 shape, 6 at stride 32),
+   and synth_small for 6 steps on the fp32 variants only; both recipes'
+   steps at their batch of 4 timed on CUDA events and the host's clock
+   with the loader (busy and wait shares, one profiler pass, an eval
+   pass) and their learning runs' wall time projected; ``python -m
+   petr_tpu_torch.tools.synth_train_eval --config synth_small --steps 200
+   --bn-warmup 4 --eval-every 100 --floor 0``: its JSON line, a loss that
+   fell, BN statistics moved by the warm-up.
 ``--phases 3,8`` runs only the phases named (1 and 2 always run), prints no
 kernels record and no result line, and exits 1 either way: a failed check
 raises an AssertionError; ``--phases 3`` alone checks and times every kernel. With no
@@ -1005,6 +1025,213 @@ def check_dcn(torch, dcn, card):
     return bf16_rec, fp32_rec
 
 
+# The synthetic recipes' shapes (phase 11; petr_tpu_torch/tools/synth_train_eval.py):
+# batch 4 of 6 views at 128x320. The decoder (4 heads of 32, 64 queries)
+# attends to the stride-16 level, L = 6 x 8 x 20 keys; synth_small_r50dcn's
+# DCN convs run on 24 images at stride 16 (256 channels, 8x20) and 32 (512,
+# 4x10). synth_small computes in fp32 (the CUDA-core variants),
+# synth_small_r50dcn in bf16 (the tensor-core ones).
+SYNTH_ATTN = dict(B=4, H=4, Q=64, L=6 * 8 * 20, D=32)
+SYNTH_DCN = {"stage3": (24, 256, 8, 20, 256, 1), "stage4": (24, 512, 4, 10, 512, 1)}
+
+
+def synth_attention_inputs(torch, gen, dtype, grid=False):
+    """q/k/v at the synthetic decoder shape, as MultiheadAttention hands them
+    over (``attention_inputs``); batch row 3's last view is padded (its 160
+    keys masked), the others are not. ``grid`` as in ``attention_inputs``."""
+    B, H, Q, L, D = (SYNTH_ATTN[k] for k in "BHQLD")
+
+    def draw(n):
+        t = torch.randn(B, n, H, D, generator=gen, device="cuda")
+        if grid:
+            t = (t * 8).round().clamp(-32, 32) / 8
+        return t.to(dtype).transpose(1, 2)
+
+    q, k, v = draw(Q), draw(L), draw(L)
+    mask = torch.zeros(B, L, dtype=torch.bool, device="cuda")
+    mask[3, L - 160:] = True
+    return q, k, v, mask
+
+
+def check_synth_shapes(torch, ca, dcn, sm_clock_hz, card):
+    """K1 and K2 (fp32 and bf16) at the synthetic recipes' decoder shape,
+    with dropout 0.1 and without, and the bf16 K4 at synth_small_r50dcn's
+    two DCN shapes, each against its plain version as phase 3 holds the
+    other shapes, then timed beside SDPA and cuDNN. Returns their records
+    (launches filled from phase 11)."""
+    import torch.nn.functional as F
+
+    B, H, Q, L, D = (SYNTH_ATTN[k] for k in "BHQLD")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    log(f"phase 3: K1 and K2 at the synthetic recipes' decoder shape B={B} H={H} Q={Q} L={L} D={D}, "
+        "fp32 (synth_small) and bf16 (synth_small_r50dcn), against their plain versions")
+    errs, inputs = {}, {}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        bf16 = tag == "bf16"
+        q, k, v, m = synth_attention_inputs(torch, gen, dtype)
+        inputs[tag] = (q, k, v, m)
+        for rate in (0.0, DROPOUT):
+            seed = DROP_SEED if rate else None
+            before = (ca.LAUNCHES, ca.LAUNCHES_FP32)
+            out, lse = ca.flash_cross_attention(q, k, v, m, rate, seed)
+            torch.cuda.synchronize()
+            assert (ca.LAUNCHES, ca.LAUNCHES_FP32) == (before[0] + bf16, before[1] + (not bf16)), (
+                f"the {tag} call did not move its own launch counter alone")
+            ref, ref_lse = ca.flash_cross_attention_reference(q, k, v, m, rate, seed)
+            atol, rtol = K1_BF16_TOL if bf16 else K1_FP32_TOL
+            err = (out.float() - ref.float()).abs()
+            lse_err = (lse - ref_lse).abs().max().item()
+            log(f"  K1 {tag}, rate {rate}: out max abs err {err.max().item():.3e} (atol {atol}, rtol {rtol}), "
+                f"lse max abs err {lse_err:.3e} (tol 1e-3)")
+            assert not (err > atol + rtol * ref.float().abs()).any() and lse_err <= 1e-3, f"K1 {tag} rate {rate}"
+            errs[("K1", tag, rate)] = err.max().item()
+            if bf16:
+                qg, kg, vg, mg = synth_attention_inputs(torch, gen, dtype, grid=True)
+                got, _ = ca.flash_cross_attention(qg, kg, vg, mg, rate, seed)
+                floor, _ = ca.flash_cross_attention_reference(qg, kg, vg, mg, rate, seed, round_p=True)
+                errs[("K1 floor", rate)] = kernel_compare(torch, f"K1 bf16, rate {rate}, vs its rounding floor "
+                                                          "(inputs on a 1/8 grid)", got, floor, "bf16")
+            gout = torch.randn(B, Q, H, D, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+            delta = ca._delta(gout, ref, None)
+            before = {"bf16": (ca.DKDV_LAUNCHES, ca.DQ_LAUNCHES), "fp32": (ca.DKDV_LAUNCHES_FP32, ca.DQ_LAUNCHES_FP32)}
+            got = ca._backward_cuda(q, k, v, m, gout, ref_lse, delta, rate, DROP_SEED)
+            torch.cuda.synchronize()
+            after = {"bf16": (ca.DKDV_LAUNCHES, ca.DQ_LAUNCHES), "fp32": (ca.DKDV_LAUNCHES_FP32, ca.DQ_LAUNCHES_FP32)}
+            other = "fp32" if bf16 else "bf16"
+            assert after[tag] == (before[tag][0] + 1, before[tag][1] + 1) and after[other] == before[other], (
+                f"the {tag} backward did not launch the {tag} variants: {before} -> {after}")
+            want = ca.flash_cross_attention_backward_reference(q, k, v, m, ref, ref_lse, gout, None, rate, DROP_SEED)
+            atol, rtol = BWD_TOL[tag]
+            for g_name, g, w in zip(("dq", "dk", "dv"), got, want):
+                g, w = g.float(), w.float()
+                e = (g - w).abs()
+                log(f"  K2 {tag}, rate {rate}, {g_name}: max abs err {e.max().item():.3e} (max |ref| "
+                    f"{w.abs().max().item():.3e}; atol {atol} x max|ref|, rtol {rtol})")
+                assert not (e > atol * w.abs().max() + rtol * w.abs()).any(), f"K2 {tag} rate {rate} {g_name}"
+                errs[("K2", tag, rate, g_name)] = e.max().item()
+
+    log(f"phase 3: bf16 K4 at synth_small_r50dcn's DCN shapes against its plain versions")
+    for label, (n, cin, h, w, cout, stride) in SYNTH_DCN.items():
+        x, om, wt = dcn_inputs(torch, gen, n, cin, h, w, cout, stride, torch.bfloat16)
+        inputs[label] = (x, om, wt)
+        before = (dcn.LAUNCHES, dcn.LAUNCHES_FP32)
+        out = dcn.modulated_deform_conv(x, om, wt, stride)
+        torch.cuda.synchronize()
+        assert (dcn.LAUNCHES, dcn.LAUNCHES_FP32) == (before[0] + 1, before[1]), "K4 bf16: the wrong counter moved"
+        name = f"K4 bf16 {label} x {tuple(x.shape)} -> {cout}"
+        floor = dcn.modulated_deform_conv_reference(x, om, wt, stride, operand_dtype=torch.bfloat16)
+        errs[("K4 floor", label)] = kernel_compare(torch, f"{name} vs its rounding floor", out, floor, "bf16")
+        r = dcn.modulated_deform_conv_reference(x, om, wt, stride).float()
+        atol, rtol = OPERAND_TOL
+        e = (out.float() - r).abs()
+        log(f"  {name} vs the unrounded plain version: max abs err {e.max().item():.3e} (max |ref| "
+            f"{r.abs().max().item():.3e}; atol {atol} x max|ref|, rtol {rtol})")
+        assert not (e > atol * r.abs().max() + rtol * r.abs()).any(), f"{name}: out of OPERAND_TOL"
+        errs[("K4", label)] = e.max().item()
+
+    # timing: one call between CUDA events and the device time, beside the
+    # plain version and the library call; the bounds from this run's inputs
+    records = []
+    for tag in ("bf16", "fp32"):
+        q, k, v, m = inputs[tag]
+        peak = PEAK_BF16_FLOPS if tag == "bf16" else PEAK_FP32_FLOPS
+        e = q.element_size()
+        pairs = H * Q * int((~m).sum())
+        keep = ~m[:, None, None, :]
+        fwd = lambda: ca.flash_cross_attention(q, k, v, m, DROPOUT, DROP_SEED)  # noqa: E731 (the train path's rate)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)  # noqa: E731
+        b_ms, b_by, parts = bound_ms(pairs, 4.0 * D, e * B * H * D * (2 * Q + 2 * L) + 4 * B * H * Q + B * L,
+                                     sms, sm_clock_hz, peak)
+        rec = {
+            "name": "flash_cross_attention_fwd" + ("_fp32" if tag == "fp32" else "") + "_synth",
+            "route": "cuda",
+            "source": "petr_tpu_torch/csrc/flash_cross_attention.cu",
+            "replaces": "petr_tpu/ops/pallas/cross_attention.py:62::_kernel",
+            "launches": None,  # filled from phase 11
+            "shape": dict(SYNTH_ATTN, unmasked=int((~m).sum()), dropout=DROPOUT),
+            "max_abs_err": max(errs[("K1", tag, r)] for r in (0.0, DROPOUT)),
+            "ms": cuda_time_ms(fwd),
+            "device_ms": device_ms(torch, fwd),
+            "rate0_ms": cuda_time_ms(lambda: ca.flash_cross_attention(q, k, v, m)),
+            "plain_ms": cuda_time_ms(lambda: ca.flash_cross_attention_reference(q, k, v, m, DROPOUT, DROP_SEED),
+                                     warmup=2, iters=10),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_parts": parts,
+            "library_ms": cuda_time_ms(sdpa),  # SDPA, boolean mask, rate 0
+            "library_device_ms": device_ms(torch, sdpa),
+        }
+        if tag == "bf16":
+            rec["floor_max_abs_err"] = max(errs[("K1 floor", r)] for r in (0.0, DROPOUT))
+        records.append(rec)
+        gout = torch.randn(B, Q, H, D, generator=gen, device="cuda").to(q.dtype).transpose(1, 2)
+        out, lse = ca.flash_cross_attention(q, k, v, m, DROPOUT, DROP_SEED)
+        args = (q, k, v, m, gout, lse, ca._delta(gout, out, None))
+        plain_ms = cuda_time_ms(lambda: ca.flash_cross_attention_backward_reference(
+            q, k, v, m, out, lse, gout, None, DROPOUT, DROP_SEED), warmup=2, iters=10)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep)
+
+        def sdpa_backward():
+            torch.autograd.grad(sdpa_out, (qs, ks, vs), gout, retain_graph=True)
+        lib_ms, lib_dev = cuda_time_ms(sdpa_backward), device_ms(torch, sdpa_backward)
+        extra = 8 * B * H * Q + B * L  # lse, delta and mask bytes
+        for which, flops, nbytes, grads in (
+                ("dkdv", 8.0 * D, e * B * H * D * (2 * Q + 4 * L) + extra, ("dk", "dv")),
+                ("dq", 6.0 * D, e * B * H * D * (3 * Q + 2 * L) + extra, ("dq",))):
+            def call(which=which):
+                ca._backward_cuda(*args, DROPOUT, DROP_SEED, kernels=(which,))
+            b_ms, b_by, parts = bound_ms(pairs, flops, nbytes, sms, sm_clock_hz, peak)
+            records.append({
+                "name": f"flash_cross_attention_bwd_{which}" + ("_fp32" if tag == "fp32" else "") + "_synth",
+                "route": "cuda",
+                "source": "petr_tpu_torch/csrc/flash_cross_attention_bwd.cu",
+                "replaces": "petr_tpu/ops/pallas/cross_attention.py:198::_bwd_kernel",
+                "launches": None,  # filled from phase 11
+                "shape": dict(SYNTH_ATTN, unmasked=int((~m).sum()), dropout=DROPOUT),
+                "max_abs_err": max(errs[("K2", tag, r, g)] for r in (0.0, DROPOUT) for g in grads),
+                "ms": cuda_time_ms(call),
+                "device_ms": device_ms(torch, call),
+                "plain_ms": plain_ms,  # the whole plain backward (dq, dk and dv)
+                "bound_ms": b_ms, "bound_by": b_by, "bound_parts": parts,
+                "library_ms": lib_ms,  # SDPA's whole backward, rate 0
+                "library_device_ms": lib_dev,
+            })
+    for label, (n, cin, h, w, cout, stride) in SYNTH_DCN.items():
+        x, om, wt = inputs[label]
+        wb = wt.to(torch.bfloat16)
+        P = h * w
+        flops = 2.0 * n * P * cout * 9 * cin
+        nbytes = 2 * n * cin * h * w + 4 * n * 27 * P + 4 * cout * cin * 9 + 2 * n * cout * P
+        b_ms, b_by, parts = roofline(flops, nbytes)
+        call = lambda: dcn.modulated_deform_conv(x, om, wt)  # noqa: E731
+        dense = lambda: F.conv2d(x, wb, padding=1)  # noqa: E731
+        records.append({
+            "name": f"deform_conv_fwd_synth_{label}",
+            "route": "cuda",
+            "source": "petr_tpu_torch/csrc/deform_conv.cu",
+            "replaces": "petr_tpu/ops/pallas/dcn.py:134::_dcn_pallas_raw",
+            "launches": None,  # filled from phase 11
+            "shape": {"x": [n, cin, h, w], "cout": cout},
+            "max_abs_err": errs[("K4", label)],
+            "floor_max_abs_err": errs[("K4 floor", label)],
+            "ms": cuda_time_ms(call),
+            "device_ms": device_ms(torch, call),
+            "plain_ms": cuda_time_ms(lambda: dcn.modulated_deform_conv_reference(x, om, wt), warmup=2, iters=10),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_parts": parts,
+            "library_ms": None,  # no PyTorch call computes DCNv2
+            "dense_conv_ms": cuda_time_ms(dense),  # cuDNN's dense 3x3 conv at the shape: a floor, not DCNv2
+            "dense_conv_device_ms": device_ms(torch, dense),
+        })
+    for rec in records:
+        log(f"  timing {rec['name']}: ms {rec['ms']:.4f} (device {rec['device_ms']:.4f}), plain_ms "
+            f"{rec['plain_ms']:.4f}, library_ms {rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 4)}"
+            + (f" (device {rec['library_device_ms']:.4f})" if "library_device_ms" in rec else "")
+            + (f", dense conv {rec['dense_conv_ms']:.4f} (device {rec['dense_conv_device_ms']:.4f})"
+               if "dense_conv_ms" in rec else "")
+            + f", bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']}) [{card}]")
+    return records
+
+
 # K5's shapes on the flagship's route: 6 views; (Cin, H, W, Co) and the
 # launches per forward (petr_tpu_torch/models/vovnet.py: V-99-eSE's OSA blocks,
 # whose first conv takes the block's input and the four others its own width).
@@ -1559,7 +1786,7 @@ def make_train_batch(cfg, seed, valid_gt=40):
 
 
 def compare_steps(torch, name, a, b, loss_rtol, grad_rtol, floor=None):
-    """Two grad_fn results (total, losses, grads, assignment): the assignment
+    """Two grad_fn results (total, losses, grads, assignment, BN moments): the assignment
     equal, the loss and every gradient within the stated tolerances. With
     ``floor`` (the per-parameter errors of a step whose input was nudged by
     one ulp, from an earlier call) the worst gradient may differ by up to
@@ -1567,7 +1794,7 @@ def compare_steps(torch, name, a, b, loss_rtol, grad_rtol, floor=None):
     ``grad_rtol``. Returns each parameter's error."""
     import numpy as np
 
-    (ta, _, ga, ia), (tb, _, gb, ib) = a, b
+    (ta, _, ga, ia, _), (tb, _, gb, ib, _) = a, b
     assert np.array_equal(ia, ib), f"{name}: the assignments differ at {int((ia != ib).sum())} of {ia.size} GTs"
     loss_err = abs(ta.item() - tb.item()) / abs(tb.item())
     top = max(g.abs().max().item() for g in gb.values())
@@ -2896,7 +3123,324 @@ def check_eval(torch, ca, card):
     return launches["K1"] // len(val), stream_launches["K1"] // n_frames, times
 
 
-ALL_PHASES = {3, 4, 5, 6, 7, 8, 9, 10}
+# Phase 11: training from the command line on synthetic scenes rendered by
+# the port at the recipes' 128x320, seed SEED: 6 scenes of 4 frames, 6
+# objects each, 1 held out (20 train and 4 val samples). The learning runs
+# themselves (4,000 and 8,000 steps) are single commands of their own
+# (PERF.md §6); this phase drives their entry points briefly and projects
+# their wall time.
+SYNTH_SCENES = dict(n_scenes=6, frames_per_scene=4, n_objects=6, val_scenes=1, seed=SEED)
+SYNTH_HW = (128, 320)
+SYNTH_VOV, SYNTH_R50 = "synth_small", "synth_small_r50dcn"
+# the learning runs' steps, held-out val samples and intermediate evals
+RECIPES = {SYNTH_VOV: dict(steps=4000, val_samples=24, evals=1),
+           SYNTH_R50: dict(steps=8000, val_samples=24, evals=4)}
+# phase 11's CLI runs: batch 2, so an epoch of the 20 train samples is 10 steps
+CLI_BATCH = 2
+
+
+def read_log(work):
+    """``<work>/train_log.jsonl`` -> its records."""
+    with open(f"{work}/train_log.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def check_batch_bn_remat(torch, cfg, batch):
+    """One fp32 step of ``cfg`` with bn_mode="batch" from the same weights,
+    remat on and off: the BN running statistics after it must be equal,
+    and equal to one EMA of the step's batch moments (a BN that updated its
+    statistics in the forward would fold them in again when a checkpointed
+    block is recomputed)."""
+    import dataclasses
+
+    from petr_tpu_torch.train import create_train_state, make_grad_fn, make_train_step, step_generator
+
+    bb = dataclasses.replace(cfg.model.backbone, bn_mode="batch")
+    buffers = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone=bb, remat=remat))
+        state = create_train_state(c, SEED, 100, "cuda")
+        make_train_step(c)(state, batch, step_generator(SEED, 0))
+        buffers[remat] = dict(state.model.named_buffers())
+    fresh = create_train_state(c, SEED, 100, "cuda")
+    initial = {k: v.clone() for k, v in fresh.model.named_buffers()}
+    moments = make_grad_fn(c)(fresh.model, batch, step_generator(SEED, 0))[4]
+    m = bb.bn_momentum
+    worst = {"remat": 0.0, "once": 0.0}
+    for key, moment in moments.items():
+        once = (1 - m) * initial[key] + m * moment
+        worst["remat"] = max(worst["remat"], (buffers[True][key] - buffers[False][key]).abs().max().item())
+        worst["once"] = max(worst["once"], ((buffers[True][key] - once).abs() / once.abs().clamp_min(1e-6)).max().item())
+    log(f"  batch BN, {len(moments) // 2} layers: remat on vs off, max abs difference of the running "
+        f"statistics {worst['remat']:.3e} (must be 0); against one EMA of the step's moments, max relative "
+        f"error {worst['once']:.3e} (tol 1e-5)")
+    assert worst["remat"] == 0.0, "batch BN: remat on and off give other running statistics"
+    assert worst["once"] <= 1e-5, "batch BN: the running statistics are not one EMA of the batch moments"
+
+
+def time_recipe(torch, name, train, val, card):
+    """The harness's config of ``name`` at its batch of 4 on the rendered
+    train samples: 3 epochs of 5 steps through the loader as the harness
+    runs them (the first 3 steps not timed), each step between CUDA events;
+    the loader's wait share; one profiler pass; an eval pass; the
+    projected wall time of the learning run."""
+    from petr_tpu_torch.data import Loader, NuScenesDataset
+    from petr_tpu_torch.data.synthetic import SYNTH_CLASSES
+    from petr_tpu_torch.tools.synth_train_eval import recipe_config
+    from petr_tpu_torch.train import create_train_state, make_train_step, step_generator
+    from petr_tpu_torch.train.evaluate import evaluate_model
+
+    cfg = recipe_config(name, SYNTH_HW)
+    loader = Loader(NuScenesDataset(train, cfg.data, training=True, src_hw=SYNTH_HW), 4, seed=SEED)
+    state = create_train_state(cfg, SEED, RECIPES[name]["steps"], "cuda")
+    step = make_train_step(cfg)
+    events, waits, walls = [], [], []
+    n = 0
+    for epoch in range(3):
+        batches = iter(loader.epoch(epoch))
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            t1 = time.perf_counter()
+            if batch is None:
+                break
+            batch.pop("tokens")
+            last = batch
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = step(state, batch, step_generator(SEED + 1, state.step))
+            end.record()
+            float(metrics["loss"])
+            t2 = time.perf_counter()
+            n += 1
+            if n > 3:
+                events.append((start, end))
+                waits.append(t1 - t0)
+                walls.append(t2 - t0)
+    torch.cuda.synchronize()
+    event_ms = statistics.median(s.elapsed_time(e) for s, e in events)
+    wall_s = sum(walls) / len(walls)
+    rows, _ = profiled_kernels(torch, lambda: step(state, last, step_generator(SEED + 1, state.step)), 3)
+    dev_ms = sum(r[0] for r in rows)
+    state.model.eval()
+    t0 = time.perf_counter()
+    ds_val = NuScenesDataset(val, cfg.data, training=False, src_hw=SYNTH_HW)
+    evaluate_model(cfg, state.model, ds_val, batch_size=4, classes=SYNTH_CLASSES)
+    eval_s_per_sample = (time.perf_counter() - t0) / len(val)
+    recipe = RECIPES[name]
+    projected = (recipe["steps"] * wall_s + recipe["evals"] * recipe["val_samples"] * eval_s_per_sample)
+    t = {"step_event_ms": event_ms, "step_device_ms": dev_ms, "step_wall_ms": wall_s * 1e3,
+         "busy_share": dev_ms / (wall_s * 1e3), "loader_wait_share": sum(waits) / sum(walls),
+         "steps_per_s": 1.0 / wall_s, "eval_s_per_sample": eval_s_per_sample,
+         "timed_steps": len(walls), f"projected_{recipe['steps']}_step_wall_s": projected}
+    log(f"  {name} ({cfg.model.compute_dtype}, batch 4, {len(walls)} steps timed): step {event_ms:.2f} ms on "
+        f"CUDA events, {dev_ms:.3f} ms of device time (one profiler pass, {sum(r[1] for r in rows)} launches), "
+        f"{wall_s * 1e3:.2f} ms on the host's clock with the loader, busy {100 * t['busy_share']:.1f}%, "
+        f"the loader's wait {100 * t['loader_wait_share']:.1f}%, {t['steps_per_s']:.2f} steps/s; an eval pass "
+        f"{eval_s_per_sample * 1e3:.1f} ms per sample; projected wall time of the {recipe['steps']}-step run "
+        f"({recipe['evals']} held-out evals of {recipe['val_samples']} samples): {projected:.0f} s [{card}]")
+    log(f"    top kernels per step: " + "; ".join(f"{r[2][:60]} {r[0]:.3f} ms x{r[1]}" for r in rows[:6]))
+    del state
+    torch.cuda.empty_cache()
+    return t
+
+
+def check_learning(torch, ca, dcn, card):
+    """Phase 11: training from the command line. Renders the synthetic set;
+    holds batch BN's running statistics to one EMA with remat on and off;
+    runs ``python -m petr_tpu_torch.cli.train`` on synth_small_r50dcn
+    (bf16) in a process of its own with ``--eval-infos``, sends it SIGTERM
+    after a logged step of its second epoch (exit 0 and a checkpoint at
+    the step boundary), resumes it with ``--resume`` to that epoch's end;
+    runs it again here for 3 steps, which must log the same losses and
+    gradient norms bit for bit, counting K1, K2 and K4 launches per step
+    (bf16 variants only), and synth_small (fp32 variants only); times both
+    recipes; runs ``python -m petr_tpu_torch.tools.synth_train_eval`` for
+    200 steps with the BN warm-up."""
+    import os
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from petr_tpu_torch.cli import train as cli_train
+    from petr_tpu_torch.data import Loader, NuScenesDataset, generate_synthetic_scenes
+    from petr_tpu_torch.models import resnet
+    from petr_tpu_torch.tools.synth_train_eval import recipe_config
+    from petr_tpu_torch.train.checkpoint import latest_checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        splits = generate_synthetic_scenes(f"{tmp}/synth", image_hw=SYNTH_HW, **SYNTH_SCENES)
+        times["render_s"] = time.perf_counter() - t0
+        train, val = splits["train"], splits["val"]
+        spe = len(train) // CLI_BATCH
+        log(f"phase 11: rendered {SYNTH_SCENES['n_scenes']} scenes of {SYNTH_SCENES['frames_per_scene']} frames "
+            f"at {SYNTH_HW[0]}x{SYNTH_HW[1]} (seed {SEED}, {SYNTH_SCENES['val_scenes']} held out): {len(train)} "
+            f"train and {len(val)} val samples in {times['render_s']:.1f} s")
+        assert len(train) == 20 and len(val) == 4, (len(train), len(val))
+
+        log("phase 11: batch-moments BN (bn_mode=batch), one synth_small fp32 step with remat on and off")
+        cfg = recipe_config(SYNTH_VOV, SYNTH_HW)
+        batch = next(iter(Loader(NuScenesDataset(train, cfg.data, training=True, src_hw=SYNTH_HW), 4,
+                                 seed=SEED).epoch(0)))
+        batch.pop("tokens")
+        check_batch_bn_remat(torch, cfg, batch)
+
+        def train_args(work, config, *extra):
+            return ["--config", config, "--infos", f"{tmp}/synth/synth_infos_train.pkl", "--work-dir", work,
+                    "--batch-size", str(CLI_BATCH), "--epochs", "2", "--log-every", "1", "--seed", str(SEED),
+                    *extra]
+
+        work = f"{tmp}/run"
+        args = train_args(work, SYNTH_R50, "--eval-infos", f"{tmp}/synth/synth_infos_val.pkl")
+        log(f"phase 11: python -m petr_tpu_torch.cli.train {' '.join(args)}, SIGTERM once step {spe + 2} "
+            f"(of {2 * spe}) is logged")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "petr_tpu_torch.cli.train", *args], cwd=root,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        lines = []
+        try:
+            for line in proc.stdout:
+                lines.append(line)
+                if line.startswith('{"epoch"') and json.loads(line).get("step", 0) >= spe + 2:
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            out, err = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        lines.append(out)
+        times["preempted_run_s"] = time.perf_counter() - t0
+        for line in "".join(lines).splitlines():
+            if not line.startswith('{"config"'):
+                log(f"    | {line[:240]}")
+        assert proc.returncode == 0, f"cli.train exited {proc.returncode} on SIGTERM:\n{err[-4000:]}"
+        logged = read_log(work)
+        stopped = max(r["step"] for r in logged if "loss" in r)
+        assert f"checkpoint saved at step {stopped}; exiting on signal {int(signal.SIGTERM)}" in "".join(lines)
+        assert spe < stopped < 2 * spe, stopped
+        assert latest_checkpoint(f"{work}/ckpts").endswith(f"step_{stopped:08d}")
+        val_first = [r for r in logged if "val/mAP" in r]
+        assert len(val_first) == 1 and val_first[0]["step"] == spe
+        log(f"  exit 0 after SIGTERM, checkpoint at step {stopped}, in {times['preempted_run_s']:.1f} s; the "
+            f"first epoch's eval: mAP {val_first[0]['val/mAP']}, NDS {val_first[0]['val/NDS']}")
+
+        log(f"phase 11: the same command with --resume, to the end of the interrupted epoch")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "petr_tpu_torch.cli.train", *args, "--resume"], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        times["resumed_run_s"] = time.perf_counter() - t0
+        assert proc.returncode == 0, f"cli.train --resume exited {proc.returncode}:\n{proc.stderr[-4000:]}"
+        resumed_line = [line for line in proc.stdout.splitlines() if line.startswith("resumed from")]
+        log(f"    | {resumed_line[0] if resumed_line else 'no resumed-from line'}")
+        assert resumed_line == [f"resumed from {work}/ckpts/step_{stopped:08d} at step {stopped}"], resumed_line
+        logged = read_log(work)
+        steps = [r["step"] for r in logged if "loss" in r]
+        resumed = steps[steps.index(stopped) + 1:]
+        # petr_tpu's semantics: the interrupted epoch is replayed from its start, the step count going on
+        assert resumed == list(range(stopped + 1, stopped + 1 + spe)), resumed
+        assert latest_checkpoint(f"{work}/ckpts").endswith(f"step_{stopped + spe:08d}")
+        val_last = [r for r in logged if "val/mAP" in r][-1]
+        assert val_last["step"] == stopped + spe and all(np.isfinite(v) for v in val_last.values())
+        losses = [r["loss"] for r in logged if "loss" in r]
+        assert all(np.isfinite(losses)), losses
+        log(f"  resumed at step {stopped}, steps {resumed[0]}-{resumed[-1]} logged, checkpoint at step "
+            f"{stopped + spe}, in {times['resumed_run_s']:.1f} s; loss {losses[0]:.4f} at step 1, "
+            f"{losses[-1]:.4f} at step {resumed[-1]}; eval: mAP {val_last['val/mAP']}, NDS {val_last['val/NDS']}")
+        times["cli_r50_steps_per_s"] = 1.0 / statistics.median(
+            r["time_per_iter"] for r in logged if "loss" in r and 1 < r["step"] <= stopped)
+
+        log("phase 11: cli.train again in this process, 3 steps: the same losses bit for bit; launches per step")
+        shapes = []
+        kept = resnet.modulated_deform_conv
+
+        def recording(x, *a, **k):  # which DCN shape each launch takes
+            shapes.append(tuple(x.shape))
+            return kept(x, *a, **k)
+
+        counters = ("LAUNCHES", "LAUNCHES_FP32", "DKDV_LAUNCHES", "DQ_LAUNCHES", "DKDV_LAUNCHES_FP32",
+                    "DQ_LAUNCHES_FP32")
+        launches = {}
+        for name, n_steps in ((SYNTH_R50, 3), (SYNTH_VOV, 6)):
+            rerun = f"{tmp}/rerun_{name}"
+            resnet.modulated_deform_conv = recording
+            for c in counters:
+                setattr(ca, c, 0)
+            dcn.LAUNCHES = dcn.LAUNCHES_FP32 = 0
+            try:
+                with torch_defaults(torch):  # as in a process of its own
+                    cli_train.main(train_args(rerun, name, "--max-steps", str(n_steps)))
+            finally:
+                resnet.modulated_deform_conv = kept
+            got = {c: getattr(ca, c) // n_steps for c in counters}
+            got |= {"K4": dcn.LAUNCHES // n_steps, "K4_FP32": dcn.LAUNCHES_FP32 // n_steps}
+            launches[name] = got
+            log(f"  {name}: per step {json.dumps(got)}; DCN input shapes {sorted(set(shapes))}")
+            again = read_log(rerun)
+            if name == SYNTH_R50:
+                first = {r["step"]: (r["loss"], r["grad_norm"]) for r in read_log(work) if "loss" in r}
+                for r in again:
+                    assert (r["loss"], r["grad_norm"]) == first[r["step"]], (
+                        f"step {r['step']}: loss and grad_norm {r['loss']!r}, {r['grad_norm']!r} here, "
+                        f"{first[r['step']]} in the first run")
+                log(f"  steps 1-3 here and in the first run: the same loss and grad_norm bit for bit "
+                    f"({', '.join(repr(r['loss']) for r in again)})")
+                assert got == {"LAUNCHES": 6, "LAUNCHES_FP32": 0, "DKDV_LAUNCHES": 3, "DQ_LAUNCHES": 3,
+                               "DKDV_LAUNCHES_FP32": 0, "DQ_LAUNCHES_FP32": 0, "K4": 18, "K4_FP32": 0}, got
+                per_shape = {s: shapes.count(s) // n_steps for s in set(shapes)}
+                launches["K4_by_shape"] = per_shape
+                assert sorted(per_shape.values()) == [6, 12], per_shape
+            else:
+                assert got == {"LAUNCHES": 0, "LAUNCHES_FP32": 6, "DKDV_LAUNCHES": 0, "DQ_LAUNCHES": 0,
+                               "DKDV_LAUNCHES_FP32": 3, "DQ_LAUNCHES_FP32": 3, "K4": 0, "K4_FP32": 0}, got
+                times["cli_vov_steps_per_s"] = 1.0 / statistics.median(
+                    r["time_per_iter"] for r in again if r["step"] > 1)
+            shapes.clear()
+        log(f"  the CLI at batch {CLI_BATCH}: {times['cli_r50_steps_per_s']:.2f} steps/s ({SYNTH_R50}), "
+            f"{times['cli_vov_steps_per_s']:.2f} steps/s ({SYNTH_VOV}) [{card}]")
+
+        log("phase 11: the learning recipes' step, timed at their batch of 4 (TF32 and cuDNN flags at torch's "
+            "defaults, as in the runs' own processes)")
+        for name in (SYNTH_VOV, SYNTH_R50):
+            with torch_defaults(torch):
+                times[name] = time_recipe(torch, name, train, val, card)
+
+        args = ["--config", SYNTH_VOV, "--steps", "200", "--bn-warmup", "4", "--eval-every", "100", "--floor", "0",
+                "--scenes", str(SYNTH_SCENES["n_scenes"]), "--val-scenes", str(SYNTH_SCENES["val_scenes"]),
+                "--out-dir", f"{tmp}/harness", "--save-ckpt", f"{tmp}/harness_ckpt"]
+        log(f"phase 11: python -m petr_tpu_torch.tools.synth_train_eval {' '.join(args)}")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "petr_tpu_torch.tools.synth_train_eval", *args], cwd=root,
+                              capture_output=True, text=True, timeout=900)
+        times["harness_s"] = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"    | {line}")
+        assert proc.returncode == 0, f"synth_train_eval exited {proc.returncode}:\n{proc.stderr[-4000:]}"
+        rec = json.loads([line for line in proc.stdout.splitlines() if line.startswith('{"steps"')][-1])
+        metric_keys = {"mAP", "NDS", "mATE", "mASE", "mAOE", "mAVE", "mAAE", "AP_car", "AP_bus", "AP_pedestrian"}
+        assert set(rec) == {"steps", "train_loss_first", "train_loss_last", "wall_s"} | {
+            f"val/{k}" for k in metric_keys}, sorted(rec)
+        assert all(np.isfinite(v) for v in rec.values()), rec
+        assert rec["train_loss_last"] < rec["train_loss_first"], rec
+        assert "bn-warmup: estimated BN stats from 4 batches" in proc.stdout
+        state = torch.load(f"{latest_checkpoint(f'{tmp}/harness_ckpt')}/state.pt", map_location="cpu",
+                           weights_only=True)["model"]
+        stats = {k: v for k, v in state.items() if k.endswith(("running_mean", "running_var"))}
+        unchanged = [k for k, v in stats.items()
+                     if torch.equal(v, torch.zeros_like(v) if k.endswith("mean") else torch.ones_like(v))]
+        log(f"  exit 0 in {times['harness_s']:.1f} s; loss {rec['train_loss_first']} -> {rec['train_loss_last']}; "
+            f"{len(stats) - len(unchanged)} of {len(stats)} BN statistics moved off 0 / 1 by the warm-up "
+            f"(frozen BN keeps them through training)")
+        assert not unchanged, unchanged[:3]
+    times["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 11: {times['phase_s']:.1f} s [{card}]")
+    return launches, times
+
+
+ALL_PHASES = {3, 4, 5, 6, 7, 8, 9, 10, 11}
 
 
 def training_phase(torch, fn, *args):
@@ -2971,7 +3515,8 @@ def main() -> int:
         k2 = check_flash_backward(torch, ca, sm_clock_hz, card)
         k4, k4_fp32 = check_dcn(torch, dcn, card)
         k5, k5_fp32 = check_conv3x3(torch, conv, card)
-        records = [k1, k1_fp32, k1_v2, *k2, k4, k4_fp32, k5, k5_fp32]
+        synth = {r["name"]: r for r in check_synth_shapes(torch, ca, dcn, sm_clock_hz, card)}
+        records = [k1, k1_fp32, k1_v2, *k2, k4, k4_fp32, k5, k5_fp32, *synth.values()]
     if 4 in phases:
         k1_launches, k5_launches, k5_fp32_launches, k5_times = check_serving(torch, ca, conv, card)
         if records:
@@ -3021,6 +3566,23 @@ def main() -> int:
             k1["launches_eval"] = eval_per_batch
             k1["eval"] = eval_times
             k1_v2["launches_stream_eval"] = stream_per_frame
+
+    if 11 in phases:
+        learn, learn_times = training_phase(torch, check_learning, torch, ca, dcn, card)
+        if records:
+            per_step = {SYNTH_R50: ("LAUNCHES", "DKDV_LAUNCHES", "DQ_LAUNCHES"),
+                        SYNTH_VOV: ("LAUNCHES_FP32", "DKDV_LAUNCHES_FP32", "DQ_LAUNCHES_FP32")}
+            for preset, suffix in ((SYNTH_R50, ""), (SYNTH_VOV, "_fp32")):
+                for counter, name in zip(per_step[preset], ("flash_cross_attention_fwd", "flash_cross_attention_bwd_dkdv",
+                                                            "flash_cross_attention_bwd_dq")):
+                    synth[f"{name}{suffix}_synth"]["launches"] = learn[preset][counter]
+                    synth[f"{name}{suffix}_synth"]["launches_note"] = f"per {preset} train step (cli.train)"
+            by_channels = {shape[1]: n for shape, n in learn["K4_by_shape"].items()}
+            for label, (_, cin, *_rest) in SYNTH_DCN.items():
+                synth[f"deform_conv_fwd_synth_{label}"]["launches"] = by_channels[cin]
+                synth[f"deform_conv_fwd_synth_{label}"]["launches_note"] = (
+                    f"per {SYNTH_R50} train step (cli.train), forward and remat recompute")
+            synth["flash_cross_attention_fwd_synth"]["learning"] = learn_times
 
     if phases != ALL_PHASES:
         log(f"only phases {sorted(phases)} ran: no kernels record and no result line")

@@ -40,6 +40,7 @@ from petr_tpu_torch.models.grid_mask import GridParams, draw_grid_params, grid_m
 from petr_tpu_torch.models.layers import (
     AttentionProjections,
     Conv2d,
+    FFN,
     FrozenBatchNorm,
     LayerNorm,
     Linear,
@@ -83,11 +84,8 @@ def _unsupported(cfg: ModelConfig) -> str:
     """The ROADMAP.md item that ports what ``cfg`` needs, or '' if supported."""
     if cfg.backbone.quant != "none":
         return f"backbone.quant={cfg.backbone.quant!r}: ROADMAP.md §1, item 11 (quant/ptq.py)"
-    if cfg.backbone.bn_mode != "frozen":
-        return (
-            f"bn_mode={cfg.backbone.bn_mode!r} (training BN): ROADMAP.md §1, item 6 "
-            "(what stays out of it); eval_model_config() gives the frozen-BN serving config"
-        )
+    if cfg.backbone.bn_mode not in ("frozen", "batch"):
+        raise ValueError(f"bn_mode must be frozen|batch, got {cfg.backbone.bn_mode!r}")
     return ""
 
 
@@ -97,9 +95,10 @@ def _backbone(cfg: ModelConfig) -> Tuple[nn.Module, Tuple[int, ...]]:
     remat = cfg.remat and _remat_scope(cfg) in ("all", "backbone")
     if bb.kind == "vovnet":
         stage_out = SPECS[bb.spec]["stage_out_ch"]
-        return VoVNet(bb.spec, bb.out_indices, remat=remat), tuple(stage_out[i] for i in bb.out_indices)
+        return (VoVNet(bb.spec, bb.out_indices, remat=remat, bn_mode=bb.bn_mode),
+                tuple(stage_out[i] for i in bb.out_indices))
     if bb.kind == "resnet":
-        model = ResNet(int(bb.spec[1:]), bb.out_indices, bb.dcn_stages, remat=remat)
+        model = ResNet(int(bb.spec[1:]), bb.out_indices, bb.dcn_stages, remat=remat, bn_mode=bb.bn_mode)
         return model, tuple(STAGE_OUT[i] for i in bb.out_indices)
     raise ValueError(f"backbone kind must be vovnet or resnet, got {bb.kind!r}")
 
@@ -216,13 +215,27 @@ class PETRDetector(nn.Module):
 
 
 @torch.no_grad()
-def init_weights(model: nn.Module, seed: int) -> nn.Module:
+def init_weights(model: nn.Module, seed: int, petr_tpu_scales: bool = False) -> nn.Module:
     """Re-draw every parameter of ``model`` from ``seed`` (random weights for
     runs without a checkpoint), with one torch.Generator in module order.
 
-    Convs: He-uniform (variance 2 / fan_in, keeping activations at scale
-    through the deep ReLU backbone); linears and all biases: torch's
-    U(+-1/sqrt(fan_in)); norms: identity; reference points: U(0, 1); the
+    Convs: He-uniform (variance 2 / fan_in), which keeps a random model's
+    activations at scale through the deep ReLU backbones; the serving
+    paths' random weights (``serve.build_detector``) and the parity tests
+    are drawn so. With ``petr_tpu_scales`` (``train.create_train_state``)
+    each parameter is drawn at the scale petr_tpu's ``model.init`` draws
+    it, so that a run from random weights starts where petr_tpu's does:
+    convs (flax's ``nn.Conv`` default) variance 1 / fan_in and a zero bias,
+    the DCN convs' weight He's (`resnet.py:55`), the decoder's attention
+    output projections and FFN linears Xavier-uniform with a zero bias.
+    Under frozen BN at its identity statistics nothing renormalises a
+    backbone, so the scale carries: He's variance on every conv made the
+    r50dcn features far larger than petr_tpu's, and a bf16 synth_small_r50dcn run's
+    gradient norm overflowed by step 900.
+
+    Either way: linears, the head's pointwise convs and their biases
+    otherwise torch's U(+-1/sqrt(fan_in)) (petr_tpu's
+    ``torch_kernel_init``); norms: identity; reference points: U(0, 1); the
     final cls bias: the focal prior; DCN offset convs: zeros, as in mmcv and
     petr_tpu (`resnet.py:52`); Depthr's depth embedding: N(0, 1), as
     petr_tpu's (`depth_encoder.py:157-162`). BN running statistics stay 0 /
@@ -234,9 +247,19 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     def uniform_(t: torch.Tensor, bound: float) -> None:
         t.copy_(torch.rand(t.shape, generator=gen) * (2 * bound) - bound)
 
+    def xavier_(linear: Linear) -> None:
+        uniform_(linear.weight, (6.0 / sum(linear.weight.shape)) ** 0.5)
+        linear.bias.zero_()
+
     for module in model.modules():
         if isinstance(module, (Conv2d, Linear, PointwiseConv2d)):
             fan_in = module.weight[0].numel()
+            if isinstance(module, Conv2d) and petr_tpu_scales:
+                gain = 2.0 if isinstance(module, ModulatedDeformConv2dPack) else 1.0
+                uniform_(module.weight, (3.0 * gain / fan_in) ** 0.5)
+                if module.bias is not None:
+                    module.bias.zero_()
+                continue
             if isinstance(module, Conv2d):
                 uniform_(module.weight, (6.0 / fan_in) ** 0.5)
             else:
@@ -257,6 +280,11 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             fan = module.in_proj_weight.shape[1] + module.in_proj_weight.shape[0]
             uniform_(module.in_proj_weight, (6.0 / fan) ** 0.5)
             module.in_proj_bias.zero_()
+            if petr_tpu_scales:
+                xavier_(module.out_proj)
+        elif isinstance(module, FFN) and petr_tpu_scales:
+            xavier_(module.layers[0][0])
+            xavier_(module.layers[1])
         elif isinstance(module, ModulatedDeformConv2dPack):
             module.conv_offset.weight.zero_()
             module.conv_offset.bias.zero_()

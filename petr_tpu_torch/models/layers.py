@@ -12,9 +12,13 @@ Conventions:
     (`img_backbone.*`, `img_neck.*`, `pts_bbox_head.*`), so that a port
     ``state_dict`` maps onto a petr_tpu param tree through
     `petr_tpu/utils/torch_convert.py` and a released checkpoint loads as is.
-  * BN is always frozen: the reference trains and evaluates every shipped
-    config with BN in eval mode, so it is one affine map per channel whose
-    weight and bias may train while its running statistics stay buffers.
+  * BN is frozen by default: the reference trains and evaluates every
+    shipped config with BN in eval mode, so it is one affine map per
+    channel whose weight and bias may train while its running statistics
+    stay buffers. ``bn_mode="batch"`` (from-scratch training) normalises
+    with the batch's moments in train mode and hands them out through
+    ``collect_batch_moments``; the train step folds them into the running
+    statistics, never the layer itself.
   * dropout follows ``self.training``: a layer in train mode with a rate
     above 0 drops, and takes its random bits from a ``torch.Generator`` (or,
     for the flash attention, an int seed) that its caller passes in. The
@@ -24,9 +28,11 @@ Conventions:
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from collections import OrderedDict
-from typing import Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -91,17 +97,53 @@ class LayerNorm(nn.LayerNorm):
         ).to(x.dtype)
 
 
+Moments = Dict[nn.Module, Tuple[torch.Tensor, torch.Tensor]]
+_LOCAL = threading.local()  # each thread's stack of open collect_batch_moments blocks
+
+
+def _moment_sinks() -> List[Moments]:
+    if not hasattr(_LOCAL, "sinks"):
+        _LOCAL.sinks = []
+    return _LOCAL.sinks
+
+
+@contextlib.contextmanager
+def collect_batch_moments() -> Iterator[Moments]:
+    """Collect the batch moments of every batch-mode ``FrozenBatchNorm``
+    that runs inside the block: yields a dict module -> (mean, Bessel-
+    corrected variance), detached fp32 (C,) tensors, from this thread's
+    forwards. A module keeps its first forward's moments, so a
+    checkpointed region that is recomputed in the backward adds nothing.
+    petr_tpu's "batch_stats" collection."""
+    sink: Moments = {}
+    sinks = _moment_sinks()
+    sinks.append(sink)
+    try:
+        yield sink
+    finally:
+        sinks.remove(sink)
+
+
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with frozen running statistics, folded to one mul/add.
 
     Holds ``weight``/``bias`` and the ``running_mean``/``running_var``
     buffers of nn.BatchNorm2d, so a reference checkpoint loads as is (its
     ``num_batches_tracked`` is dropped).
+
+    With ``use_batch_stats`` (``bn_mode="batch"``) a module in train mode
+    normalises with the current batch's biased moments over (B, H, W) in
+    fp32, and hands the mean and the unbiased variance (torch's
+    ``running_var`` semantics) to the innermost ``collect_batch_moments``
+    block; its buffers stay as they are (petr_tpu `layers.py:94-123`). In
+    eval mode it reads the running statistics, as petr_tpu's
+    ``eval_model_config`` does.
     """
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5, use_batch_stats: bool = False):
         super().__init__()
         self.eps = eps
+        self.use_batch_stats = use_batch_stats
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -111,14 +153,28 @@ class FrozenBatchNorm(nn.Module):
         state_dict.pop(prefix + "num_batches_tracked", None)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
+    def batch_moments(self) -> bool:
+        """Whether this forward normalises with the batch's moments."""
+        return self.use_batch_stats and self.training
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, C, H, W)
-        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
-        add = self.bias - self.running_mean * mul
+        if self.batch_moments():
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.var(dim=(0, 2, 3), unbiased=False)
+            sinks = _moment_sinks()
+            if sinks:
+                n = x.numel() // x.shape[1]
+                sinks[-1].setdefault(self, (mean.detach(), (var * (n / max(n - 1, 1))).detach()))
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        add = self.bias - mean * mul
         return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]
 
 
 class ConvBNReLU(nn.Sequential):
-    """conv (no bias) + frozen BN + optional ReLU, the backbone workhorse.
+    """conv (no bias) + BN + optional ReLU, the backbone workhorse.
 
     Children are named ``{name}/conv``, ``{name}/norm``, ``{name}/relu`` as in
     the reference VoVNet's ``conv3x3``/``conv1x1`` helpers.
@@ -128,16 +184,17 @@ class ConvBNReLU(nn.Sequential):
     the compute dtype (the kernel's wrapper casts it in the copy that
     repacks it) and the BN folded to an fp32 ``mul``/``add``, as petr_tpu's
     ``PETR_TPU_CONV_IMPL=pallas`` does (`layers.py:243-252`). The default,
-    ``cudnn``, runs the children in turn.
+    ``cudnn``, runs the children in turn, and so does a BN that normalises
+    with the batch's moments (petr_tpu `layers.py:243`).
     """
 
     def __init__(
         self, name: str, in_channels: int, out_channels: int, kernel: int = 3,
-        stride: int = 1, relu: bool = True,
+        stride: int = 1, relu: bool = True, bn_mode: str = "frozen",
     ):
         layers = [
             (f"{name}/conv", Conv2d(in_channels, out_channels, kernel, stride, kernel // 2, bias=False)),
-            (f"{name}/norm", FrozenBatchNorm(out_channels)),
+            (f"{name}/norm", FrozenBatchNorm(out_channels, use_batch_stats=bn_mode == "batch")),
         ]
         if relu:
             layers.append((f"{name}/relu", nn.ReLU(inplace=True)))
@@ -147,7 +204,7 @@ class ConvBNReLU(nn.Sequential):
         conv, norm = self[0], self[1]
         fusable = (conv.kernel_size == (3, 3) and conv.stride == (1, 1)
                    and conv.dilation == (1, 1) and conv.groups == 1)
-        if conv_impl() == "cuda" and fusable:
+        if conv_impl() == "cuda" and fusable and not norm.batch_moments():
             mul = norm.weight * torch.rsqrt(norm.running_var + norm.eps)
             add = norm.bias - norm.running_mean * mul
             return conv3x3_bn_relu(x, conv.weight, mul, add, relu=len(self) == 3)

@@ -1,4 +1,4 @@
-"""ResNet backbone (NCHW, frozen BN), caffe-style bottlenecks, DCNv2 stages.
+"""ResNet backbone (NCHW, frozen or batch-moments BN), caffe-style bottlenecks, DCNv2 stages.
 
 Counterpart of `petr_tpu/models/resnet.py` (the reference's r50dcn configs
 use mmdet's ResNet, 'caffe' style, BN eval, DCNv2 in stages 3 and 4:
@@ -52,17 +52,20 @@ class Bottleneck(nn.Module):
     """1x1 (stride) -> 3x3 (plain or DCN) -> 1x1, frozen BN after each, ReLU,
     projected identity where the shape changes."""
 
-    def __init__(self, in_channels: int, mid: int, out: int, stride: int = 1, use_dcn: bool = False):
+    def __init__(self, in_channels: int, mid: int, out: int, stride: int = 1, use_dcn: bool = False,
+                 bn_mode: str = "frozen"):
         super().__init__()
+        batch = bn_mode == "batch"
         self.conv1 = Conv2d(in_channels, mid, 1, stride, bias=False)
-        self.bn1 = FrozenBatchNorm(mid)
+        self.bn1 = FrozenBatchNorm(mid, use_batch_stats=batch)
         self.conv2 = ModulatedDeformConv2dPack(mid, mid) if use_dcn else Conv2d(mid, mid, 3, 1, 1, bias=False)
-        self.bn2 = FrozenBatchNorm(mid)
+        self.bn2 = FrozenBatchNorm(mid, use_batch_stats=batch)
         self.conv3 = Conv2d(mid, out, 1, bias=False)
-        self.bn3 = FrozenBatchNorm(out)
+        self.bn3 = FrozenBatchNorm(out, use_batch_stats=batch)
         self.downsample = None
         if in_channels != out or stride != 1:
-            self.downsample = nn.Sequential(Conv2d(in_channels, out, 1, stride, bias=False), FrozenBatchNorm(out))
+            self.downsample = nn.Sequential(Conv2d(in_channels, out, 1, stride, bias=False),
+                                            FrozenBatchNorm(out, use_batch_stats=batch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -74,23 +77,24 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """ResNet-50/101 with bottleneck blocks; returns the stage outputs named
-    by ``out_indices`` (0..3 = C2..C5, strides 4/8/16/32)."""
+    by ``out_indices`` (0..3 = C2..C5, strides 4/8/16/32). ``bn_mode`` is
+    "frozen" or "batch" (see ``FrozenBatchNorm``)."""
 
     def __init__(self, depth: int = 50, out_indices: Sequence[int] = (2, 3),
-                 dcn_stages: Sequence[int] = (), remat: bool = False):
+                 dcn_stages: Sequence[int] = (), remat: bool = False, bn_mode: str = "frozen"):
         super().__init__()
         if depth not in BLOCKS:
             raise ValueError(f"ResNet depth {depth} not in {sorted(BLOCKS)}")
         self.out_indices = tuple(out_indices)
         self.remat = remat
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = FrozenBatchNorm(64)
+        self.bn1 = FrozenBatchNorm(64, use_batch_stats=bn_mode == "batch")
         in_ch, mid = 64, 64
         for stage, n in enumerate(BLOCKS[depth]):
             blocks = []
             for b in range(n):
                 stride = 2 if stage > 0 and b == 0 else 1
-                blocks.append(Bottleneck(in_ch, mid, 4 * mid, stride, stage in dcn_stages))
+                blocks.append(Bottleneck(in_ch, mid, 4 * mid, stride, stage in dcn_stages, bn_mode))
                 in_ch = 4 * mid
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             mid *= 2

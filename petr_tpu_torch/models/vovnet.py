@@ -1,4 +1,4 @@
-"""VoVNetV2 backbone (OSA modules + eSE), NCHW, frozen BN.
+"""VoVNetV2 backbone (OSA modules + eSE), NCHW, frozen or batch-moments BN.
 
 Counterpart of `petr_tpu/models/vovnet.py` (reference
 `models/backbones/vovnet.py`, sty61010/PETR), with the reference's module
@@ -62,15 +62,16 @@ class OSABlock(nn.Module):
     def __init__(
         self, name: str, in_ch: int, stage_ch: int, concat_ch: int,
         layer_per_block: int, identity: bool = False, use_ese: bool = True,
+        bn_mode: str = "frozen",
     ):
         super().__init__()
         self.identity = identity
         self.layers = nn.ModuleList(
-            ConvBNReLU(f"{name}_{i}", in_ch if i == 0 else stage_ch, stage_ch)
+            ConvBNReLU(f"{name}_{i}", in_ch if i == 0 else stage_ch, stage_ch, bn_mode=bn_mode)
             for i in range(layer_per_block)
         )
         self.concat = ConvBNReLU(
-            f"{name}_concat", in_ch + layer_per_block * stage_ch, concat_ch, kernel=1
+            f"{name}_concat", in_ch + layer_per_block * stage_ch, concat_ch, kernel=1, bn_mode=bn_mode
         )
         self.ese = ESE(concat_ch) if use_ese else None
 
@@ -90,19 +91,20 @@ class OSABlock(nn.Module):
 
 class VoVNet(nn.Module):
     """VoVNetV2; returns features for ``out_indices`` (0..3 = stage2..stage5,
-    strides 4/8/16/32)."""
+    strides 4/8/16/32). ``bn_mode`` is "frozen" or "batch" (see
+    ``FrozenBatchNorm``)."""
 
     def __init__(self, spec: str = "V-99-eSE", out_indices: Sequence[int] = (2, 3),
-                 remat: bool = False):
+                 remat: bool = False, bn_mode: str = "frozen"):
         super().__init__()
         s = SPECS[spec]
         self.out_indices = tuple(out_indices)
         self.remat = remat
         s0, s1, s2 = s["stem"]
         stem = [
-            ConvBNReLU("stem_1", 3, s0, stride=2),
-            ConvBNReLU("stem_2", s0, s1, stride=1),
-            ConvBNReLU("stem_3", s1, s2, stride=2),
+            ConvBNReLU("stem_1", 3, s0, stride=2, bn_mode=bn_mode),
+            ConvBNReLU("stem_2", s0, s1, stride=1, bn_mode=bn_mode),
+            ConvBNReLU("stem_3", s1, s2, stride=2, bn_mode=bn_mode),
         ]
         # one flat Sequential, as the reference's `stem.stem_{i}/conv` keys need
         self.stem = nn.Sequential(
@@ -115,7 +117,7 @@ class VoVNet(nn.Module):
                 name = f"OSA{stage + 2}_{b + 1}"
                 blocks[name] = OSABlock(
                     name, in_ch, s["stage_conv_ch"][stage], s["stage_out_ch"][stage],
-                    s["layer_per_block"], identity=b > 0, use_ese=s["eSE"],
+                    s["layer_per_block"], identity=b > 0, use_ese=s["eSE"], bn_mode=bn_mode,
                 )
                 in_ch = s["stage_out_ch"][stage]
             self.add_module(f"stage{stage + 2}", nn.Sequential(blocks))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Mutation check of the port on one CUDA card: its bf16 tensor-core
 kernels, the r50dcn step's reproducibility, PETRv2's with_time, the
-Depthr decoder's key/value rebinding, the checkpoint's resume and the
-evaluation's route through K1.
+Depthr decoder's key/value rebinding, the checkpoint's resume, the
+evaluation's route through K1, batch BN's running statistics and the
+training CLI's resume.
 
     python3 -m petr_tpu_torch.mutants [--out DIR] [NAME ...]
 
@@ -84,6 +85,21 @@ MUTANTS = {
         '        [setattr(m, "use_flash", False) for m in model.modules() if hasattr(m, "use_flash")]\n'
         "        det = eval_step(model, batch)\n",
         "10",
+    ),
+    "bn_ema_inside_forward": (
+        "models/layers.py",
+        "            sinks = _moment_sinks()\n",  # the EMA in the module: a recomputed forward applies it again
+        "            with torch.no_grad():\n"
+        "                self.running_mean.mul_(0.9).add_(0.1 * mean)\n"
+        "                self.running_var.mul_(0.9).add_(0.1 * var)\n"
+        "            sinks = _moment_sinks()\n",
+        "11",
+    ),
+    "cli_resume_ignores_checkpoint": (
+        "cli/train.py",
+        "            state = restore_checkpoint(latest, state)\n",  # found, not read: the fresh state trains
+        "            pass\n",
+        "11",
     ),
 }
 

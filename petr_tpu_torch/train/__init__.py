@@ -10,4 +10,5 @@ from petr_tpu_torch.train.train_step import (
     make_eval_step,
     make_grad_fn,
     make_train_step,
+    step_generator,
 )

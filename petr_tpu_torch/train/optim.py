@@ -89,8 +89,25 @@ def build_optimizer(cfg: OptimConfig, model: nn.Module,
 
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every gradient, in fp32."""
-    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    """sqrt of the sum of squares over every gradient, in fp32, finite
+    wherever the gradients are.
+
+    The sum runs over the gradients divided by a power of two near their
+    largest entry, and the root is multiplied back. Dividing by a power of
+    two is exact, so where the plain sum does not overflow the result is
+    the same bit for bit (optax's ``global_norm``, petr_tpu's). Where it
+    would overflow (entries past ~1e19, which a backbone under frozen BN at
+    its identity statistics can reach in a run from random weights) the
+    plain norm is inf, and the clip divides every gradient by it: every
+    update after that is zero and the run stops learning while it looks
+    healthy. A non-finite gradient still gives a non-finite norm.
+    """
+    grads = [g.float() for g in grads]
+    largest = torch.stack([g.abs().max() for g in grads]).max()
+    _, exponent = torch.frexp(largest)
+    scale = torch.where(torch.isfinite(largest) & (largest > 0), torch.ldexp(torch.ones_like(largest), exponent),
+                        torch.ones_like(largest))
+    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g / scale) for g in grads])) * scale
 
 
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float, norm: torch.Tensor) -> List[torch.Tensor]:

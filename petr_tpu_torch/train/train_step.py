@@ -12,6 +12,12 @@ forward's randomness (GridMask, the decoder's dropout seeds) is drawn from
 it before the forward (``draw_train_noise``), so that the remat regions
 recompute with the same masks.
 
+A ``bn_mode="batch"`` backbone normalises with each batch's moments; the
+forward hands them out (``collect_batch_moments``, petr_tpu's
+"batch_stats" collection), and the step folds them into the BN running
+statistics once, after the update, skipped steps included
+(``_ema_bn_stats``).
+
 Batch dict contract (tensors or numpy arrays, statically shaped):
     images     (B, N, H, W, 3) float32, normalised
     img2lidar  (B, N, 4, 4)    float32
@@ -29,13 +35,14 @@ NMS-free decode of the last decoder layer, on the model's device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from petr_tpu_torch.configs.config import ExperimentConfig
 from petr_tpu_torch.models.detector import PETRDetector, draw_train_noise, init_weights
+from petr_tpu_torch.models.layers import collect_batch_moments
 from petr_tpu_torch.serve.export import decode_last_layer, resolve_device
 from petr_tpu_torch.train.losses import petr_set_loss
 from petr_tpu_torch.train.optim import build_optimizer, clip_by_global_norm, global_norm, make_lr_schedule
@@ -61,6 +68,24 @@ def _forward(model: PETRDetector, b: Dict[str, torch.Tensor], noise=None) -> Dic
 
 
 Grads = Dict[str, torch.Tensor]
+# BN batch moments by buffer name: "<module>.running_mean" -> the batch mean,
+# "<module>.running_var" -> the Bessel-corrected batch variance
+BNStats = Dict[str, torch.Tensor]
+
+
+def _forward_collecting(model: PETRDetector, b: Dict[str, torch.Tensor], noise=None):
+    """``_forward`` -> (outputs, the batch moments of every batch-mode BN that
+    ran, keyed like the model's buffers; {} for frozen BN)."""
+    with collect_batch_moments() as sink:
+        outputs = _forward(model, b, noise)
+    if not sink:
+        return outputs, {}
+    names = {m: n for n, m in model.named_modules()}
+    stats: BNStats = {}
+    for module, (mean, var) in sink.items():
+        stats[f"{names[module]}.running_mean"] = mean
+        stats[f"{names[module]}.running_var"] = var
+    return outputs, stats
 
 
 @dataclasses.dataclass
@@ -87,9 +112,11 @@ class TrainState:
 def create_train_state(
     cfg: ExperimentConfig, seed: int, total_steps: int, device: Union[str, torch.device] = "cuda"
 ) -> TrainState:
-    """The detector of ``cfg`` with random weights drawn from ``seed``, on
-    ``device`` (the card unless the caller asks for the CPU), in train
-    mode, with its optimizer and LR schedule.
+    """The detector of ``cfg`` with random weights drawn from ``seed`` at the
+    scales petr_tpu's ``create_train_state`` draws them
+    (``init_weights(..., petr_tpu_scales=True)``), on ``device`` (the card
+    unless the caller asks for the CPU), in train mode, with its optimizer
+    and LR schedule.
 
     Sets ``torch.backends.cudnn.deterministic = True`` for the process, so
     that a step is reproducible bit for bit: with cuDNN's default choice
@@ -98,11 +125,19 @@ def create_train_state(
     (`petr_tpu_torch/repro_bisect.py`)."""
     torch.backends.cudnn.deterministic = True
     device = resolve_device(device)
-    model = init_weights(PETRDetector(cfg.model), seed).to(device).train()
+    model = init_weights(PETRDetector(cfg.model), seed, petr_tpu_scales=True).to(device).train()
     optimizer = build_optimizer(
         cfg.train.optim, model, freeze_backbone_bn_affine=not cfg.model.backbone.train_bn_affine
     )
     return TrainState(0, model, optimizer, make_lr_schedule(cfg.train.optim, total_steps))
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """A CPU generator for step ``step`` of a run seeded ``seed``, drawn
+    from the pair alone: petr_tpu's ``fold_in(rng, state.step)``
+    (`train_step.py:259`), so that a resumed or replayed run draws at each
+    step what the uninterrupted run drew."""
+    return torch.Generator().manual_seed(int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]))
 
 
 def _to_device(batch, keys: Tuple[str, ...], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -111,19 +146,23 @@ def _to_device(batch, keys: Tuple[str, ...], device: torch.device) -> Dict[str, 
 
 def make_grad_fn(cfg: ExperimentConfig):
     """``grad_fn(model, batch, generator, indices=None)`` ->
-    (total, losses, grads by parameter name, the (L, B, G) assignment).
+    (total, losses, grads by parameter name, the (L, B, G) assignment,
+    the BN batch moments).
 
-    ``indices`` injects a precomputed assignment into the set loss.
+    ``indices`` injects a precomputed assignment into the set loss. The
+    moments are those of a ``bn_mode="batch"`` backbone ({} under frozen
+    BN), taken in the forward and not again in a remat recompute.
     """
     ocfg = cfg.train.optim
     keys = batch_keys(cfg)
 
     def grad_fn(model: PETRDetector, batch, generator: torch.Generator,
-                indices: Optional[np.ndarray] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Grads, np.ndarray]:
+                indices: Optional[np.ndarray] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Grads, np.ndarray, BNStats]:
         device = next(model.parameters()).device
         b = _to_device(batch, keys, device)
         noise = draw_train_noise(cfg.model, b["images"].shape[2], generator)
-        outputs = _forward(model, b, noise)
+        outputs, bn_stats = _forward_collecting(model, b, noise)
         total, losses, indices = petr_set_loss(
             outputs, b["gt_boxes"], b["gt_labels"], b["gt_valid"],
             num_classes=cfg.model.head.num_classes, cls_weight=ocfg.cls_weight,
@@ -133,7 +172,7 @@ def make_grad_fn(cfg: ExperimentConfig):
         params = {n: p for n, p in model.named_parameters() if p.requires_grad}
         raw = torch.autograd.grad(total, list(params.values()), allow_unused=True)
         grads = {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(params.items(), raw)}
-        return total.detach(), {k: v.detach() for k, v in losses.items()}, grads, indices
+        return total.detach(), {k: v.detach() for k, v in losses.items()}, grads, indices, bn_stats
 
     return grad_fn
 
@@ -146,19 +185,53 @@ def accumulate_grads(grad_fn, model: PETRDetector, batch, generator: torch.Gener
     update per step. Micro-batch i takes samples [i::accum] of ``keys``
     (``batch_keys(cfg)``) and draws its randomness from ``generator`` in turn.
 
-    Returns (mean total, per-loss means, averaged grads).
+    Returns (mean total, per-loss means, averaged grads, the whole batch's
+    BN moments combined from the micro-batches' by ``_combine_bn_moments``).
     """
     bsz = len(batch["images"])
     if bsz % accum != 0:
         raise ValueError(f"batch size {bsz} not divisible by grad_accum={accum}")
-    totals, losses, grads = [], [], None
+    totals, losses, grads, stats = [], [], None, []
     for i in range(accum):
-        t, l, g, _ = grad_fn(model, {k: batch[k][i::accum] for k in keys}, generator)
+        t, l, g, _, s = grad_fn(model, {k: batch[k][i::accum] for k in keys}, generator)
         totals.append(t)
         losses.append(l)
+        stats.append(s)
         grads = g if grads is None else {n: grads[n] + g[n] for n in grads}
     mean_losses = {k: torch.stack([l[k] for l in losses]).mean() for k in losses[0]}
-    return torch.stack(totals).mean(), mean_losses, {n: g / accum for n, g in grads.items()}
+    return (torch.stack(totals).mean(), mean_losses, {n: g / accum for n, g in grads.items()},
+            _combine_bn_moments(stats))
+
+
+def _combine_bn_moments(stats: Sequence[BNStats]) -> BNStats:
+    """The BN moments of equal micro-batches combined into the whole batch's,
+    by the parallel-variance identity (petr_tpu `train_step.py:175-189`):
+        mean = avg(mean_i);  var = avg(var_i + mean_i^2) - mean^2
+    exact for the biased variance; the entries carry the Bessel-corrected
+    one, which makes it exact to O(1/n), n the micro-batch's B*H*W."""
+    out: BNStats = {}
+    for key in stats[0]:
+        if not key.endswith(".running_mean"):
+            continue
+        var_key = key[: -len("mean")] + "var"
+        means = torch.stack([s[key] for s in stats])
+        m = means.mean(0)
+        out[key] = m
+        out[var_key] = torch.clamp(
+            (torch.stack([s[var_key] for s in stats]) + means ** 2).mean(0) - m ** 2, min=0.0)
+    return out
+
+
+@torch.no_grad()
+def _ema_bn_stats(model: torch.nn.Module, stats: BNStats, momentum: float = 0.1) -> None:
+    """Fold this step's batch moments into the BN running statistics, in
+    place: running = (1 - momentum) * running + momentum * batch (torch/mmcv
+    BN semantics; petr_tpu `train_step.py:231-250`)."""
+    if not stats:
+        return
+    buffers = dict(model.named_buffers())
+    for key, v in stats.items():
+        buffers[key].copy_((1.0 - momentum) * buffers[key] + momentum * v)
 
 
 def make_train_step(cfg: ExperimentConfig):
@@ -170,16 +243,20 @@ def make_train_step(cfg: ExperimentConfig):
     ``skipped`` (ints). A step whose gradients hold an inf or a NaN is
     skipped (mmcv Fp16OptimizerHook parity): the parameters, the Adam
     moments and their step counts stay as they were, but ``state.step``,
-    the LR schedule's count, still advances.
+    the LR schedule's count, still advances. Under ``bn_mode="batch"`` the
+    batch's BN moments are folded into the running statistics after the
+    update, on every step, skipped ones included (torch updates them in
+    the forward, before and apart from ``optimizer.step``).
     """
     grad_fn = make_grad_fn(cfg)
     accum = cfg.train.grad_accum
 
     def train_step(state: TrainState, batch, generator: torch.Generator):
         if accum <= 1:
-            total, losses, grads, _ = grad_fn(state.model, batch, generator)
+            total, losses, grads, _, bn_stats = grad_fn(state.model, batch, generator)
         else:
-            total, losses, grads = accumulate_grads(grad_fn, state.model, batch, generator, accum, batch_keys(cfg))
+            total, losses, grads, bn_stats = accumulate_grads(
+                grad_fn, state.model, batch, generator, accum, batch_keys(cfg))
         names = list(grads)
         gnorm = global_norm([grads[n] for n in names])
         nonfinite = int(sum((~torch.isfinite(g)).sum() for g in grads.values()))
@@ -187,6 +264,7 @@ def make_train_step(cfg: ExperimentConfig):
         if not skipped:
             clipped = clip_by_global_norm([grads[n] for n in names], cfg.train.optim.grad_clip_norm, gnorm)
             state.apply_gradients(dict(zip(names, clipped)))
+        _ema_bn_stats(state.model, bn_stats, cfg.model.backbone.bn_momentum)
         state.step += 1
         metrics = {"loss": total, **losses, "grad_norm": gnorm,
                    "grad_nonfinite": nonfinite, "skipped": int(skipped)}

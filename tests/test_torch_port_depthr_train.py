@@ -69,7 +69,7 @@ def run():
 
 def test_losses_match(run):
     """fp32 sums in other orders: rtol 2e-5, as the flagship's step."""
-    _, losses, _, _ = run.port
+    _, losses, _, _, _ = run.port
     assert set(losses) == set(run.jax.losses)
     for k, want in run.jax.losses.items():
         np.testing.assert_allclose(losses[k].item(), want, rtol=2e-5, err_msg=k)
@@ -91,7 +91,7 @@ def test_every_gradient_matches(run):
     which takes out the bias of the conv before it; and layer 0's
     self-attention reads the zero target, so its values are one vector
     (the bias) and no q/k/v weight moves its output."""
-    _, _, grads, _ = run.port
+    _, _, grads, _, _ = run.port
     want = named_parameters_from_jax(run.jax.grads, run.model)
     assert set(grads) == {n for n, p in run.model.named_parameters() if p.requires_grad}
     dead = [n for n in grads if n.startswith(("img_backbone.", "img_neck.", "pts_bbox_head.input_proj."))]
@@ -160,7 +160,7 @@ def test_the_r50_step_runs_the_backbone_forward_only():
     kept = resnet.modulated_deform_conv
     resnet.modulated_deform_conv = counted
     try:
-        _, _, grads, _ = make_grad_fn(cfg)(state.model, batch, torch.Generator().manual_seed(0))
+        _, _, grads, _, _ = make_grad_fn(cfg)(state.model, batch, torch.Generator().manual_seed(0))
     finally:
         resnet.modulated_deform_conv = kept
     assert len(calls) == 9, calls

@@ -326,9 +326,32 @@ def test_grad_accum_averages_interleaved_micro_batches():
     state = create_train_state(cfg, seed=0, total_steps=10, device="cpu")
     batch = _tiny_batch(cfg, B=2, seed=3)
     grad_fn = make_grad_fn(cfg2)
-    total, losses, grads = accumulate_grads(grad_fn, state.model, batch, torch.Generator().manual_seed(0), 2)
+    total, losses, grads, _ = accumulate_grads(grad_fn, state.model, batch, torch.Generator().manual_seed(0), 2)
     gen = torch.Generator().manual_seed(0)  # the micro-batches draw from it in turn
     parts = [grad_fn(state.model, {k: v[i::2] for k, v in batch.items()}, gen) for i in range(2)]
     np.testing.assert_allclose(total.item(), (parts[0][0] + parts[1][0]).item() / 2, rtol=1e-6)
     for n in grads:
         torch.testing.assert_close(grads[n], (parts[0][2][n] + parts[1][2][n]) / 2, rtol=1e-5, atol=1e-7)
+
+
+def test_global_norm_stays_finite_where_the_gradients_are():
+    """The global norm of the clip: optax's where its sum of squares fits
+    in fp32 (the same bits as the plain sum: the scale is a power of two),
+    finite where that sum would overflow, so that the clip keeps the
+    update's direction instead of zeroing it, and non-finite where a
+    gradient is."""
+    rng = np.random.RandomState(7)
+    grads = [rng.randn(300).astype(np.float32) * 3, rng.randn(7, 5).astype(np.float32) * 1e-3]
+    plain = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(torch.from_numpy(g)) for g in grads]))
+    got = global_norm([torch.from_numpy(g) for g in grads])
+    assert torch.equal(got, plain)
+    np.testing.assert_allclose(got.item(), float(optax.global_norm([jnp.asarray(g) for g in grads])), rtol=1e-6)
+    big = [torch.from_numpy(g) * 1e20 for g in grads]
+    assert not torch.isfinite(torch.linalg.vector_norm(torch.cat([g.flatten() for g in big])))
+    norm = global_norm(big)
+    np.testing.assert_allclose(norm.item(), got.item() * 1e20, rtol=1e-5)
+    clipped = clip_by_global_norm(big, 35.0, norm)
+    np.testing.assert_allclose(global_norm(clipped).item(), 35.0, rtol=1e-5)
+    assert not torch.isfinite(global_norm([torch.tensor([np.nan, 1.0]), torch.ones(3)]))
+    assert not torch.isfinite(global_norm([torch.tensor([np.inf, 1.0])]))
+    assert global_norm([torch.zeros(4)]).item() == 0.0

@@ -215,14 +215,16 @@ def test_tiny_debug_detector_matches(tiny, bf16_model, dtype):
 @pytest.mark.parametrize(
     "name,overrides",
     [
-        # PETRv2, unshared branches and Depthr are ported
-        # (tests/test_torch_port_petrv2.py, tests/test_torch_port_depthr.py)
+        # PETRv2, unshared branches, Depthr and bn_mode="batch" are ported
+        # (tests/test_torch_port_petrv2.py, tests/test_torch_port_depthr.py,
+        # tests/test_torch_port_bn.py); the int8 PTQ backbone's "calib" and
+        # "int8" modes are not
         ("petrv2_vov_p4_800x320", ("model.backbone.quant=int8",)),
-        ("tiny_debug_v2", ("model.backbone.bn_mode=batch",)),
+        ("tiny_debug_v2", ("model.backbone.quant=calib",)),
         ("depthr_r50_c5_512x1408_gtdepth", ("model.backbone.quant=int8",)),
-        ("petr_vov_p4_800x320", ("model.head.kind=depthr", "model.backbone.bn_mode=batch")),
+        ("petr_vov_p4_800x320", ("model.head.kind=depthr", "model.backbone.quant=calib")),
         ("petr_vov_p4_800x320", ("model.backbone.quant=int8",)),
-        ("petr_vov_p4_800x320", ("model.backbone.bn_mode=batch",)),
+        ("petr_vov_p4_800x320", ("model.backbone.quant=calib", "model.backbone.bn_mode=batch")),
     ],
 )
 def test_detector_refuses_unported_configs(name, overrides):

@@ -121,7 +121,7 @@ def run():
 
 # --------------------------------------------------------------- train step
 def test_losses_match(run):
-    _, losses, _, _ = run.port
+    _, losses, _, _, _ = run.port
     assert set(losses) == set(run.jax.losses)
     for k, want in run.jax.losses.items():  # fp32 sums in other orders
         np.testing.assert_allclose(losses[k].item(), want, rtol=2e-5, err_msg=k)
@@ -129,7 +129,7 @@ def test_losses_match(run):
 
 
 def test_every_gradient_matches(run):
-    _, _, grads, _ = run.port
+    _, _, grads, _, _ = run.port
     want = named_parameters_from_jax(run.jax.grads, run.model)
     assert set(grads) == set(want)
     L = run.cfg.model.head.num_layers

@@ -94,7 +94,7 @@ def run():
 
 
 def test_assignment_and_losses_match(run):
-    _, losses, _, idx = run.port
+    _, losses, _, idx, _ = run.port
     valid = run.batch["gt_valid"][None]
     np.testing.assert_array_equal(np.where(valid, idx, 0), np.where(valid, _jax_assignment(run), 0))
     assert set(losses) == set(run.jax.losses)
@@ -104,7 +104,7 @@ def test_assignment_and_losses_match(run):
 
 
 def test_every_trainable_gradient_matches(run):
-    _, _, grads, _ = run.port
+    _, _, grads, _, _ = run.port
     want = named_parameters_from_jax(run.jax.grads, run.model)
     trainable = {n for n, p in run.model.named_parameters() if p.requires_grad}
     assert set(grads) == trainable
@@ -176,7 +176,8 @@ def test_remat_on_and_off_give_the_same_gradients(run):
     cfg = dataclasses.replace(run.cfg, model=dataclasses.replace(run.cfg.model, remat=False))
     state = create_train_state(cfg, seed=0, total_steps=TOTAL_STEPS, device="cpu")
     state.model.load_state_dict({k: torch.from_numpy(v) for k, v in run.port_sd.items()})
-    total, _, grads, _ = make_grad_fn(cfg)(state.model, run.batch, torch.Generator().manual_seed(0))
+    total, _, grads, _, _ = make_grad_fn(cfg)(state.model, run.batch, torch.Generator().manual_seed(0))
     np.testing.assert_allclose(total.item(), run.port[0].item(), rtol=1e-6)
     for name, g in grads.items():
         torch.testing.assert_close(g, run.port[2][name], rtol=1e-5, atol=1e-7, msg=name)
+

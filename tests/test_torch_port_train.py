@@ -34,6 +34,7 @@ from petr_tpu.train.train_step import TrainState as JTrainState
 from petr_tpu.train.train_step import make_grad_fn as jax_make_grad_fn
 from petr_tpu.utils.torch_convert import convert_state_dict
 from petr_tpu_torch.configs import get_config
+from petr_tpu_torch.models import PETRDetector, init_weights
 from petr_tpu_torch.models.layers import FrozenBatchNorm
 from petr_tpu_torch.train import create_train_state, make_grad_fn, make_train_step
 from petr_tpu_torch.utils import named_parameters_from_jax
@@ -74,6 +75,11 @@ def run():
 
     state = create_train_state(cfg, seed=0, total_steps=TOTAL_STEPS, device="cpu")
     model = state.model
+    # the He-scaled draw of the serving paths (init_weights' default), on
+    # which this file's tolerances were set: create_train_state draws
+    # petr_tpu's smaller scales, under which the stem's gradient is ~1e-4
+    # and made of cancelling terms (tests/test_torch_port_init.py)
+    model.load_state_dict(init_weights(PETRDetector(cfg.model), 0).state_dict())
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, FrozenBatchNorm):
@@ -119,7 +125,7 @@ def _jax_assignment(run):
 
 
 def test_assignment_and_losses_match(run):
-    _, losses, _, idx = run.port
+    _, losses, _, idx, _ = run.port
     valid = run.batch["gt_valid"][None]
     np.testing.assert_array_equal(np.where(valid, idx, 0), np.where(valid, _jax_assignment(run), 0))
     assert set(losses) == set(run.jax.losses)
@@ -129,7 +135,7 @@ def test_assignment_and_losses_match(run):
 
 
 def test_every_gradient_matches(run):
-    _, _, grads, _ = run.port
+    _, _, grads, _, _ = run.port
     want = named_parameters_from_jax(run.jax.grads, run.model)
     assert set(grads) == set(want)
     for name, g in grads.items():
@@ -178,7 +184,7 @@ def test_remat_on_and_off_give_the_same_gradients(run):
     cfg = dataclasses.replace(run.cfg, model=dataclasses.replace(run.cfg.model, remat=False))
     state = create_train_state(cfg, seed=0, total_steps=TOTAL_STEPS, device="cpu")
     state.model.load_state_dict({k: torch.from_numpy(v) for k, v in run.port_sd.items()})
-    total, _, grads, _ = make_grad_fn(cfg)(state.model, run.batch, torch.Generator().manual_seed(0))
+    total, _, grads, _, _ = make_grad_fn(cfg)(state.model, run.batch, torch.Generator().manual_seed(0))
     np.testing.assert_allclose(total.item(), run.port[0].item(), rtol=1e-6)
     for name, g in grads.items():
         torch.testing.assert_close(g, run.port[2][name], rtol=1e-5, atol=1e-7, msg=name)
