@@ -154,6 +154,27 @@ nothing of petr_tpu. Phases, each fatal on failure:
    petr_tpu_torch.tools.synth_train_eval --config synth_small --steps 200
    --bn-warmup 4 --eval-every 100 --floor 0``: its JSON line, a loss that
    fell, BN statistics moved by the warm-up.
+12. parallel training over torch.distributed, ranks spawned on the one
+   card (Gloo stages all-reduce and broadcast of CUDA tensors through the
+   host; NCCL refuses two ranks on one device). K3 at the token shard's
+   shapes (B=2, the rows each rank holds at data 1 x model 2, and B=1;
+   L = 3,000 keys from offset 3,000, dropout 0.1, a non-zero lse
+   cotangent) against its plain route in fp32 and bf16, timed beside SDPA.
+   Every rank checks the all-reduce (MAX) of CUDA tensors that takes the
+   lse combine's shift.
+   The flagship at full width on a global batch of 2 (dropout 0.1,
+   GridMask, remat), bf16 and fp32, in two layouts, data 2 x model 1 and
+   data 1 x model 2 (each rank 3,000 of the 6,000 decoder keys through K3):
+   each rank's eval and train-mode forward against the 1-rank forward's
+   rows, its step's loss, grad_norm and parameters against the 1-rank step
+   on the whole batch (fp32 within phase 5's tolerances, with every
+   gradient; bf16 by its mean error), K1 12 and each K2 kernel 6 launches
+   per rank per step on the dtype's variants, the step's time and its
+   share in all-reduces; ``dryrun_multichip(4)`` at data 2 x model 2;
+   ``cli.train`` at world size 1 over NCCL; ``cli.train`` over 2 Gloo
+   ranks with the eval hook on an odd val split (rank 0 alone logs and
+   checkpoints; the metrics equal ``evaluate_model`` of the checkpoint
+   within 1e-6), then both ranks sent SIGTERM (exit 0 at one step).
 ``--phases 3,8`` runs only the phases named (1 and 2 always run), prints no
 kernels record and no result line, and exits 1 either way: a failed check
 raises an AssertionError; ``--phases 3`` alone checks and times every kernel. With no
@@ -3440,7 +3461,526 @@ def check_learning(torch, ca, dcn, card):
     return launches, times
 
 
-ALL_PHASES = {3, 4, 5, 6, 7, 8, 9, 10, 11}
+# Phase 12: parallel training over torch.distributed. Several ranks share the
+# one card through Gloo (NCCL refuses two ranks on one device); NCCL runs at
+# world size 1. PAR_SCENES renders an odd val split for the eval hook.
+PAR_SCENES = dict(n_scenes=5, frames_per_scene=3, n_objects=6, val_scenes=1, seed=SEED)
+PAR_GLOBAL_BATCH = 2
+LAYOUTS = ((2, 1), (1, 2))  # (data, model): batch split, tokens split
+# The 2-rank fp32 step against the 1-rank step on the same global batch: the
+# same sums in another order (a shard's lse combine, the gradient mean), so
+# phase 5's tolerances for kernels against plain versions hold.
+PAR_LOSS_RTOL, PAR_NORM_RTOL = STEP_LOSS_RTOL, 1e-3
+# The bf16 2-rank step against the 1-rank step: the ranks round other sums
+# to bf16 (a batch of 1 takes other cuDNN algorithms; a key shard rounds its
+# own output before the combine), and one bf16 step of a logit carries
+# through 6 layers and can flip an assignment of the matcher: loss within
+# 5e-2, grad_norm within 0.2 (relative); the parameters after AdamW's first
+# step move by about lr each, so their mean difference is reported in lr.
+PAR_BF16_LOSS, PAR_BF16_NORM, PAR_BF16_PARAM_LR = 5e-2, 0.2, 0.5
+PAR_EVAL_TOL = 1e-6
+
+
+def flagship_cfg(dtype):
+    import dataclasses
+
+    from petr_tpu_torch.configs import get_config
+
+    cfg = get_config(FLAGSHIP)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype))
+
+
+def par_batch(cfg):
+    """The global batch of 2 of the flagship's parallel steps."""
+    import numpy as np
+
+    batches = [make_train_batch(cfg, SEED + 20 + i) for i in range(PAR_GLOBAL_BATCH)]
+    return {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
+
+
+def forwards(torch, cfg, model, batch):
+    """(eval-mode outputs, train-mode outputs with step 0's noise) of
+    ``model`` on ``batch``, without gradient, as CPU fp32 tensors."""
+    from petr_tpu_torch.models import draw_train_noise
+    from petr_tpu_torch.train import step_generator
+
+    b = {k: torch.as_tensor(v).to(next(model.parameters()).device) for k, v in batch.items()}
+    outs = []
+    with torch.no_grad():
+        for train in (False, True):
+            model.train(train)
+            noise = draw_train_noise(cfg.model, b["images"].shape[2], step_generator(SEED, 0)) if train else None
+            out = model(b["images"], b["img2lidar"], b["img_hw"], noise=noise)
+            outs.append({k: out[k].float().cpu() for k in ("cls_logits", "bbox_codes")})
+    model.train()
+    return outs
+
+
+def reset_state(state, cfg, initial):
+    """``state`` back at its initial weights with a fresh AdamW at step 0."""
+    from petr_tpu_torch.train.optim import build_optimizer
+
+    state.model.load_state_dict(initial)
+    state.model.train()
+    state.optimizer = build_optimizer(cfg.train.optim, state.model,
+                                      freeze_backbone_bn_affine=not cfg.model.backbone.train_bn_affine)
+    state.step = 0
+    return state
+
+
+def par_reference(torch, path, card):
+    """The 1-rank references of the flagship's parallel steps, saved to
+    ``path``: per dtype the forwards, the step's loss, grad_norm and
+    parameters after it, and (fp32) the gradients; and the 1-rank bf16
+    step's time."""
+    from petr_tpu_torch.train import create_train_state, make_grad_fn, make_train_step, step_generator
+
+    ref = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = flagship_cfg(dtype)
+        batch = par_batch(cfg)
+        state = create_train_state(cfg, SEED, 1000, "cuda")
+        initial = {k: v.clone() for k, v in state.model.state_dict().items()}
+        r = {}
+        r["eval_out"], r["train_out"] = forwards(torch, cfg, state.model, batch)
+        if dtype == "float32":
+            total, _, grads, idx, _ = make_grad_fn(cfg)(state.model, batch, step_generator(SEED, 0))
+            r.update(total=total.item(), grads={n: g.cpu() for n, g in grads.items()}, assignment=idx)
+        reset_state(state, cfg, initial)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        _, m = make_train_step(cfg)(state, batch, step_generator(SEED, 0))
+        end.record()
+        end.synchronize()
+        r.update(loss=m["loss"].item(), grad_norm=m["grad_norm"].item(), step_ms=start.elapsed_time(end),
+                 step_host_ms=(time.perf_counter() - h0) * 1e3, lr=state.lr_schedule(0),
+                 params={n: p.detach().cpu() for n, p in state.model.named_parameters()})
+        log(f"  1-rank {dtype} step on the global batch of {PAR_GLOBAL_BATCH}: loss {r['loss']:.6f}, grad_norm "
+            f"{r['grad_norm']:.4f}, {r['step_ms']:.2f} ms on CUDA events (host {r['step_host_ms']:.2f} ms, "
+            f"first step) [{card}]")
+        ref[dtype] = r
+        del state, initial
+        torch.cuda.empty_cache()
+    torch.save(ref, path)
+
+
+def _compare_out(name, got, want, dtype):
+    """Forward outputs of a rank against the 1-rank rows: per output atol +
+    rtol x |ref| and a limit on the mean (FP32_ROUTE_* in fp32, ROUTE_* in
+    bf16) -> (max abs err, mean abs err) per output."""
+    tol, mean_tol = (FP32_ROUTE_TOL, FP32_ROUTE_MEAN) if dtype == "float32" else (ROUTE_TOL, ROUTE_MEAN)
+    errs = {}
+    for k in ("cls_logits", "bbox_codes"):
+        err = (got[k] - want[k]).abs()
+        atol, rtol = tol[k]
+        bad = int((err > atol + rtol * want[k].abs()).sum())
+        errs[k] = (err.max().item(), err.mean().item())
+        assert bad == 0 and errs[k][1] <= mean_tol, (
+            f"{name} {k}: {bad} outputs out of tolerance, max {errs[k][0]:.3e}, mean {errs[k][1]:.3e}")
+    return errs
+
+
+class CollectiveClock:
+    """Host time inside ``torch.distributed.all_reduce``, the card
+    synchronised before and after each call (the share of a step spent in
+    collectives; the synchronisations make the step itself slower)."""
+
+    def __init__(self, torch):
+        self.torch, self.ms, self.calls, self.kept = torch, 0.0, 0, None
+
+    def __enter__(self):
+        dist = self.torch.distributed
+        self.kept = dist.all_reduce
+
+        def timed(*a, **k):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.kept(*a, **k)
+            self.torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            self.calls += 1
+            return out
+
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.distributed.all_reduce = self.kept
+
+
+def par_flagship_rank(rank, world, device, ref_path):
+    """One rank of the flagship's parallel steps (``chip_smoke.py`` phase
+    12b, c): per dtype and layout, the step from the initial weights on
+    this rank's share of the global batch, held to the 1-rank references."""
+    import torch
+
+    from petr_tpu_torch.ops import cross_attention as ca
+    from petr_tpu_torch.parallel.mesh import make_mesh, shard_batch, use_mesh
+    from petr_tpu_torch.train import create_train_state, make_grad_fn, make_train_step, step_generator
+    from petr_tpu_torch.train.train_step import data_mean_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    # the lse combine's shift: an all-reduce (MAX) of CUDA tensors, which Gloo stages through the host
+    got = torch.tensor([float(rank), -float(rank), 1e30 if rank else -1e30], device=device)
+    torch.distributed.all_reduce(got, op=torch.distributed.ReduceOp.MAX)
+    want = torch.tensor([float(world - 1), 0.0, 1e30], device=device)
+    assert torch.equal(got, want), f"rank {rank}: all-reduce MAX on {device} gave {got.tolist()}"
+    ref = torch.load(ref_path, weights_only=False)
+    counters = ("LAUNCHES", "DKDV_LAUNCHES", "DQ_LAUNCHES", "LAUNCHES_FP32", "DKDV_LAUNCHES_FP32",
+                "DQ_LAUNCHES_FP32")
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = flagship_cfg(dtype)
+        batch = par_batch(cfg)
+        r = ref[dtype]
+        state = create_train_state(cfg, SEED, 1000, device)
+        initial = {k: v.clone() for k, v in state.model.state_dict().items()}
+        for data, model in LAYOUTS:
+            mesh = make_mesh(world, data=data, model=model)
+            local = shard_batch(batch, mesh)
+            b0 = mesh.batch_rows(PAR_GLOBAL_BATCH // data)[1]
+            b1 = b0 + PAR_GLOBAL_BATCH // data
+            rec = {}
+            with use_mesh(mesh):
+                got = forwards(torch, cfg, state.model, local)
+            for what, g, w in zip(("eval", "train"), got, (r["eval_out"], r["train_out"])):
+                rec[f"{what}_forward"] = _compare_out(f"rank {rank} ({data}, {model}) {dtype} {what} forward", g,
+                                                      {k: v[:, b0:b1] for k, v in w.items()}, dtype)
+            if dtype == "float32":
+                total, _, grads, idx, _ = make_grad_fn(cfg, mesh)(state.model, local, step_generator(SEED, 0))
+                grads = data_mean_grads(grads, mesh)
+                assert (idx == r["assignment"][:, b0:b1]).all(), f"rank {rank}: the assignment differs"
+                top = max(g.abs().max().item() for g in r["grads"].values())
+                rel = {}
+                for n, g in grads.items():
+                    w = r["grads"][n].to(device)
+                    rel[n] = (g - w).abs().max().item() / max(w.abs().max().item(), STEP_GRAD_FLOOR * top)
+                worst = max(rel.items(), key=lambda kv: kv[1])
+                rec["grads"] = {"median": statistics.median(rel.values()), "worst": worst}
+                assert worst[1] <= STEP_GRAD_RTOL, f"rank {rank} ({data}, {model}) fp32: gradient {worst}"
+                reset_state(state, cfg, initial)
+            for c in counters:
+                setattr(ca, c, 0)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            start.record()
+            _, m = make_train_step(cfg, mesh)(state, local, step_generator(SEED, 0))
+            end.record()
+            end.synchronize()
+            rec["step_ms"], rec["step_host_ms"] = start.elapsed_time(end), (time.perf_counter() - h0) * 1e3
+            rec["launches"] = {c: getattr(ca, c) for c in counters}
+            rec["loss"], rec["grad_norm"] = m["loss"].item(), m["grad_norm"].item()
+            rec["loss_err"] = abs(rec["loss"] - r["loss"]) / abs(r["loss"])
+            rec["norm_err"] = abs(rec["grad_norm"] - r["grad_norm"]) / r["grad_norm"]
+            diffs = [(p.detach().cpu() - r["params"][n]).abs() for n, p in state.model.named_parameters()]
+            rec["param_max_lr"] = max(d.max().item() for d in diffs) / r["lr"]
+            rec["param_mean_lr"] = sum(d.sum().item() for d in diffs) / sum(d.numel() for d in diffs) / r["lr"]
+            if dtype == "bfloat16":  # two more steps: the step's time and its share in collectives
+                times = []
+                with CollectiveClock(torch) as clock:
+                    for i in (1, 2):
+                        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                        h0 = time.perf_counter()
+                        s.record()
+                        make_train_step(cfg, mesh)(state, local, step_generator(SEED, i))
+                        e.record()
+                        e.synchronize()
+                        times.append(((time.perf_counter() - h0) * 1e3, s.elapsed_time(e)))
+                rec["timed_host_ms"] = [t[0] for t in times]
+                rec["timed_event_ms"] = [t[1] for t in times]
+                rec["collective_ms"], rec["collective_calls"] = clock.ms / 2, clock.calls // 2
+            out[(dtype, data, model)] = rec
+            reset_state(state, cfg, initial)
+        del state, initial
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_k3_shard(torch, ca, sm_clock_hz, card):
+    """K3 at the token-sharded flagship's shard shapes: H=8, Q=900, the
+    second of two shards of L = 6,000 (L = 3,000 with its key offset and a
+    padded tail), dropout 0.1 and a non-zero lse cotangent; B=2, the rows
+    each rank holds in phase 12c (the bf16 forward on the 64-row plan where
+    the card has at most 15 * 16 SMs), and B=1 (the 32-row plan). The
+    kernels against the plain route through the same Function, fp32 and
+    bf16; the bf16 forward and backward timed beside the plain route and
+    SDPA. The record's numbers are B=2's, the shape whose launches it
+    reports; B=1's are under ``b1``."""
+    import torch.nn.functional as F
+
+    H, Q, L, D = 8, 900, 6000, 32
+    Ls = L // 2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    shapes = {}
+    for B in (PAR_GLOBAL_BATCH, 1):
+        plan = ca.attention_plan(B * H, Q, sms)
+        log(f"phase 12: K3 (flash_cross_attention_with_lse) at the shard shape B={B} H={H} Q={Q} L={Ls} D={D}, "
+            f"key offset {Ls}, dropout {DROPOUT}, lse cotangent N(0, 1); bf16 forward on the {16 * plan}-row "
+            f"plan (query_warps {plan}, {sms} SMs)")
+        errs, fn_ms = {}, {"query_warps": plan}
+        for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            q, k, v, m = attention_inputs(torch, gen, B, dtype, H, Q, L, D)
+            k, v, m = k[:, :, Ls:], v[:, :, Ls:], m[:, Ls:]
+            gout = torch.randn(B, H, Q, D, generator=gen, device="cuda").to(dtype)
+            glse = torch.randn(B, H, Q, generator=gen, device="cuda")
+
+            def run(fn):
+                qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+                out, lse = fn(qs, ks, vs, m, DROPOUT, DROP_SEED, (0, Ls))
+                loss = (out.float() * gout.float()).sum() + (torch.where(lse < 1e29, lse, 0.0) * glse).sum()
+                return (out, lse, *torch.autograd.grad(loss, (qs, ks, vs)))
+
+            def plain_route(*a):
+                return ca.flash_cross_attention_plain(*a[:6], lse_grad=True, dropout_offsets=a[6])
+
+            kern = run(ca.flash_cross_attention_with_lse)
+            plain = run(plain_route)
+            (ok, ol, *kg), (po, pl, *pg) = kern, plain
+            atol, rtol = K1_FP32_TOL if tag == "fp32" else K1_BF16_TOL
+            err = (ok.float() - po.float()).abs()
+            assert (err <= atol + rtol * po.float().abs()).all(), f"K3 B={B} {tag} out: max err {err.max().item():.3e}"
+            lse_err = (ol - pl).abs().max().item()
+            assert lse_err <= 1e-3, f"K3 B={B} {tag} lse: {lse_err:.3e}"
+            errs[tag] = {"out": err.max().item(), "lse": lse_err}
+            for g_name, g, w in zip(("dq", "dk", "dv"), kg, pg):
+                g, w = g.float(), w.float()
+                atol, rtol = BWD_TOL[tag]
+                e = (g - w).abs()
+                assert (e <= atol * w.abs().max() + rtol * w.abs()).all(), (
+                    f"K3 B={B} {tag} {g_name}: max err {e.max().item():.3e}")
+                errs[tag][g_name] = e.max().item()
+            log(f"  {tag}: max abs err against the plain route: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs[tag].items()))
+            if tag == "bf16":
+                def k3():
+                    run(ca.flash_cross_attention_with_lse)
+                fn_ms["ms"] = cuda_time_ms(k3)
+                fn_ms["device_ms"] = device_ms(torch, k3)
+                fn_ms["plain_ms"] = cuda_time_ms(lambda: run(plain_route), warmup=2, iters=10)
+                qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+
+                def sdpa():
+                    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=~m[:, None, None, :])
+                    torch.autograd.grad(out, (qs, ks, vs), gout)
+                fn_ms["library_ms"] = cuda_time_ms(sdpa)
+                fn_ms["library_device_ms"] = device_ms(torch, sdpa)
+                pairs = H * Q * int((~m).sum())
+                e = 2
+                nbytes = (e * B * H * D * (2 * Q + 2 * Ls) + 4 * B * H * Q + B * Ls  # forward
+                          + e * B * H * D * (3 * Q + 4 * Ls) + 8 * B * H * Q + B * Ls)  # backward
+                # 14 D flops per pair (q.k and p.v forward; s, dp, dv, dq, dk backward), 2 exps per pair
+                fn_ms["bound_ms"], fn_ms["bound_by"], parts = bound_ms(2 * pairs, 7.0 * D, nbytes, sms, sm_clock_hz)
+                log(f"  bf16 forward + backward: {fn_ms['ms']:.4f} ms on CUDA events, {fn_ms['device_ms']:.4f} ms "
+                    f"of device time; plain route {fn_ms['plain_ms']:.4f}; SDPA forward + backward (no lse: no "
+                    f"public PyTorch call returns a differentiable lse) {fn_ms['library_ms']:.4f} "
+                    f"({fn_ms['library_device_ms']:.4f} device); bound_ms {fn_ms['bound_ms']:.4f} "
+                    f"({fn_ms['bound_by']}, {json.dumps({k: round(v, 5) for k, v in parts.items()})}) [{card}]")
+        shapes[B] = {"shape": {"B": B, "H": H, "Q": Q, "L": Ls, "D": D, "key_offset": Ls},
+                     "max_abs_err": max(errs["bf16"].values()), "fp32_max_abs_err": max(errs["fp32"].values()),
+                     **fn_ms}
+    return {
+        "name": "flash_cross_attention_with_lse_shard",
+        "route": "cuda",
+        "source": "petr_tpu_torch/csrc/flash_cross_attention.cu, petr_tpu_torch/csrc/flash_cross_attention_bwd.cu",
+        "replaces": "petr_tpu/ops/pallas/cross_attention.py:402::flash_cross_attention_with_lse",
+        "launches": None,  # filled from the token-sharded step (phase 12c), whose ranks hold B=2
+        **shapes[PAR_GLOBAL_BATCH],
+        "b1": shapes[1],
+        "library_note": "SDPA forward and backward without the lse (no public PyTorch call returns it differentiably)",
+    }
+
+
+def run_ranks(root, args, label, env, signal_after=None, timeout=900):
+    """``python -m petr_tpu_torch.cli.train ARGS`` as ranks 0..n-1 (one
+    argument list per rank) from this script's directory; with
+    ``signal_after``, SIGTERM every rank once rank 0 logged that step.
+    Every rank must exit 0. Returns each rank's stdout."""
+    import signal
+
+    procs = [subprocess.Popen([sys.executable, "-m", "petr_tpu_torch.cli.train", *a], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for a in args]
+    outs = []
+    try:
+        if signal_after is not None:
+            lines = []
+            for line in procs[0].stdout:
+                lines.append(line)
+                if line.startswith('{"epoch"') and json.loads(line).get("step", 0) >= signal_after:
+                    for p in procs:
+                        p.send_signal(signal.SIGTERM)
+                    break
+        for i, p in enumerate(procs):
+            out, _ = p.communicate(timeout=timeout)
+            outs.append(("".join(lines) if (i == 0 and signal_after is not None) else "") + out)
+    finally:
+        for p in procs:
+            p.kill()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if not line.startswith('{"config"'):
+                log(f"    {label} rank {i} | {line[:240]}")
+        assert p.returncode == 0, f"{label}: rank {i} exited {p.returncode}"
+    return outs
+
+
+def check_parallel(torch, ca, sm_clock_hz, card):
+    """Phase 12: parallel training and evaluation over torch.distributed."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from petr_tpu_torch.data import NuScenesDataset, generate_synthetic_scenes
+    from petr_tpu_torch.models import PETRDetector
+    from petr_tpu_torch.parallel.distributed import free_port, spawn
+    from petr_tpu_torch.parallel.dryrun import dryrun_multichip
+    from petr_tpu_torch.train.checkpoint import latest_checkpoint
+    from petr_tpu_torch.train.evaluate import evaluate_model
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    t_phase = time.perf_counter()
+    times = {}
+    k3 = check_k3_shard(torch, ca, sm_clock_hz, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"phase 12b, c: {FLAGSHIP} at full width, global batch {PAR_GLOBAL_BATCH}, dropout {DROPOUT}, GridMask, "
+            f"remat, bf16 and fp32: the 1-rank references")
+        ref_path = f"{tmp}/par_ref.pt"
+        t0 = time.perf_counter()
+        par_reference(torch, ref_path, card)
+        ref = torch.load(ref_path, weights_only=False)
+        times["reference_s"] = time.perf_counter() - t0
+        log(f"phase 12b, c: 2 ranks on the card (gloo), layouts (data, model) {LAYOUTS}: each rank's step from "
+            f"the same weights on its share, every count reset just before the step")
+        t0 = time.perf_counter()
+        ranks = spawn(par_flagship_rank, 2, "gloo", "cuda", args=(ref_path,))
+        times["ranks_s"] = time.perf_counter() - t0
+        L = flagship_cfg("bfloat16").model.head.num_layers
+        want = {"bfloat16": {"LAUNCHES": 2 * L, "DKDV_LAUNCHES": L, "DQ_LAUNCHES": L, "LAUNCHES_FP32": 0,
+                             "DKDV_LAUNCHES_FP32": 0, "DQ_LAUNCHES_FP32": 0},
+                "float32": {"LAUNCHES": 0, "DKDV_LAUNCHES": 0, "DQ_LAUNCHES": 0, "LAUNCHES_FP32": 2 * L,
+                            "DKDV_LAUNCHES_FP32": L, "DQ_LAUNCHES_FP32": L}}
+        layout_times = {}
+        for (dtype, data, model), _ in sorted(ranks[0].items()):
+            name = f"{dtype} data {data} x model {model}"
+            r = ref[dtype]
+            for rank, recs in enumerate(ranks):
+                rec = recs[(dtype, data, model)]
+                log(f"  {name}, rank {rank}: launches {rec['launches']}; loss {rec['loss']:.6f} (1-rank "
+                    f"{r['loss']:.6f}, rel err {rec['loss_err']:.2e}), grad_norm {rec['grad_norm']:.4f} (1-rank "
+                    f"{r['grad_norm']:.4f}, rel err {rec['norm_err']:.2e}); parameters after the step: mean "
+                    f"|diff| {rec['param_mean_lr']:.4f} lr, max {rec['param_max_lr']:.4f} lr")
+                for what in ("eval", "train"):
+                    log(f"    {what} forward against the 1-rank rows: " + ", ".join(
+                        f"{k} max {a:.3e} mean {b:.3e}" for k, (a, b) in rec[f"{what}_forward"].items()))
+                if "grads" in rec:
+                    log(f"    fp32 gradients (mean over the data group) against the 1-rank step: median "
+                        f"{rec['grads']['median']:.2e}, worst {rec['grads']['worst'][0]} {rec['grads']['worst'][1]:.2e} "
+                        f"(tol {STEP_GRAD_RTOL})")
+                assert rec["launches"] == want[dtype], (name, rank, rec["launches"])
+                if dtype == "float32":
+                    assert rec["loss_err"] <= PAR_LOSS_RTOL and rec["norm_err"] <= PAR_NORM_RTOL, (name, rank)
+                else:
+                    assert rec["loss_err"] <= PAR_BF16_LOSS and rec["norm_err"] <= PAR_BF16_NORM, (name, rank)
+                    assert rec["param_mean_lr"] <= PAR_BF16_PARAM_LR, (name, rank, rec["param_mean_lr"])
+                    share = rec["collective_ms"] / statistics.median(rec["timed_host_ms"])
+                    log(f"    step time, ranks sharing one card: first step {rec['step_ms']:.2f} ms on CUDA events "
+                        f"({rec['step_host_ms']:.2f} host); then {', '.join(f'{t:.2f}' for t in rec['timed_event_ms'])} "
+                        f"ms on events, {', '.join(f'{t:.2f}' for t in rec['timed_host_ms'])} host, with "
+                        f"{rec['collective_ms']:.2f} ms in {rec['collective_calls']} all-reduces per step "
+                        f"({100 * share:.1f}% of the host step; synchronised around each) [{card}]")
+                    layout_times.setdefault(f"data{data}_model{model}", []).append(
+                        {"first_ms": rec["step_ms"], "events_ms": rec["timed_event_ms"],
+                         "host_ms": rec["timed_host_ms"], "collective_ms": rec["collective_ms"],
+                         "collective_share": share})
+            assert ranks[0][(dtype, data, model)]["loss"] == ranks[1][(dtype, data, model)]["loss"], name
+        times["layouts"] = layout_times
+        times["one_rank_step_ms"] = ref["bfloat16"]["step_ms"]
+        k3["launches"] = ranks[0][("bfloat16", 1, 2)]["launches"]["LAUNCHES"]
+        k3["launches_per_rank"] = [recs[("bfloat16", 1, 2)]["launches"] for recs in ranks]
+        k3["launches_note"] = "per rank per bf16 step of the token-sharded flagship (data 1 x model 2): K1 + K2 as K3"
+        del ref
+
+        log("phase 12d: dryrun_multichip(4): 4 ranks on the card (gloo), data 2 x model 2, tiny shapes")
+        t0 = time.perf_counter()
+        rec = dryrun_multichip(4, device="cuda", backend="gloo", model=2)
+        times["dryrun_s"] = time.perf_counter() - t0
+        assert tuple(rec["mesh"]) == (2, 2) and np.isfinite(rec["loss"]), rec
+        log(f"  mesh {rec['mesh']}, loss {rec['loss']:.4f}, grad_norm {rec['grad_norm']:.4f} in {times['dryrun_s']:.1f} s")
+
+        splits = generate_synthetic_scenes(f"{tmp}/synth", image_hw=SYNTH_HW, **PAR_SCENES)
+        n_train, n_val = len(splits["train"]), len(splits["val"])
+        assert n_val % 2 == 1, n_val
+        infos = f"{tmp}/synth/synth_infos_train.pkl"
+        val = f"{tmp}/synth/synth_infos_val.pkl"
+
+        def cli_args(work, port, n, rank, backend, *extra):
+            return ["--config", SYNTH_VOV, "--infos", infos, "--work-dir", work, "--log-every", "1",
+                    "--seed", str(SEED), "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n),
+                    "--process-id", str(rank), "--dist-backend", backend, *extra]
+
+        log(f"phase 12a: cli.train over NCCL at world size 1 ({SYNTH_VOV}, {n_train} train samples at "
+            f"{SYNTH_HW[0]}x{SYNTH_HW[1]}, 2 steps)")
+        work = f"{tmp}/nccl"
+        out = run_ranks(root, [cli_args(work, free_port(), 1, 0, "nccl", "--batch-size", "2", "--max-steps", "2")],
+                        "nccl", env)[0]
+        envline = json.loads([x for x in out.splitlines() if x.startswith('{"env"')][0])["env"]
+        assert envline["backend"] == "nccl" and envline["processes"] == 1, envline
+        assert [r["step"] for r in read_log(work) if "loss" in r] == [1, 2]
+        assert latest_checkpoint(f"{work}/ckpts").endswith("step_00000002")
+
+        log(f"phase 12e: cli.train over 2 gloo ranks on the card, global batch 4, 1 epoch, eval hook on the "
+            f"{n_val} val samples (odd: the ranks decode 2 and 1)")
+        work = f"{tmp}/two"
+        port = free_port()
+        t0 = time.perf_counter()
+        outs = run_ranks(root, [cli_args(work, port, 2, r, "gloo", "--batch-size", "4", "--epochs", "1",
+                                         "--eval-infos", val) for r in range(2)], "2 ranks", env)
+        times["cli_2rank_s"] = time.perf_counter() - t0
+        assert "epoch 0 done; checkpoint saved" in outs[0] and "checkpoint saved" not in outs[1]
+        assert '{"env"' in outs[0] and '{"env"' not in outs[1] and '{"epoch"' not in outs[1]
+        logged = read_log(work)
+        spe = n_train // 2 // 2
+        assert [r["step"] for r in logged if "loss" in r] == list(range(1, spe + 1)), logged
+        vals = [r for r in logged if "val/mAP" in r]
+        assert len(vals) == 1 and vals[0]["step"] == spe, vals
+        ckpt = latest_checkpoint(f"{work}/ckpts")
+        assert ckpt.endswith(f"step_{spe:08d}"), ckpt
+        from petr_tpu_torch.configs import get_config
+
+        cfg = get_config(SYNTH_VOV)
+        model = PETRDetector(cfg.model)
+        model.load_state_dict(torch.load(f"{ckpt}/state.pt", map_location="cpu", weights_only=True)["model"])
+        with torch_defaults(torch):
+            torch.backends.cudnn.deterministic = True  # as create_train_state leaves the CLI's processes
+            single = evaluate_model(cfg, model.cuda().eval(), NuScenesDataset.from_pkl(val, cfg.data, training=False))
+        diff = max(abs(vals[0][f"val/{k}"] - v) for k, v in single.items() if np.isfinite(v))
+        log(f"  2-rank eval hook against evaluate_model of {ckpt} in this process: max |diff| {diff:.3e} over "
+            f"{len(single)} metrics (tol {PAR_EVAL_TOL}); mAP {single['mAP']:.4f}, NDS {single['NDS']:.4f}")
+        assert diff <= PAR_EVAL_TOL, diff
+        assert all((np.isfinite(vals[0][f"val/{k}"]) == np.isfinite(v)) for k, v in single.items())
+
+        log("phase 12e: the same 2 ranks for 3 epochs, both sent SIGTERM once rank 0 logged step 2")
+        work = f"{tmp}/sig"
+        port = free_port()
+        outs = run_ranks(root, [cli_args(work, port, 2, r, "gloo", "--batch-size", "4", "--epochs", "3")
+                                for r in range(2)], "SIGTERM", env, signal_after=2)
+        stopped = max(r["step"] for r in read_log(work) if "loss" in r)
+        assert f"checkpoint saved at step {stopped}; exiting on signal" in outs[0], outs[0][-2000:]
+        assert f"rank 1: stopping at step {stopped}" in outs[1], outs[1][-2000:]
+        assert latest_checkpoint(f"{work}/ckpts").endswith(f"step_{stopped:08d}")
+        log(f"  both ranks exit 0 at step {stopped} (of {3 * spe}); rank 0 checkpointed there")
+    times["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12: {times['phase_s']:.1f} s (the 1-rank references {times['reference_s']:.1f} s, the ranks' steps "
+        f"{times['ranks_s']:.1f} s, the dryrun {times['dryrun_s']:.1f} s, the 2-rank CLI {times['cli_2rank_s']:.1f} s) "
+        f"[{card}]")
+    return k3, times
+
+
+ALL_PHASES = {3, 4, 5, 6, 7, 8, 9, 10, 11, 12}
 
 
 def training_phase(torch, fn, *args):
@@ -3583,6 +4123,11 @@ def main() -> int:
                 synth[f"deform_conv_fwd_synth_{label}"]["launches_note"] = (
                     f"per {SYNTH_R50} train step (cli.train), forward and remat recompute")
             synth["flash_cross_attention_fwd_synth"]["learning"] = learn_times
+
+    if 12 in phases:
+        k3, par_times = training_phase(torch, check_parallel, torch, ca, sm_clock_hz, card)
+        k3["parallel"] = par_times
+        records.append(k3)
 
     if phases != ALL_PHASES:
         log(f"only phases {sorted(phases)} ran: no kernels record and no result line")

@@ -4,15 +4,30 @@
         --infos data/nuscenes_infos_train.pkl --data-root data/nuscenes \
         --work-dir work_dirs/petr_vov
 
-Counterpart of `petr_tpu/cli/train.py` for one process on one card: config
-selection, seeding, the epoch loop with the reference schedule, periodic
-JSON logging to ``<work-dir>/train_log.jsonl``, checkpoints with rotation
-under ``<work-dir>/ckpts``, resume, params-only init (``--load-from``),
+Counterpart of `petr_tpu/cli/train.py`: config selection, seeding, the
+epoch loop with the reference schedule, periodic JSON logging to
+``<work-dir>/train_log.jsonl``, checkpoints with rotation under
+``<work-dir>/ckpts``, resume, params-only init (``--load-from``),
 evaluation every ``--eval-interval`` epochs, and a SIGTERM/SIGINT handler
 that checkpoints at the next step boundary and exits 0. It runs on the card
 unless ``--device cpu`` is given, and raises when the card is asked for and
-absent. More than one process (``--coordinator``, ``--num-processes``) is
-not ported yet (ROADMAP.md §1, item 10).
+absent.
+
+Several processes, one per card (`cli/train.py:94-128, 188-230`):
+
+    python -m petr_tpu_torch.cli.train ... --coordinator host:port \
+        --num-processes 2 --process-id 0      # and --process-id 1
+
+Each rank joins the process group (``--dist-backend``: nccl on cards, gloo
+on the CPU or for ranks that share a card), reads its stride of each
+epoch's shuffled order (``Loader(process_shard=...)``) at the global batch
+over the ranks, and steps data-parallel (``parallel.make_pod_mesh``: a rank
+owns one card, so the model axis is 1). Every rank starts from rank 0's
+state (its ``--load-from`` and ``--resume`` reads, broadcast: ranks on
+hosts that share no file system see only their own work directory). Rank
+0 alone logs, writes ``train_log.jsonl`` and checkpoints; a signal on any
+rank stops every rank at the same step (an all-reduce of the flag each
+step); the eval hook runs ``evaluate_model_multiprocess`` on every rank.
 
 A resumed run starts at epoch ``step // steps_per_epoch`` and replays that
 epoch from its start, as petr_tpu's does; each step draws its randomness
@@ -29,9 +44,6 @@ import signal
 import time
 
 import torch
-
-PARALLEL = "ROADMAP.md §1, item 10 (parallel)"
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
@@ -60,9 +72,12 @@ def parse_args(argv=None):
     p.add_argument("--eval-infos", default=None, help="val info .pkl; evaluates "
                    "mAP/NDS every --eval-interval epochs")
     p.add_argument("--eval-interval", type=int, default=1, help="epochs between evals")
-    p.add_argument("--coordinator", default=None, help=f"host:port of process 0; not ported yet: {PARALLEL}")
-    p.add_argument("--num-processes", type=int, default=None, help=f"not ported yet: {PARALLEL}")
-    p.add_argument("--process-id", type=int, default=None, help=f"not ported yet: {PARALLEL}")
+    p.add_argument("--coordinator", default=None, help="host:port of process 0 (multi-process runs)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="the process group's backend: nccl (default with --device cuda) or gloo "
+                        "(the CPU, or ranks that share one card)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -81,22 +96,44 @@ def _rounded(rec):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.coordinator or (args.num_processes or 1) > 1:
-        raise NotImplementedError(f"training over more than one process is not ported yet: {PARALLEL}")
+    import torch.distributed as dist
+
+    from petr_tpu_torch.parallel.distributed import init_distributed, make_pod_mesh, rank_device
+
+    backend = args.dist_backend or ("gloo" if torch.device(args.device).type == "cpu" else "nccl")
+    if init_distributed(args.coordinator, args.num_processes, args.process_id, backend):
+        try:
+            _main(args, rank_device(args.device), make_pod_mesh())
+        finally:
+            dist.destroy_process_group()
+    else:
+        _main(args, rank_device(args.device), None)
+
+
+def _main(args, device, mesh):
+    """The run on this rank's ``device``; ``mesh`` is None for one process
+    without a process group."""
+    import torch.distributed as dist
+
     from petr_tpu_torch.configs import get_config
     from petr_tpu_torch.data import Loader, NuScenesDataset
-    from petr_tpu_torch.serve import resolve_device
+    from petr_tpu_torch.parallel.mesh import replicate_state
     from petr_tpu_torch.train import create_train_state, make_train_step, step_generator
     from petr_tpu_torch.train.checkpoint import latest_checkpoint, load_params, restore_checkpoint, save_checkpoint
-    from petr_tpu_torch.train.evaluate import evaluate_model
+    from petr_tpu_torch.train.evaluate import evaluate_model_multiprocess
 
-    device = resolve_device(args.device)
+    n_proc = mesh.data if mesh is not None else 1
+    rank = mesh.rank if mesh is not None else 0
+    is_main = rank == 0
     cfg = get_config(args.config, args.overrides)
     epochs = args.epochs or cfg.train.optim.epochs
 
     ds = NuScenesDataset.from_pkl(args.infos, cfg.data, training=True, data_root=args.data_root)
-    batch_size = args.batch_size or cfg.train.optim.batch_size_per_device
-    loader = Loader(ds, batch_size, seed=args.seed)
+    batch_size = args.batch_size or cfg.train.optim.batch_size_per_device * n_proc
+    if batch_size % n_proc:
+        raise SystemExit(f"global batch {batch_size} not divisible by {n_proc} processes")
+    loader = Loader(ds, batch_size // n_proc, seed=args.seed,
+                    process_shard=(rank, n_proc) if n_proc > 1 else None)
     steps_per_epoch = len(loader)
     if steps_per_epoch == 0:
         raise SystemExit(
@@ -113,26 +150,31 @@ def main(argv=None):
         latest = latest_checkpoint(ckpt_base)
         if latest:
             state = restore_checkpoint(latest, state)
-            print(f"resumed from {latest} at step {state.step}", flush=True)
+            if is_main:
+                print(f"resumed from {latest} at step {state.step}", flush=True)
+    if mesh is not None:  # rank 0's weights, AdamW state and step are the run's
+        replicate_state(state, mesh)
 
     # env + resolved-config dump at startup (reference tools/train.py:190-202)
-    env = {
-        "torch": torch.__version__,
-        "cuda": torch.version.cuda,
-        "device": str(device),
-        "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        "devices": 1,
-        "processes": 1,
-        "global_batch": batch_size,
-        "steps_per_epoch": steps_per_epoch,
-    }
-    print(json.dumps({"env": env}))
-    print(json.dumps({"config": dataclasses.asdict(cfg)}, default=str), flush=True)
+    if is_main:
+        env = {
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "device": str(device),
+            "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+            "devices": n_proc,
+            "processes": n_proc,
+            "backend": dist.get_backend() if mesh is not None else None,
+            "global_batch": batch_size,
+            "steps_per_epoch": steps_per_epoch,
+        }
+        print(json.dumps({"env": env}))
+        print(json.dumps({"config": dataclasses.asdict(cfg)}, default=str), flush=True)
 
     os.makedirs(args.work_dir, exist_ok=True)
-    logf = open(os.path.join(args.work_dir, "train_log.jsonl"), "a")
+    logf = open(os.path.join(args.work_dir, "train_log.jsonl"), "a") if is_main else None
     tb_writer = None
-    if args.tensorboard:
+    if args.tensorboard and is_main:
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -141,6 +183,8 @@ def main(argv=None):
             print("tensorboard unavailable; scalar logging stays JSON-only")
 
     def log_record(rec, step):
+        if not is_main:
+            return
         print(json.dumps(_rounded(rec)), flush=True)
         logf.write(json.dumps(rec) + "\n")
         logf.flush()
@@ -149,7 +193,15 @@ def main(argv=None):
                 if k != "step" and isinstance(v, (int, float)):
                     tb_writer.add_scalar(k, v, global_step=step)
 
-    train_step = make_train_step(cfg)
+    train_step = make_train_step(cfg, mesh)
+
+    def stop_now(flag: bool) -> bool:
+        """Whether any rank was signalled: every rank stops at one step."""
+        if mesh is None:
+            return flag
+        t = torch.tensor([float(flag)], device=device)
+        dist.all_reduce(t)
+        return bool(t.item())
 
     # Preemption-safe shutdown: a scheduler's maintenance or preemption
     # delivers SIGTERM. The handler only sets a flag; the loop finishes the
@@ -177,27 +229,35 @@ def main(argv=None):
                     t_last = time.time()
                     log_record({"epoch": epoch, "step": step, "time_per_iter": dt / max(args.log_every, 1),
                                 **{k: float(v) for k, v in metrics.items()}}, step)
-                if preempted or (args.max_steps and step >= args.max_steps):
-                    save_checkpoint(ckpt_base, step, state, cfg.train.max_keep_ckpts, meta=ckpt_meta(cfg))
+                stop = stop_now(bool(preempted))
+                if stop or (args.max_steps and step >= args.max_steps):
+                    if is_main:
+                        save_checkpoint(ckpt_base, step, state, cfg.train.max_keep_ckpts, meta=ckpt_meta(cfg))
                     if preempted:
-                        print(f"checkpoint saved at step {step}; exiting on "
-                              f"signal {preempted[0]} (resume with --resume)", flush=True)
+                        print(f"checkpoint saved at step {step}; exiting on signal {preempted[0]} "
+                              f"(resume with --resume)" if is_main else
+                              f"rank {rank}: stopping at step {step} on signal {preempted[0]}", flush=True)
+                    elif stop:
+                        print(f"rank {rank}: stopping at step {step}: another rank was signalled", flush=True)
                     return
-            save_checkpoint(ckpt_base, state.step, state, cfg.train.max_keep_ckpts, meta=ckpt_meta(cfg))
-            print(f"epoch {epoch} done; checkpoint saved", flush=True)
+            if is_main:
+                save_checkpoint(ckpt_base, state.step, state, cfg.train.max_keep_ckpts, meta=ckpt_meta(cfg))
+                print(f"epoch {epoch} done; checkpoint saved", flush=True)
             if args.eval_infos and (epoch + 1) % max(args.eval_interval, 1) == 0:
                 val_ds = NuScenesDataset.from_pkl(args.eval_infos, cfg.data, training=False,
                                                   data_root=args.data_root)
                 state.model.eval()
                 try:
-                    results = {f"val/{k}": float(v) for k, v in evaluate_model(cfg, state.model, val_ds).items()}
+                    results = {f"val/{k}": float(v)
+                               for k, v in evaluate_model_multiprocess(cfg, state.model, val_ds).items()}
                 finally:
                     state.model.train()
                 log_record({"epoch": epoch, "step": state.step, **results}, state.step)
     finally:
         for sig, handler in kept.items():  # as they were, for a caller in the same process
             signal.signal(sig, handler)
-        logf.close()
+        if logf is not None:
+            logf.close()
         if tb_writer is not None:
             tb_writer.close()
 

@@ -11,10 +11,15 @@
 
 #include <stdint.h>
 
-// seed * 0x85EBCA6B + bh * 0xC2B2AE35, the part of the hash that is fixed
-// for one (batch, head): uint32 addition is associative, so it is added once.
-__device__ __forceinline__ uint32_t dropout_mix(uint32_t seed, uint32_t bh) {
-  return seed * 0x85EBCA6Bu + bh * 0xC2B2AE35u;
+// seed * 0x85EBCA6B + bh * 0xC2B2AE35 + key_offset, the part of the hash
+// that is fixed for one (batch, head): uint32 addition is associative, so it
+// is added once. A shard of a larger problem hashes its global coordinates:
+// bh is the global b*H + h (the kernels pass their own plus bh_offset, the
+// shard's first batch row times H), and key_offset, the shard's first
+// global key, is the amount its local key index falls short of the global
+// one, which the hash adds to the column. Both are 0 for a whole problem.
+__device__ __forceinline__ uint32_t dropout_mix(uint32_t seed, uint32_t bh, uint32_t key_offset) {
+  return seed * 0x85EBCA6Bu + bh * 0xC2B2AE35u + key_offset;
 }
 
 // keep = hash >= thresh, thresh = min(int(rate * 2^32), 2^32 - 1)

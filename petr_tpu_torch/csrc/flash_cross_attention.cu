@@ -97,7 +97,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const uint8_t* __restrict__ mask,
                  float* __restrict__ out, float* __restrict__ lse,
                  int H, int Q, int L, Strides st, float scale,
-                 uint32_t seed, uint32_t thresh, float keep_prob) {
+                 uint32_t seed, uint32_t thresh, float keep_prob,
+                 uint32_t bh_offset, uint32_t key_offset) {
   using namespace fp32;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -118,7 +119,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * st.k_b + h * st.k_h;
   const float* vb = v + b * st.v_b + h * st.v_h;
   const uint8_t* mb = mask ? mask + (long long)b * L : nullptr;
-  const uint32_t mix = dropout_mix(seed, (uint32_t)bh);
+  const uint32_t mix = dropout_mix(seed, (uint32_t)bh + bh_offset, key_offset);
 
   // logits are kept in log2 units: exp(x) == exp2(x * log2(e))
   const float qscale = scale * LOG2E;
@@ -265,7 +266,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
                     bf16* __restrict__ out, float* __restrict__ lse,
                     int H, int Q, int L, Strides st, float scale,
-                    uint32_t seed, uint32_t thresh, float keep_prob) {
+                    uint32_t seed, uint32_t thresh, float keep_prob,
+                    uint32_t bh_offset, uint32_t key_offset) {
   constexpr int KS = tc::WARPS / QW;  // key splits
   constexpr int KT = KS * tc::KW;     // keys per staged tile
   constexpr int RS = D + 8;           // shared-memory row stride
@@ -301,7 +303,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       qf[s][r] = row < Q ? load_pair(qg + row * st.q_s + col) : 0u;
     }
 
-  const uint32_t mix = dropout_mix(seed, (uint32_t)bh);
+  const uint32_t mix = dropout_mix(seed, (uint32_t)bh + bh_offset, key_offset);
   const float sl2 = scale * LOG2E;  // logits in log2 units: exp(x) == exp2(x log2 e)
 
   // key tile kt's rows of k (and of v) by cp.async, into stage s
@@ -506,6 +508,7 @@ struct Dropout {
   bool on;
   uint32_t seed, thresh;
   float keep_prob;
+  uint32_t bh_offset, key_offset;  // the shard's first global b*H + h and key
 };
 
 struct Args {
@@ -531,7 +534,7 @@ int launch_fp32(const Args& a) {
   flash_fwd_kernel<D, DROPOUT><<<grid, fp32::THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
       static_cast<const uint8_t*>(a.mask), static_cast<float*>(a.out), static_cast<float*>(a.lse),
-      a.H, a.Q, a.L, a.st, a.scale, a.dr.seed, a.dr.thresh, a.dr.keep_prob);
+      a.H, a.Q, a.L, a.st, a.scale, a.dr.seed, a.dr.thresh, a.dr.keep_prob, a.dr.bh_offset, a.dr.key_offset);
   return (int)cudaGetLastError();
 }
 
@@ -547,7 +550,7 @@ int launch_tc(const Args& a) {
   flash_fwd_tc_kernel<D, QW, DROPOUT><<<grid, tc::THREADS, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
       static_cast<const uint8_t*>(a.mask), static_cast<bf16*>(a.out), static_cast<float*>(a.lse),
-      a.H, a.Q, a.L, a.st, a.scale, a.dr.seed, a.dr.thresh, a.dr.keep_prob);
+      a.H, a.Q, a.L, a.st, a.scale, a.dr.seed, a.dr.thresh, a.dr.keep_prob, a.dr.bh_offset, a.dr.key_offset);
   return (int)cudaGetLastError();
 }
 
@@ -583,17 +586,21 @@ extern "C" {
 // q, k, v and out in turn, each (batch, head, row); the last axis is
 // contiguous. mask: (B, L) bytes or NULL. dropout: 0 = off; else seed (the
 // int32 seed's bits), thresh and keep_prob = 1 - rate drop the probabilities
-// as dropout_hash.cuh says. query_warps: the bf16 kernel's query rows per
-// block over 16 (2 or 4; its key splits are 8 / query_warps). Returns
+// as dropout_hash.cuh says, at the global coordinates of a shard whose
+// first b*H + h is bh_offset and whose first key is key_offset (0 and 0 for
+// a whole problem). query_warps: the bf16 kernel's query rows per block over
+// 16 (2 or 4; its key splits are 8 / query_warps). Returns
 // cudaGetLastError() after the launch.
 int petr_flash_cross_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* mask, void* out, void* lse,
                                    int B, int H, int Q, int L, int D, int dtype,
                                    const long long* strides, float scale,
                                    int dropout, uint32_t seed, uint32_t thresh,
-                                   float keep_prob, int query_warps, void* stream) {
+                                   float keep_prob, uint32_t bh_offset, uint32_t key_offset,
+                                   int query_warps, void* stream) {
   Args a{q, k, v, mask, out, lse, B, H, Q, L, {}, scale,
-         {dropout != 0, seed, thresh, keep_prob}, static_cast<cudaStream_t>(stream)};
+         {dropout != 0, seed, thresh, keep_prob, bh_offset, key_offset},
+         static_cast<cudaStream_t>(stream)};
   a.st.q_b = strides[0]; a.st.q_h = strides[1]; a.st.q_s = strides[2];
   a.st.k_b = strides[3]; a.st.k_h = strides[4]; a.st.k_s = strides[5];
   a.st.v_b = strides[6]; a.st.v_h = strides[7]; a.st.v_s = strides[8];

@@ -89,6 +89,7 @@ struct Dropout {
   bool on;
   uint32_t seed, thresh;
   float keep_prob;
+  uint32_t bh_offset, key_offset;  // the shard's first global b*H + h and key
 };
 
 // ------------------------------------------------- fp32, CUDA cores: dK, dV
@@ -108,7 +109,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk,
                       T* __restrict__ dv, int H, int Q, int L, Strides st,
-                      float scale, uint32_t seed, uint32_t thresh, float keep_prob) {
+                      float scale, uint32_t seed, uint32_t thresh, float keep_prob,
+                      uint32_t bh_offset, uint32_t key_offset) {
   constexpr int TPK = D / DP;  // threads per key
   constexpr int THREADS = KB * TPK;
   __shared__ float4 qs4[QT * D / 4];
@@ -131,7 +133,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* ob = dout + b * st.o[0] + h * st.o[1];
   const float* lseb = lse + (long long)bh * Q;
   const float* delb = delta + (long long)bh * Q;
-  const uint32_t mix = dropout_mix(seed, (uint32_t)bh);
+  const uint32_t mix = dropout_mix(seed, (uint32_t)bh + bh_offset, key_offset);
 
   // this key's dims, k pre-scaled so that q.k comes out in log2 units
   const float kscale = scale * LOG2E;
@@ -243,7 +245,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int H, int Q, int L, Strides st, float scale,
-                    uint32_t seed, uint32_t thresh, float keep_prob) {
+                    uint32_t seed, uint32_t thresh, float keep_prob,
+                    uint32_t bh_offset, uint32_t key_offset) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* ks = smem;            // [BK][D]
@@ -262,7 +265,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * st.k[0] + h * st.k[1];
   const T* vb = v + b * st.v[0] + h * st.v[1];
   const uint8_t* mb = mask ? mask + (long long)b * L : nullptr;
-  const uint32_t mix = dropout_mix(seed, (uint32_t)bh);
+  const uint32_t mix = dropout_mix(seed, (uint32_t)bh + bh_offset, key_offset);
 
   const float qscale = scale * LOG2E;
   float qr[D], orr[D], dqr[D];
@@ -378,7 +381,8 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ delta, bf16* __restrict__ dk,
                          bf16* __restrict__ dv, int H, int Q, int L, Strides st, float scale,
-                         uint32_t seed, uint32_t thresh, float keep_prob) {
+                         uint32_t seed, uint32_t thresh, float keep_prob,
+                         uint32_t bh_offset, uint32_t key_offset) {
   constexpr int RS = D + 8;  // smem row stride
   constexpr int KS = D / 16; // k16 steps over the head dim
   constexpr int NT = D / 8;  // n8 tiles over the head dim
@@ -418,7 +422,7 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
-  const uint32_t mix = dropout_mix(seed, (uint32_t)bh);
+  const uint32_t mix = dropout_mix(seed, (uint32_t)bh + bh_offset, key_offset);
   const float sl2 = scale * LOG2E;
   const float inv_keep = 1.f / keep_prob;
 
@@ -546,7 +550,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ dout, const float* __restrict__ lse,
                        const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Q,
                        int L, Strides st, float scale, uint32_t seed, uint32_t thresh,
-                       float keep_prob) {
+                       float keep_prob,
+                       uint32_t bh_offset, uint32_t key_offset) {
   constexpr int RS = D + 8;
   constexpr int KS = D / 16;
   constexpr int NT = D / 8;
@@ -590,7 +595,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
 
-  const uint32_t mix = dropout_mix(seed, (uint32_t)bh);
+  const uint32_t mix = dropout_mix(seed, (uint32_t)bh + bh_offset, key_offset);
   const float sl2 = scale * LOG2E;
   const float inv_keep = 1.f / keep_prob;
 
@@ -733,7 +738,7 @@ int launch_dkdv(const Args& a) {
       static_cast<const uint8_t*>(a.mask), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.H, a.Q, a.L, a.st, a.scale,
-      a.dr.seed, a.dr.thresh, a.dr.keep_prob);
+      a.dr.seed, a.dr.thresh, a.dr.keep_prob, a.dr.bh_offset, a.dr.key_offset);
   return (int)cudaGetLastError();
 }
 
@@ -752,7 +757,7 @@ int launch_dq(const Args& a) {
       static_cast<const uint8_t*>(a.mask), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<float*>(a.dq), a.H, a.Q, a.L, a.st, a.scale,
-      a.dr.seed, a.dr.thresh, a.dr.keep_prob);
+      a.dr.seed, a.dr.thresh, a.dr.keep_prob, a.dr.bh_offset, a.dr.key_offset);
   return (int)cudaGetLastError();
 }
 
@@ -764,7 +769,7 @@ int launch_dkdv_tc(const Args& a) {
       static_cast<const uint8_t*>(a.mask), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H, a.Q, a.L, a.st, a.scale,
-      a.dr.seed, a.dr.thresh, a.dr.keep_prob);
+      a.dr.seed, a.dr.thresh, a.dr.keep_prob, a.dr.bh_offset, a.dr.key_offset);
   return (int)cudaGetLastError();
 }
 
@@ -783,7 +788,7 @@ int launch_dq_tc(const Args& a) {
       static_cast<const uint8_t*>(a.mask), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<bf16*>(a.dq), a.H, a.Q, a.L, a.st, a.scale,
-      a.dr.seed, a.dr.thresh, a.dr.keep_prob);
+      a.dr.seed, a.dr.thresh, a.dr.keep_prob, a.dr.bh_offset, a.dr.key_offset);
   return (int)cudaGetLastError();
 }
 
@@ -824,9 +829,11 @@ int run(int which, const void* q, const void* k, const void* v, const void* mask
         const void* dout, const void* lse, const void* delta, void* dq, void* dk,
         void* dv, int B, int H, int Q, int L, int D, int dtype,
         const long long* strides, float scale, int dropout, uint32_t seed,
-        uint32_t thresh, float keep_prob, void* stream) {
+        uint32_t thresh, float keep_prob, uint32_t bh_offset, uint32_t key_offset,
+        void* stream) {
   Args a{q, k, v, mask, dout, lse, delta, dq, dk, dv, B, H, Q, L, {}, scale,
-         {dropout != 0, seed, thresh, keep_prob}, static_cast<cudaStream_t>(stream)};
+         {dropout != 0, seed, thresh, keep_prob, bh_offset, key_offset},
+         static_cast<cudaStream_t>(stream)};
   long long* dst[7] = {a.st.q, a.st.k, a.st.v, a.st.o, a.st.dq, a.st.dk, a.st.dv};
   for (int t = 0; t < 7; ++t)
     for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
@@ -851,24 +858,25 @@ extern "C" {
 // strides: 21 element strides, (batch, head, row) of q, k, v, dout, dq, dk
 // and dv in turn; the last axis of each is contiguous. mask: (B, L) bytes or
 // NULL. lse and delta: (B, H, Q) fp32, delta = rowsum(dO * O) - g_lse.
-// dropout as in petr_flash_cross_attention_fwd. Each returns
+// dropout and its offsets as in petr_flash_cross_attention_fwd. Each returns
 // cudaGetLastError() after its launch.
 int petr_flash_cross_attention_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* mask, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int H, int Q,
     int L, int D, int dtype, const long long* strides, float scale, int dropout,
-    uint32_t seed, uint32_t thresh, float keep_prob, void* stream) {
+    uint32_t seed, uint32_t thresh, float keep_prob, uint32_t bh_offset, uint32_t key_offset,
+    void* stream) {
   return run(0, q, k, v, mask, dout, lse, delta, nullptr, dk, dv, B, H, Q, L, D, dtype,
-             strides, scale, dropout, seed, thresh, keep_prob, stream);
+             strides, scale, dropout, seed, thresh, keep_prob, bh_offset, key_offset, stream);
 }
 
 int petr_flash_cross_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* mask, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int H, int Q, int L, int D,
     int dtype, const long long* strides, float scale, int dropout, uint32_t seed,
-    uint32_t thresh, float keep_prob, void* stream) {
+    uint32_t thresh, float keep_prob, uint32_t bh_offset, uint32_t key_offset, void* stream) {
   return run(1, q, k, v, mask, dout, lse, delta, dq, nullptr, nullptr, B, H, Q, L, D,
-             dtype, strides, scale, dropout, seed, thresh, keep_prob, stream);
+             dtype, strides, scale, dropout, seed, thresh, keep_prob, bh_offset, key_offset, stream);
 }
 
 const char* petr_cuda_error_string(int err) {

@@ -24,6 +24,11 @@ Conventions:
     for the flash attention, an int seed) that its caller passes in. The
     caller draws those seeds before the forward, so that a checkpointed
     layer draws the same masks again when it is recomputed.
+  * under a mesh in context (``parallel.mesh.use_mesh``) a rank computes
+    its share of petr_tpu's global-batch step: dropout draws the global
+    batch's mask and keeps this rank's rows, batch-moments BN combines its
+    moments over the data group, and the cross-attention runs on this
+    rank's slice of the keys (``key_shard``).
 """
 
 from __future__ import annotations
@@ -40,14 +45,23 @@ from torch import nn
 
 from petr_tpu_torch.ops.conv3x3 import conv3x3_bn_relu, conv_impl
 from petr_tpu_torch.ops.cross_attention import flash_cross_attention
+from petr_tpu_torch.parallel.mesh import current_mesh, data_mean, data_parallel
+from petr_tpu_torch.parallel.sharded_attention import flash_partial_attention, project_shard
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, divide the kept
-    by it; the bits come from ``generator``, on ``x``'s device."""
+    by it; the bits come from ``generator``, on ``x``'s device. Under data
+    parallelism (batch on axis 0) the generator draws the global batch's
+    mask, as petr_tpu's one program does, and this rank keeps its rows."""
     if generator is None:
         raise ValueError("a dropout in train mode needs a torch.Generator from its caller")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    mesh = data_parallel()
+    if mesh is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    else:
+        B, b0 = mesh.batch_rows(x.shape[0])
+        keep = torch.rand((B, *x.shape[1:]), generator=generator, device=x.device)[b0:b0 + x.shape[0]] >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -137,7 +151,10 @@ class FrozenBatchNorm(nn.Module):
     ``running_var`` semantics) to the innermost ``collect_batch_moments``
     block; its buffers stay as they are (petr_tpu `layers.py:94-123`). In
     eval mode it reads the running statistics, as petr_tpu's
-    ``eval_model_config`` does.
+    ``eval_model_config`` does. Under data parallelism the moments are the
+    global batch's, as petr_tpu's one program over the global batch takes
+    them: each rank's are combined over the data group by the
+    parallel-variance identity (equal shards), differentiably.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5, use_batch_stats: bool = False):
@@ -162,9 +179,15 @@ class FrozenBatchNorm(nn.Module):
             xf = x.float()
             mean = xf.mean(dim=(0, 2, 3))
             var = xf.var(dim=(0, 2, 3), unbiased=False)
+            n = x.numel() // x.shape[1]
+            mesh = data_parallel()
+            if mesh is not None:
+                # mean = avg(mean_i); var = avg(var_i + (mean_i - mean)^2)
+                local_mean, mean = mean, data_mean(mean, mesh)
+                var = data_mean(var + (local_mean - mean) ** 2, mesh)
+                n *= mesh.data
             sinks = _moment_sinks()
             if sinks:
-                n = x.numel() // x.shape[1]
                 sinks[-1].setdefault(self, (mean.detach(), (var * (n / max(n - 1, 1))).detach()))
         else:
             mean, var = self.running_mean, self.running_var
@@ -295,6 +318,14 @@ class MultiheadAttention(nn.Module):
     of petr_tpu (`layers.py:353-361`): fp32 logits, finfo.min masking,
     softmax, and dropout of the probabilities drawn from ``generator``.
     Dropout acts in train mode only.
+
+    ``key_shard`` (the first global key of ``key`` and ``value``) says they
+    are this rank's slice of the keys under token sharding: the attention
+    then runs through ``flash_partial_attention`` (K3 on the shard, the lse
+    combine over the model group), and the k/v projections' parameters take
+    their gradient summed over the group. Under a mesh the flash hash takes
+    this rank's first global batch row and key, so each rank drops by its
+    slice of the global mask.
     """
 
     def __init__(self, embed_dim: int, num_heads: int, use_flash: bool = False,
@@ -314,6 +345,7 @@ class MultiheadAttention(nn.Module):
         key_padding_mask: Optional[torch.Tensor] = None,  # (B, L) True = pad
         flash_seed: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
+        key_shard: Optional[int] = None,
     ) -> torch.Tensor:
         C, H = self.embed_dim, self.num_heads
         rate = self.dropout_rate if self.training else 0.0
@@ -321,8 +353,16 @@ class MultiheadAttention(nn.Module):
         w = self.attn.in_proj_weight.to(query.dtype)
         b = self.attn.in_proj_bias.to(query.dtype)
         q = F.linear(query, w[:C], b[:C])
-        k = F.linear(key, w[C:2 * C], b[C:2 * C])
-        v = F.linear(value, w[2 * C:], b[2 * C:])
+        mesh = current_mesh()
+        if key_shard is None:
+            k = F.linear(key, w[C:2 * C], b[C:2 * C])
+            v = F.linear(value, w[2 * C:], b[2 * C:])
+        else:
+            if not self.use_flash:
+                raise NotImplementedError("token-sharded attention runs the flash route only (use_flash=True)")
+            pw, pb = self.attn.in_proj_weight, self.attn.in_proj_bias
+            k = project_shard(key, pw[C:2 * C], pb[C:2 * C], mesh)
+            v = project_shard(value, pw[2 * C:], pb[2 * C:], mesh)
         B, Q, _ = q.shape
         L = k.shape[1]
         q = q.view(B, Q, H, D)
@@ -331,10 +371,18 @@ class MultiheadAttention(nn.Module):
         if self.use_flash:
             if rate > 0.0 and flash_seed is None:
                 raise ValueError("flash attention dropout in train mode needs a flash_seed")
-            out, _ = flash_cross_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), key_padding_mask,
-                rate, flash_seed if rate > 0.0 else None,
-            )
+            seed = flash_seed if rate > 0.0 else None
+            offsets = (0 if mesh is None else mesh.batch_rows(B)[1], key_shard or 0)
+            if key_shard is None:
+                out, _ = flash_cross_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), key_padding_mask,
+                    rate, seed, offsets,
+                )
+            else:
+                out = flash_partial_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), key_padding_mask, mesh,
+                    rate, seed, offsets,
+                )
             out = out.transpose(1, 2)
         else:
             scale = 1.0 / math.sqrt(D)

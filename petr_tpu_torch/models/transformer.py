@@ -15,6 +15,13 @@ int32 seed for the flash kernels' hash and one for a ``torch.Generator``
 that draws the others in a fixed order. With ``remat`` each layer is a
 ``torch.utils.checkpoint`` region (`petr_tpu/models/transformer.py:165`),
 and its recompute draws the same masks again from the same seeds.
+
+Under token sharding (a mesh in context with a model axis above 1) the
+transformer cuts the N*H*W memory tokens, their positional embeddings and
+their padding mask to this rank's contiguous slice (`petr_tpu/models/
+transformer.py:209-215`), a short last shard padded and masked, and each
+layer's cross-attention attends over that slice (``key_shard``); the
+queries stay replicated.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from petr_tpu_torch.models.layers import FFN, LayerNorm, MultiheadAttention, dropout
+from petr_tpu_torch.parallel.mesh import token_parallel
+from petr_tpu_torch.parallel.sharded_attention import scatter_mask_to_model, scatter_to_model
 
 # (flash seed, dropout seed) of one decoder layer's training forward
 LayerSeeds = Tuple[int, int]
@@ -68,6 +77,7 @@ class PETRDecoderLayer(nn.Module):
         key_pos: torch.Tensor,  # (B, L, C)
         key_padding_mask: Optional[torch.Tensor],  # (B, L) True = pad
         seeds: Optional[LayerSeeds] = None,
+        key_shard: Optional[int] = None,  # memory is this rank's keys from this global key on
     ) -> torch.Tensor:
         rate, flash_seed, gen = layer_noise(self, seeds, query.device)
         q_in = query + query_pos
@@ -77,7 +87,7 @@ class PETRDecoderLayer(nn.Module):
         query = self.norms[0](query + sa)
         ca = self.attentions[1](
             query + query_pos, memory + key_pos, memory, key_padding_mask=key_padding_mask,
-            flash_seed=flash_seed, generator=gen,
+            flash_seed=flash_seed, generator=gen, key_shard=key_shard,
         )
         if rate > 0.0:
             ca = dropout(ca, rate, gen)  # drop_ca
@@ -103,15 +113,17 @@ class PETRTransformerDecoder(nn.Module):
         self.post_norm = LayerNorm(embed_dim)
 
     def forward(self, query, memory, query_pos, key_pos, key_padding_mask=None,
-                layer_seeds: Optional[Sequence[LayerSeeds]] = None, depth: Optional[torch.Tensor] = None):
+                layer_seeds: Optional[Sequence[LayerSeeds]] = None, depth: Optional[torch.Tensor] = None,
+                key_shard: Optional[int] = None):
         remat = self.remat and self.training and torch.is_grad_enabled()
         outs = []
+        kwargs = {} if key_shard is None else {"key_shard": key_shard}
         for i, layer in enumerate(self.layers):
             seeds = None if layer_seeds is None else tuple(layer_seeds[i])
             args = (query, memory, query_pos, key_pos, key_padding_mask, seeds)
             if depth is not None:
                 args += (depth,)
-            query = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
+            query = checkpoint(layer, *args, use_reentrant=False, **kwargs) if remat else layer(*args, **kwargs)
             outs.append(self.post_norm(query))
         return torch.stack(outs, dim=0)
 
@@ -129,6 +141,7 @@ class PETRTransformer(nn.Module):
                  remat: bool = False, make_layer: Optional[Callable[[], nn.Module]] = None):
         super().__init__()
         self.dtype = dtype
+        self.custom_layers = make_layer is not None
         self.decoder = PETRTransformerDecoder(
             num_layers, embed_dim, num_heads, ffn_dim, use_flash, dropout_rate, remat, make_layer
         )
@@ -151,4 +164,12 @@ class PETRTransformer(nn.Module):
         target = torch.zeros((B, Q, C), dtype=self.dtype, device=feats.device)
         if depth is not None:
             depth = depth.reshape(B, N * H * W, C).to(self.dtype)
-        return self.decoder(target, memory, query_pos, key_pos, key_padding_mask, layer_seeds, depth)
+        mesh, key_shard = token_parallel(), None
+        if mesh is not None:
+            if self.custom_layers:
+                raise NotImplementedError("token sharding runs PETRDecoderLayer only")
+            L = N * H * W
+            memory, key_shard = scatter_to_model(memory, mesh)
+            key_pos, _ = scatter_to_model(key_pos, mesh)
+            key_padding_mask = scatter_mask_to_model(key_padding_mask, L, mesh, B, feats.device)
+        return self.decoder(target, memory, query_pos, key_pos, key_padding_mask, layer_seeds, depth, key_shard)

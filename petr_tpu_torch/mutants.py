@@ -2,14 +2,16 @@
 """Mutation check of the port on one CUDA card: its bf16 tensor-core
 kernels, the r50dcn step's reproducibility, PETRv2's with_time, the
 Depthr decoder's key/value rebinding, the checkpoint's resume, the
-evaluation's route through K1, batch BN's running statistics and the
-training CLI's resume.
+evaluation's route through K1, batch BN's running statistics, the
+training CLI's resume, and parallel training's collectives, dropout draws
+and hash offsets.
 
     python3 -m petr_tpu_torch.mutants [--out DIR] [NAME ...]
 
 For each mutant (every one, or those NAMEd) it copies ``petr_tpu_torch/``
 and ``chip_smoke.py`` into a temporary directory, makes one change to one
-source there (never in the checkout), and runs ``chip_smoke.py --phases P``
+source there (never in the checkout; a mutant may change several places
+of that source), and runs ``chip_smoke.py --phases P``
 in the copy with the mutant's phases, which must fail one of its checks:
 exit 1 with an AssertionError (a subset of phases exits 1 even when it
 passes). Each run's output goes to ``DIR/<mutant>.log`` (default
@@ -29,7 +31,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# name -> (source under petr_tpu_torch, text, its replacement, the phases that must catch it)
+# name -> (source under petr_tpu_torch, text, its replacement, the phases that must catch it); text and
+# replacement may be tuples of as many changes to the one source
 MUTANTS = {
     "k5_tap_shift": (
         "csrc/conv3x3_bn_relu.cu",
@@ -101,6 +104,28 @@ MUTANTS = {
         "            pass\n",
         "11",
     ),
+    "sharded_combine_backward_all_reduced": (
+        "parallel/sharded_attention.py",
+        "        return g, None\n",  # the combine's backward all-reduces its cotangent: gradients x group size
+        "        return _all_reduce(g, ctx.group), None\n",
+        "12",
+    ),
+    "flash_hash_ignores_key_offset": (
+        "csrc/flash_cross_attention.cu",
+        # both K1 kernels hash a shard's local key index: every shard draws the first shard's mask
+        ("const uint32_t mix = dropout_mix(seed, (uint32_t)bh + bh_offset, key_offset);\n\n  // logits",
+         "const uint32_t mix = dropout_mix(seed, (uint32_t)bh + bh_offset, key_offset);\n  const float sl2"),
+        ("const uint32_t mix = dropout_mix(seed, (uint32_t)bh + bh_offset, 0u);\n\n  // logits",
+         "const uint32_t mix = dropout_mix(seed, (uint32_t)bh + bh_offset, 0u);\n  const float sl2"),
+        "12",
+    ),
+    "dp_noise_drawn_local": (
+        "models/layers.py",
+        # each rank draws a dropout mask of its local shape: every rank drops as global row 0
+        "        keep = torch.rand((B, *x.shape[1:]), generator=generator, device=x.device)[b0:b0 + x.shape[0]] >= rate\n",
+        "        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate\n",
+        "12",
+    ),
 }
 
 
@@ -112,10 +137,13 @@ def run(name: str, source: str, text: str, replacement: str, phases: str, out: P
         shutil.copy(ROOT / "chip_smoke.py", work / "chip_smoke.py")
         path = work / "petr_tpu_torch" / source
         code = path.read_text()
-        if code.count(text) != 1:
-            print(f"mutant {name}: the text to change occurs {code.count(text)} times in {source}")
-            return False
-        path.write_text(code.replace(text, replacement))
+        texts, replacements = (text, replacement) if isinstance(text, tuple) else ((text,), (replacement,))
+        for t, r in zip(texts, replacements):
+            if code.count(t) != 1:
+                print(f"mutant {name}: the text to change occurs {code.count(t)} times in {source}")
+                return False
+            code = code.replace(t, r)
+        path.write_text(code)
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", phases], cwd=work,
                               capture_output=True, text=True)

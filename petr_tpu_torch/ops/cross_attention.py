@@ -22,6 +22,12 @@ Attention dropout (the train step's) drops the normalised probabilities by
 a keep mask hashed from the global (query, key) coordinates, the seed and
 b*H + h, bit for bit `_dropout_keep`; the softmax denominator and lse are
 taken before dropout, and the backward regenerates the mask from the hash.
+A shard of a larger problem (a rank's batch rows, or its slice of the keys)
+passes ``dropout_offsets`` = (its first global batch row, its first global
+key), and then draws exactly its slice of the whole problem's mask: petr_tpu
+hashes global coordinates because its sharded step is one program over the
+global batch (`_dropout_keep`, `cross_attention.py:37-52`). (0, 0), the
+default, is the whole problem.
 """
 
 from __future__ import annotations
@@ -89,12 +95,15 @@ def _dropout_keep(seed: int, bh: int, qi: int, ki: int, BQ: int, bk: int, rate: 
 
 
 def dropout_keep_mask(seed: int, B: int, H: int, Q: int, L: int, rate: float,
-                      device=None) -> torch.Tensor:
-    """The whole (B, H, Q, L) keep mask the kernels hash, as a bool tensor."""
-    bh = torch.arange(B * H, dtype=torch.int64, device=device).view(B, H, 1, 1)
+                      device=None, offsets: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """The (B, H, Q, L) keep mask the kernels hash, as a bool tensor: the
+    whole problem's, or with ``offsets`` = (first batch row, first key) the
+    slice of a larger problem's mask at those global coordinates."""
+    b0, k0 = offsets
+    bh = torch.arange(b0 * H, (b0 + B) * H, dtype=torch.int64, device=device).view(B, H, 1, 1)
     rows = torch.arange(Q, dtype=torch.int64, device=device).view(1, 1, Q, 1)
-    cols = torch.arange(L, dtype=torch.int64, device=device).view(1, 1, 1, L)
-    return _hash_keep(seed, bh, rows, cols, rate)
+    cols = torch.arange(k0, k0 + L, dtype=torch.int64, device=device).view(1, 1, 1, L)
+    return _hash_keep(seed, bh & _M32, rows, cols & _M32, rate)
 
 
 # ----------------------------------------------------------- plain versions
@@ -106,6 +115,7 @@ def flash_cross_attention_reference(
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
     round_p: bool = False,
+    dropout_offsets: Tuple[int, int] = (0, 0),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense fp32 attention with K1's exact semantics -> (out, lse).
 
@@ -120,7 +130,7 @@ def flash_cross_attention_reference(
         return q.new_zeros(q.shape), torch.full((B, H, Q), -NEG, device=q.device)
     masked = None if key_padding_mask is None else key_padding_mask.to(torch.bool)[:, None, None, :]
     if round_p:
-        return _reference_rounded(q, k, v, masked, dropout_rate, dropout_seed)
+        return _reference_rounded(q, k, v, masked, dropout_rate, dropout_seed, dropout_offsets)
     s = torch.matmul(q.float() * (1.0 / math.sqrt(D)), k.float().transpose(-1, -2))
     if masked is not None:
         s = s.masked_fill(masked, NEG)
@@ -131,7 +141,7 @@ def flash_cross_attention_reference(
         p = p.masked_fill(masked, 0.0)
     l = p.sum(-1, keepdim=True)  # the denominator is taken before dropout
     if dropout_rate > 0.0:
-        keep = dropout_keep_mask(dropout_seed or 0, B, H, Q, L, dropout_rate, q.device)
+        keep = dropout_keep_mask(dropout_seed or 0, B, H, Q, L, dropout_rate, q.device, dropout_offsets)
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
     out = torch.matmul(p, v.float()) / l.clamp(min=1e-20)
     lse = torch.where(m <= NEG * 0.5, torch.full_like(m, -NEG), m + torch.log(l))
@@ -145,7 +155,7 @@ def logit_scale_log2(D: int) -> float:
     return (one(1.0 / math.sqrt(D)) * one(LOG2E)).item()
 
 
-def _reference_rounded(q, k, v, masked, dropout_rate, dropout_seed):
+def _reference_rounded(q, k, v, masked, dropout_rate, dropout_seed, dropout_offsets=(0, 0)):
     """``flash_cross_attention_reference(..., round_p=True)``."""
     B, H, Q, D = q.shape
     L = k.shape[2]
@@ -159,7 +169,7 @@ def _reference_rounded(q, k, v, masked, dropout_rate, dropout_seed):
     l = p.sum(-1, keepdim=True)
     p = p.bfloat16().float()
     if dropout_rate > 0.0:
-        keep = dropout_keep_mask(dropout_seed or 0, B, H, Q, L, dropout_rate, q.device)
+        keep = dropout_keep_mask(dropout_seed or 0, B, H, Q, L, dropout_rate, q.device, dropout_offsets)
         p = torch.where(keep, p, 0.0)
     out = torch.matmul(p, v.float()) / (1.0 - dropout_rate) / l.clamp(min=1e-20)
     lse = torch.where(m <= NEG * 0.5, torch.full_like(m, -NEG), (m + torch.log2(l)) * math.log(2.0))
@@ -175,7 +185,8 @@ def _delta(gout: torch.Tensor, out: torch.Tensor, glse: Optional[torch.Tensor]) 
     return delta.contiguous()
 
 
-def _backward_plain(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, dropout_seed):
+def _backward_plain(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, dropout_seed,
+                    dropout_offsets=(0, 0)):
     """`_bwd_kernel` as dense fp32 math -> fp32 (dq, dk, dv)."""
     B, H, Q, D = q.shape
     L = k.shape[2]
@@ -190,7 +201,7 @@ def _backward_plain(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, d
     dp = torch.matmul(gf, vf.transpose(-1, -2))
     p_drop = p
     if dropout_rate > 0.0:
-        keep = dropout_keep_mask(dropout_seed or 0, B, H, Q, L, dropout_rate, q.device)
+        keep = dropout_keep_mask(dropout_seed or 0, B, H, Q, L, dropout_rate, q.device, dropout_offsets)
         p_drop = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
         dp = torch.where(keep, dp / (1.0 - dropout_rate), 0.0)
     dv = torch.matmul(p_drop.transpose(-1, -2), gf)
@@ -211,27 +222,31 @@ def flash_cross_attention_backward_reference(
     glse: Optional[torch.Tensor] = None,  # cotangent of lse
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
+    dropout_offsets: Tuple[int, int] = (0, 0),
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dense fp32 K2 (`_flash_bwd_shared` + `_bwd_kernel`) -> (dq, dk, dv)
     in the input dtype."""
     delta = _delta(gout, out, glse)
-    grads = _backward_plain(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, dropout_seed)
+    grads = _backward_plain(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, dropout_seed,
+                            dropout_offsets)
     return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
 
 
 # --------------------------------------------------------------- autograd
 class _FlashCrossAttention(torch.autograd.Function):
-    """(q, k, v) -> (out, lse). Saves q, k, v, the mask, the seed, out and
-    lse; the backward recomputes the probabilities (and the keep mask)."""
+    """(q, k, v) -> (out, lse). Saves q, k, v, the mask, the seed and its
+    offsets, out and lse; the backward recomputes the probabilities (and the
+    keep mask)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_padding_mask, dropout_rate, dropout_seed, lse_grad, plain):
+    def forward(ctx, q, k, v, key_padding_mask, dropout_rate, dropout_seed, lse_grad, plain, offsets):
         if plain or q.device.type == "cpu":
-            out, lse = flash_cross_attention_reference(q, k, v, key_padding_mask, dropout_rate, dropout_seed)
+            out, lse = flash_cross_attention_reference(q, k, v, key_padding_mask, dropout_rate, dropout_seed,
+                                                       dropout_offsets=offsets)
         else:
-            out, lse = _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed)
+            out, lse = _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed, offsets=offsets)
         ctx.save_for_backward(q, k, v, key_padding_mask, out, lse)
-        ctx.dropout = (dropout_rate, dropout_seed)
+        ctx.dropout = (dropout_rate, dropout_seed, offsets)
         ctx.plain = plain
         ctx.set_materialize_grads(False)
         if not lse_grad:
@@ -244,13 +259,13 @@ class _FlashCrossAttention(torch.autograd.Function):
         if gout is None:
             gout = torch.zeros_like(out)
         delta = _delta(gout, out, glse)
-        rate, seed = ctx.dropout
+        rate, seed, offsets = ctx.dropout
         if ctx.plain or q.device.type == "cpu":
-            grads = _backward_plain(q, k, v, key_padding_mask, gout, lse, delta, rate, seed)
+            grads = _backward_plain(q, k, v, key_padding_mask, gout, lse, delta, rate, seed, offsets)
             dq, dk, dv = (g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
         else:
-            dq, dk, dv = _backward_cuda(q, k, v, key_padding_mask, gout, lse, delta, rate, seed)
-        return dq, dk, dv, None, None, None, None, None
+            dq, dk, dv = _backward_cuda(q, k, v, key_padding_mask, gout, lse, delta, rate, seed, offsets=offsets)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _check_device(q: torch.Tensor) -> None:
@@ -265,6 +280,7 @@ def flash_cross_attention(
     key_padding_mask: Optional[torch.Tensor] = None,  # (B, L) True = pad
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,  # int32 (train only)
+    dropout_offsets: Tuple[int, int] = (0, 0),  # this shard's (first batch row, first key)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked cross-attention -> (out (B, H, Q, D) in q's dtype, lse (B, H, Q) fp32).
 
@@ -275,7 +291,8 @@ def flash_cross_attention(
     a (B, Q, H, D) buffer, so that merging the heads copies nothing.
     """
     _check_device(q)
-    return _FlashCrossAttention.apply(q, k, v, key_padding_mask, dropout_rate, dropout_seed, False, False)
+    return _FlashCrossAttention.apply(q, k, v, key_padding_mask, dropout_rate, dropout_seed, False, False,
+                                      tuple(dropout_offsets))
 
 
 def flash_cross_attention_with_lse(
@@ -285,12 +302,14 @@ def flash_cross_attention_with_lse(
     key_padding_mask: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
+    dropout_offsets: Tuple[int, int] = (0, 0),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: like ``flash_cross_attention``, but differentiable in lse too, the
     combiner of sequence-parallel attention (`flash_cross_attention_with_lse`,
     `cross_attention.py:402`). The lse cotangent folds into delta."""
     _check_device(q)
-    return _FlashCrossAttention.apply(q, k, v, key_padding_mask, dropout_rate, dropout_seed, True, False)
+    return _FlashCrossAttention.apply(q, k, v, key_padding_mask, dropout_rate, dropout_seed, True, False,
+                                      tuple(dropout_offsets))
 
 
 def flash_cross_attention_plain(
@@ -301,10 +320,12 @@ def flash_cross_attention_plain(
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
     lse_grad: bool = False,
+    dropout_offsets: Tuple[int, int] = (0, 0),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The same Function on the plain versions both ways, on any device:
     the yardstick ``chip_smoke.py`` holds the kernels' train step to."""
-    return _FlashCrossAttention.apply(q, k, v, key_padding_mask, dropout_rate, dropout_seed, lse_grad, True)
+    return _FlashCrossAttention.apply(q, k, v, key_padding_mask, dropout_rate, dropout_seed, lse_grad, True,
+                                      tuple(dropout_offsets))
 
 
 # ------------------------------------------------------------ CUDA launches
@@ -346,13 +367,17 @@ def _mask_ptr(key_padding_mask, B, L, device):
     return mask, mask.data_ptr()
 
 
-def _dropout_args(dropout_rate: float, dropout_seed: Optional[int]):
-    """(on, seed bits, threshold, keep probability) for the C interface."""
+def _dropout_args(dropout_rate: float, dropout_seed: Optional[int], H: int = 1,
+                  offsets: Tuple[int, int] = (0, 0)):
+    """(on, seed bits, threshold, keep probability, first global b*H + h,
+    first global key) for the C interface."""
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
     if dropout_rate == 0.0:
-        return 0, 0, 0, 1.0
-    return 1, int(dropout_seed or 0) & _M32, dropout_threshold(dropout_rate), 1.0 - dropout_rate
+        return 0, 0, 0, 1.0, 0, 0
+    b0, k0 = offsets
+    return (1, int(dropout_seed or 0) & _M32, dropout_threshold(dropout_rate), 1.0 - dropout_rate,
+            (b0 * H) & _M32, k0 & _M32)
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -380,9 +405,10 @@ def key_split_plan(L: int, query_warps: int):
             for w in range(splits)]
 
 
-def _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed, query_warps=None):
+def _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed, query_warps=None, offsets=(0, 0)):
     """K1: (out, lse), the tensor-core kernel for bf16 and the CUDA-core one
-    for fp32. ``query_warps`` overrides ``attention_plan`` (bf16 only)."""
+    for fp32. ``query_warps`` overrides ``attention_plan`` (bf16 only);
+    ``offsets`` are the hash's (first batch row, first key)."""
     global LAUNCHES, LAUNCHES_FP32
     B, H, Q, L, D = _check_inputs(q, k, v)
     q, k, v = _last_contiguous(q, k, v)
@@ -394,7 +420,7 @@ def _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed, query_w
         if query_warps not in (2, 4):
             raise ValueError(f"query_warps must be 2 or 4, got {query_warps}")
     _, mask_ptr = _mask_ptr(key_padding_mask, B, L, q.device)
-    drop = _dropout_args(dropout_rate, dropout_seed)
+    drop = _dropout_args(dropout_rate, dropout_seed, H, offsets)
     out = torch.empty((B, Q, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, Q), dtype=torch.float32, device=q.device)
     if Q == 0:
@@ -417,7 +443,7 @@ def _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed, query_w
 
 
 def _backward_cuda(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, dropout_seed,
-                   kernels=("dkdv", "dq")):
+                   kernels=("dkdv", "dq"), offsets=(0, 0)):
     """K2: (dq, dk, dv) in q's dtype, from the dK/dV kernel and the dQ kernel,
     the tensor-core variants for bf16 and the CUDA-core ones for fp32.
     ``kernels`` names the kernels to launch (a timing can take one alone;
@@ -433,7 +459,7 @@ def _backward_cuda(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, dr
     lse = lse.to(torch.float32).contiguous()
     delta = delta.to(torch.float32).contiguous()
     _, mask_ptr = _mask_ptr(key_padding_mask, B, L, q.device)
-    drop = _dropout_args(dropout_rate, dropout_seed)
+    drop = _dropout_args(dropout_rate, dropout_seed, H, offsets)
     # (B, H, ., D) views of (B, ., H, D) buffers, like the projections' grads
     dq = torch.empty((B, Q, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     dk = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -464,7 +490,7 @@ def _backward_cuda(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, dr
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_DROP = [_I, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float]
+_DROP = [_I, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32]
 
 
 def _bind(lib: ctypes.CDLL, fn: str, argtypes) -> None:

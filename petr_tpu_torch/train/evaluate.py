@@ -64,8 +64,59 @@ def evaluate_model(cfg, model: nn.Module, ds, batch_size: int = 1, classes=None)
     return evaluate_detections(gts, preds)
 
 
-def evaluate_model_multiprocess(cfg, model: nn.Module, ds, batch_size: int = 1) -> Dict[str, float]:
-    """petr_tpu's full-split eval over processes (`evaluate.py:73`): not
-    ported yet."""
-    raise NotImplementedError(
-        "evaluate_model_multiprocess needs torch.distributed: ROADMAP.md §1, item 10 (parallel)")
+def evaluate_model_multiprocess(cfg, model: nn.Module, ds, batch_size: int = 1, classes=None) -> Dict[str, float]:
+    """Full-split eval over the ranks of the process group; call it on every
+    rank (`petr_tpu/train/evaluate.py:73-150`).
+
+    Rank p decodes ``infos[p::nproc]`` on its own device with no mesh in
+    context: the ranks run different numbers of eval steps, so a collective
+    inside the decode (the token-sharded decoder's) would deadlock, which
+    is why petr_tpu decodes under a one-device local mesh. Each rank pads
+    its decode arrays to the common maximum, one ``all_gather_object``
+    (pickled through the process group) makes every rank's detections
+    visible, and every rank returns the same full-split metric dict. With
+    fewer samples than ranks it raises on every rank (the split's size is
+    known to all, so none is left waiting in the gather)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from petr_tpu_torch.parallel.mesh import use_mesh
+
+    nproc = dist.get_world_size() if dist.is_initialized() else 1
+    if nproc == 1:
+        return evaluate_model(cfg, model, ds, batch_size, classes)
+    pid = dist.get_rank()
+    if len(ds.infos) < nproc:
+        raise ValueError(f"evaluate_model_multiprocess: {len(ds.infos)} val samples < {nproc} processes: "
+                         "every process would not get a shard")
+    local_ds = copy.copy(ds)
+    local_ds.infos = list(ds.infos)[pid::nproc]
+    with use_mesh(None):
+        tokens, det = _decode_dataset(cfg, model, local_ds, batch_size)
+
+    n_max = (len(ds.infos) + nproc - 1) // nproc
+    n_local = len(tokens)
+
+    def pad(x):
+        if n_local == n_max:
+            return x
+        return np.concatenate([x, np.zeros((n_max - n_local,) + x.shape[1:], x.dtype)], axis=0)
+
+    payload = {k: pad(v) for k, v in det.items()}
+    payload["n_valid"] = n_local
+    gathered: List[Dict] = [None] * nproc
+    dist.all_gather_object(gathered, payload)
+
+    info_by_token = {info["token"]: info for info in ds.infos}
+    preds = {}
+    for p in range(nproc):
+        toks = [info["token"] for info in list(ds.infos)[p::nproc]]
+        if gathered[p]["n_valid"] != len(toks):
+            raise RuntimeError(f"rank {p} decoded {gathered[p]['n_valid']} samples of {len(toks)}")
+        det_p = {k: gathered[p][k] for k in DET_KEYS}
+        preds.update(_preds_from_det(toks, det_p, info_by_token))
+    gts = ground_truth_from_infos(ds.infos)
+    if classes is not None:
+        return evaluate_detections(gts, preds, classes=classes)
+    return evaluate_detections(gts, preds)

@@ -10,7 +10,10 @@ Counterpart of `petr_tpu/train/losses.py` (reference
     (``sync_cls_avg_factor=False``, the reference's per-GPU normaliser), or
     by the batch's; the L1 by the batch's positive count clamped at 1, and
     weighted by ``code_weights``;
-  * all in fp32; no gradient flows through the matching costs.
+  * all in fp32; no gradient flows through the matching costs;
+  * under data parallelism (a mesh in context) the batch's positive count
+    is the mean of the ranks' counts (`petr_tpu/train/losses.py:133-134`),
+    so that the ranks' mean loss is the global batch's.
 
 The costs of all layers and samples cross to the host in one copy for the
 LAP (`ops/matcher.py`). The assignment may also come in precomputed
@@ -27,6 +30,7 @@ import torch
 from petr_tpu_torch.ops.boxes import encode_bbox
 from petr_tpu_torch.ops.losses import bbox_l1_cost, focal_loss_cost, sigmoid_focal_loss, weighted_l1_loss
 from petr_tpu_torch.ops.matcher import match_layers
+from petr_tpu_torch.parallel.mesh import data_mean, data_parallel
 
 
 def target_codes(gt_boxes: torch.Tensor, gt_valid: torch.Tensor) -> torch.Tensor:
@@ -126,7 +130,8 @@ def petr_set_loss(
 
     losses: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), dtype=torch.float32, device=dev)
-    n_pos = num_pos.sum()
+    # the positive count the normalisers take: the mean of the data group's
+    n_pos = data_mean(num_pos.sum(), data_parallel())
     for lvl in range(L):
         if sync_cls_avg_factor:
             loss_cls = sigmoid_focal_loss(

@@ -30,6 +30,17 @@ Batch dict contract (tensors or numpy arrays, statically shaped):
 
 ``make_eval_step`` is petr_tpu's eval step: the eval forward, then the
 NMS-free decode of the last decoder layer, on the model's device.
+
+Over several ranks (``make_train_step(cfg, mesh)``, `petr_tpu/train/
+train_step.py:254-279`) each rank steps on its rows of the global batch
+(``parallel.shard_batch``) under the mesh, and the step is petr_tpu's
+global-batch step: the forward takes this rank's rows of the global
+batch's dropout masks and the global batch's BN moments, the loss
+normalises by the data group's mean positive count, the host matcher runs
+on the local samples, and the gradients and the loss are averaged over
+the data group before the norm, the non-finite count and the skip, so that
+every rank takes the same decision. A token-sharded decoder (model axis
+above 1) hands each rank the replicated gradient itself.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ import torch
 from petr_tpu_torch.configs.config import ExperimentConfig
 from petr_tpu_torch.models.detector import PETRDetector, draw_train_noise, init_weights
 from petr_tpu_torch.models.layers import collect_batch_moments
+from petr_tpu_torch.parallel.mesh import Mesh, data_mean, use_mesh
 from petr_tpu_torch.serve.export import decode_last_layer, resolve_device
 from petr_tpu_torch.train.losses import petr_set_loss
 from petr_tpu_torch.train.optim import build_optimizer, clip_by_global_norm, global_norm, make_lr_schedule
@@ -144,14 +156,16 @@ def _to_device(batch, keys: Tuple[str, ...], device: torch.device) -> Dict[str, 
     return {k: torch.as_tensor(batch[k]).to(device) for k in keys}
 
 
-def make_grad_fn(cfg: ExperimentConfig):
+def make_grad_fn(cfg: ExperimentConfig, mesh: Optional[Mesh] = None):
     """``grad_fn(model, batch, generator, indices=None)`` ->
     (total, losses, grads by parameter name, the (L, B, G) assignment,
     the BN batch moments).
 
     ``indices`` injects a precomputed assignment into the set loss. The
     moments are those of a ``bn_mode="batch"`` backbone ({} under frozen
-    BN), taken in the forward and not again in a remat recompute.
+    BN), taken in the forward and not again in a remat recompute. With a
+    ``mesh`` the forward and backward run under it on this rank's rows:
+    the total, losses and gradients are this rank's, not yet averaged.
     """
     ocfg = cfg.train.optim
     keys = batch_keys(cfg)
@@ -162,15 +176,16 @@ def make_grad_fn(cfg: ExperimentConfig):
         device = next(model.parameters()).device
         b = _to_device(batch, keys, device)
         noise = draw_train_noise(cfg.model, b["images"].shape[2], generator)
-        outputs, bn_stats = _forward_collecting(model, b, noise)
-        total, losses, indices = petr_set_loss(
-            outputs, b["gt_boxes"], b["gt_labels"], b["gt_valid"],
-            num_classes=cfg.model.head.num_classes, cls_weight=ocfg.cls_weight,
-            bbox_weight=ocfg.bbox_weight, code_weights=ocfg.code_weights,
-            sync_cls_avg_factor=ocfg.sync_cls_avg_factor, indices=indices,
-        )
-        params = {n: p for n, p in model.named_parameters() if p.requires_grad}
-        raw = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+        with use_mesh(mesh):
+            outputs, bn_stats = _forward_collecting(model, b, noise)
+            total, losses, indices = petr_set_loss(
+                outputs, b["gt_boxes"], b["gt_labels"], b["gt_valid"],
+                num_classes=cfg.model.head.num_classes, cls_weight=ocfg.cls_weight,
+                bbox_weight=ocfg.bbox_weight, code_weights=ocfg.code_weights,
+                sync_cls_avg_factor=ocfg.sync_cls_avg_factor, indices=indices,
+            )
+            params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+            raw = torch.autograd.grad(total, list(params.values()), allow_unused=True)
         grads = {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(params.items(), raw)}
         return total.detach(), {k: v.detach() for k, v in losses.items()}, grads, indices, bn_stats
 
@@ -234,7 +249,23 @@ def _ema_bn_stats(model: torch.nn.Module, stats: BNStats, momentum: float = 0.1)
         buffers[key].copy_((1.0 - momentum) * buffers[key] + momentum * v)
 
 
-def make_train_step(cfg: ExperimentConfig):
+@torch.no_grad()
+def data_mean_grads(grads: Grads, mesh: Optional[Mesh]) -> Grads:
+    """The gradients averaged over the data group, in one all-reduce of
+    their concatenation."""
+    if mesh is None or mesh.data == 1:
+        return grads
+    names = list(grads)
+    flat = data_mean(torch.cat([grads[n].reshape(-1) for n in names]), mesh)
+    out, at = {}, 0
+    for n in names:
+        g = grads[n]
+        out[n] = flat[at:at + g.numel()].view_as(g)
+        at += g.numel()
+    return out
+
+
+def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None):
     """``train_step(state, batch, generator)`` -> (state, metrics), updating
     ``state`` in place.
 
@@ -247,8 +278,13 @@ def make_train_step(cfg: ExperimentConfig):
     batch's BN moments are folded into the running statistics after the
     update, on every step, skipped ones included (torch updates them in
     the forward, before and apart from ``optimizer.step``).
+
+    With a ``mesh``, ``batch`` is this rank's rows of the global batch and
+    every rank calls the step with the same generator: the gradients, the
+    loss and the per-layer losses are averaged over the data group
+    (``num_pos`` summed) before anything reads them.
     """
-    grad_fn = make_grad_fn(cfg)
+    grad_fn = make_grad_fn(cfg, mesh)
     accum = cfg.train.grad_accum
 
     def train_step(state: TrainState, batch, generator: torch.Generator):
@@ -257,6 +293,10 @@ def make_train_step(cfg: ExperimentConfig):
         else:
             total, losses, grads, bn_stats = accumulate_grads(
                 grad_fn, state.model, batch, generator, accum, batch_keys(cfg))
+        if mesh is not None and mesh.data > 1:
+            grads = data_mean_grads(grads, mesh)
+            total = data_mean(total, mesh)
+            losses = {k: data_mean(v, mesh) * (mesh.data if k == "num_pos" else 1) for k, v in losses.items()}
         names = list(grads)
         gnorm = global_norm([grads[n] for n in names])
         nonfinite = int(sum((~torch.isfinite(g)).sum() for g in grads.values()))

@@ -219,9 +219,13 @@ def test_tensorboard_falls_back_to_json(two_runs):
     assert not os.path.exists(works[1] / "tb") and step_losses(works[1])
 
 
-@pytest.mark.parametrize("extra", [["--num-processes", "2"], ["--coordinator", "localhost:1234"]])
+@pytest.mark.parametrize("extra", [["--num-processes", "2"],
+                                   ["--coordinator", "localhost:1234", "--num-processes", "2", "--process-id", "2"]])
 def test_more_than_one_process_is_not_ported(synth, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """Several processes are ported (tests/test_torch_port_parallel_cli.py);
+    an inconsistent launch raises before it joins any process group: more
+    than one process without a coordinator, a process id past the count."""
+    with pytest.raises(ValueError, match="coordinator|outside"):
         cli.main(train_args(synth, tmp_path, *extra))
 
 

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the card:
 K1 (the forward, with and without dropout), K2 (the backward's dK/dV and dQ
-kernels), K3 (the lse cotangent through the autograd Function), K4 (DCNv2,
+kernels), both with a shard's hash offsets, K3 (the lse cotangent through
+the autograd Function), K4 (DCNv2,
 forward and the gradients through its Function) and K5 (the fused conv3x3);
 each kernel in both variants, bf16 on the tensor cores and fp32 on the CUDA
 cores. The bf16 K1 and K4 are also held to their rounding floors (the plain
@@ -220,6 +221,25 @@ def test_backward_kernels_match_plain_version(cuda, dtype, rate, B, H, Q, L, D):
     _assert_grads_close(got, want, dtype)
     if B > 1:  # the fully masked batch row: exact zeros
         assert all((g[-1] == 0).all() for g in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("offsets", [(1, 0), (0, 3000), (3, 517)])
+def test_kernels_hash_a_shards_global_coordinates(cuda, dtype, offsets):
+    """K1 and K2 with a shard's offsets (its first global batch row and key)
+    drop by the plain versions' mask at those coordinates."""
+    B, H, Q, L, D = 2, 4, 130, 1000, 32
+    q, k, v, mask = _inputs(B, H, Q, L, D, dtype, seed=11)
+    out, lse = ca._forward_cuda(q, k, v, mask, 0.1, -5, offsets=offsets)
+    want, want_lse = ca.flash_cross_attention_reference(q, k, v, mask, 0.1, -5, dropout_offsets=offsets)
+    atol, rtol = (1e-4, 0.0) if dtype == torch.float32 else (2e-3, 1e-2)
+    err = (out.float() - want.float()).abs()
+    assert (err <= atol + rtol * want.float().abs()).all(), f"out: max abs err {err.max().item():.3e}"
+    gout = torch.randn(B, H, Q, D, device="cuda").to(dtype)
+    delta = ca._delta(gout, want, None)
+    got = ca._backward_cuda(q, k, v, mask, gout, want_lse, delta, 0.1, -7, offsets=offsets)
+    _assert_grads_close(got, ca.flash_cross_attention_backward_reference(
+        q, k, v, mask, want, want_lse, gout, None, 0.1, -7, dropout_offsets=offsets), dtype)
 
 
 def test_bf16_backward_takes_unaligned_views(cuda):

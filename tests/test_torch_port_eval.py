@@ -138,8 +138,10 @@ def test_evaluate_model_matches(run):
 
 
 def test_evaluate_model_multiprocess_is_not_ported(run):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        evaluate.evaluate_model_multiprocess(run.cfg, run.model, run.ds)
+    """Several processes are ported (tests/test_torch_port_parallel_cli.py);
+    without a process group it is ``evaluate_model`` itself."""
+    got = evaluate.evaluate_model_multiprocess(run.cfg, run.model, run.ds, 2, classes=CLASSES)
+    np.testing.assert_equal(got, run.got["metrics"])
 
 
 # --------------------------------------------------------------- checkpoints

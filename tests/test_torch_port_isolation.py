@@ -1,5 +1,5 @@
 """The port stands alone: nothing under petr_tpu_torch/, and not
-chip_smoke.py, imports JAX, flax, petr_tpu, the graft entry point or triton,
+chip_smoke.py or the parallel tests' rank functions, imports JAX, flax, petr_tpu, the graft entry point or triton,
 and importing the package loads no JAX and builds no kernel."""
 
 import ast
@@ -12,7 +12,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "petr_tpu", "__graft_entry__", "triton")
-PORT_FILES = sorted((ROOT / "petr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the rank functions that spawned ranks of the parallel tests import by name
+WORKERS = ROOT / "tests" / "test_torch_port_parallel_workers.py"
+PORT_FILES = sorted((ROOT / "petr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", WORKERS]
 
 
 def _imported_roots(path: Path):
@@ -39,7 +41,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "petr_tpu_torch.data, petr_tpu_torch.metrics, petr_tpu_torch.metrics.submission, "
         "petr_tpu_torch.train.evaluate, petr_tpu_torch.train.checkpoint, petr_tpu_torch.cli.test, "
         "petr_tpu_torch.cli.train, petr_tpu_torch.train.bn_warmup, petr_tpu_torch.train.diagnostics, "
-        "petr_tpu_torch.train.forensics, petr_tpu_torch.tools.synth_train_eval, petr_tpu_torch.tools.nan_replay\n"
+        "petr_tpu_torch.train.forensics, petr_tpu_torch.tools.synth_train_eval, petr_tpu_torch.tools.nan_replay, "
+        "petr_tpu_torch.parallel, petr_tpu_torch.parallel.distributed, petr_tpu_torch.parallel.sharded_attention, "
+        "petr_tpu_torch.parallel.dryrun, petr_tpu_torch.cli.scaling, tests.test_torch_port_parallel_workers\n"
         "from petr_tpu_torch.ops import build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
