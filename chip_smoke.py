@@ -151,8 +151,8 @@ nothing of petr_tpu. Phases, each fatal on failure:
    steps at their batch of 4 timed on CUDA events and the host's clock
    with the loader (busy and wait shares, one profiler pass, an eval
    pass) and their learning runs' wall time projected; ``python -m
-   petr_tpu_torch.tools.synth_train_eval --config synth_small --steps 200
-   --bn-warmup 4 --eval-every 100 --floor 0``: its JSON line, a loss that
+   petr_tpu_torch.tools.synth_train_eval --config synth_small --steps 60
+   --bn-warmup 4 --eval-every 30 --floor 0``: its JSON line, a loss that
    fell, BN statistics moved by the warm-up.
 12. parallel training over torch.distributed, ranks spawned on the one
    card (Gloo stages all-reduce and broadcast of CUDA tensors through the
@@ -173,8 +173,30 @@ nothing of petr_tpu. Phases, each fatal on failure:
    share in all-reduces; ``dryrun_multichip(4)`` at data 2 x model 2;
    ``cli.train`` at world size 1 over NCCL; ``cli.train`` over 2 Gloo
    ranks with the eval hook on an odd val split (rank 0 alone logs and
-   checkpoints; the metrics equal ``evaluate_model`` of the checkpoint
-   within 1e-6), then both ranks sent SIGTERM (exit 0 at one step).
+   checkpoints; the metrics equal ``evaluate_model`` of the first epoch's
+   checkpoint within 1e-6), both ranks sent SIGTERM in the second epoch
+   (exit 0 at one step), in one run.
+13. deployment: K6, the int8 conv with int32 sums (its activation
+   quantisation pass and its conv), at each of the 20 conv shapes of the
+   flagship's V-99 at 6 views: the int32 sums equal the plain version's
+   bit for bit (and at one shape on inputs whose every x / sa is a
+   rounding tie), the bf16 outputs within KERNEL_TOL; each timed beside
+   cuDNN's bf16 F.conv2d and torch._int_mm on the im2col patches, with
+   its bound at the int8 peak. The flagship calibrated by ``python -m
+   petr_tpu_torch.cli.quantize --synthetic`` in a process of its own and
+   served int8 through ``InferenceServer`` (K6 99 and K1 6 launches per
+   forward, its 99 convs the shapes above; held to K6's plain version
+   under phase 4's limits; its relative L2 error against the bf16 model
+   reported beside petr_tpu's bound of 0.05; B=1 forwards of both on CUDA
+   events and profiled); ``cli.test --fuse-conv-bn`` and ``--tta hflip``
+   on 3 val samples of phase 10's synthetic scenes; the serving
+   artifacts (``torch.export``, weights embedded) of the flagship in bf16
+   and int8 at B=2 and of ``petr_r50_p4_1408x512`` at B=1, replayed in a
+   fresh process that imports the runtime and the op library and no
+   model module: K1 6, K4 9 (r50) and K6 99 (int8) launches per call, the
+   outputs equal to ``make_serving_fn``'s; PETRv2's streaming pair over 3
+   frames through ``StreamingArtifactRunner``, each equal to
+   ``StreamingPETRv2.step`` (K1 6 per frame).
 ``--phases 3,8`` runs only the phases named (1 and 2 always run), prints no
 kernels record and no result line, and exits 1 either way: a failed check
 raises an AssertionError; ``--phases 3`` alone checks and times every kernel. With no
@@ -226,6 +248,7 @@ STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_FLOOR = 1e-4, 1e-3, 1e-3
 NUDGE_MARGIN = 3.0
 # the r50dcn presets, and the fp32 SM peak of one H100 SXM (data sheet)
 R50 = "petr_r50_p4_1408x512"
+CLI_SAMPLES = 3  # cli.test's new options: a run each, a few samples (its process start dominates)
 R50_C5 = "petr_r50_c5_1408x512"
 # Depthr: the r50dcn backbone (C5, no neck) and a decoder over 6 x 16 x 44 depth tokens
 DEPTHR = "depthr_r50_c5_512x1408_gtdepth"
@@ -1749,7 +1772,8 @@ def alternating_forwards(torch, model, args, env, rounds=8):
 
 # kernel names in a profile (each prefix takes both variants of K1, K2, K4 and K5)
 KERNEL_NAMES = {"K1": "flash_fwd", "K2 dK/dV": "flash_bwd_dkdv", "K2 dQ": "flash_bwd_dq",
-                "K4": "deform_conv_fwd", "K5": "conv3x3_bn_relu"}
+                "K4": "deform_conv_fwd", "K5": "conv3x3_bn_relu", "K6": "conv_int8_kernel",
+                "K6 quant": "quantize_act_kernel"}
 
 
 def profile(torch, fn, card, iters=5, unit="forward", inference=True):
@@ -3153,6 +3177,7 @@ def check_eval(torch, ca, card):
 SYNTH_SCENES = dict(n_scenes=6, frames_per_scene=4, n_objects=6, val_scenes=1, seed=SEED)
 SYNTH_HW = (128, 320)
 SYNTH_VOV, SYNTH_R50 = "synth_small", "synth_small_r50dcn"
+HARNESS_STEPS = 60  # the harness's run: its JSON line, a loss that fell, the warm-up's BN statistics
 # the learning runs' steps, held-out val samples and intermediate evals
 RECIPES = {SYNTH_VOV: dict(steps=4000, val_samples=24, evals=1),
            SYNTH_R50: dict(steps=8000, val_samples=24, evals=4)}
@@ -3277,7 +3302,7 @@ def check_learning(torch, ca, dcn, card):
     gradient norms bit for bit, counting K1, K2 and K4 launches per step
     (bf16 variants only), and synth_small (fp32 variants only); times both
     recipes; runs ``python -m petr_tpu_torch.tools.synth_train_eval`` for
-    200 steps with the BN warm-up."""
+    HARNESS_STEPS steps with the BN warm-up."""
     import os
     import signal
     import tempfile
@@ -3429,7 +3454,8 @@ def check_learning(torch, ca, dcn, card):
             with torch_defaults(torch):
                 times[name] = time_recipe(torch, name, train, val, card)
 
-        args = ["--config", SYNTH_VOV, "--steps", "200", "--bn-warmup", "4", "--eval-every", "100", "--floor", "0",
+        args = ["--config", SYNTH_VOV, "--steps", str(HARNESS_STEPS), "--bn-warmup", "4", "--eval-every",
+                str(HARNESS_STEPS // 2), "--floor", "0",
                 "--scenes", str(SYNTH_SCENES["n_scenes"]), "--val-scenes", str(SYNTH_SCENES["val_scenes"]),
                 "--out-dir", f"{tmp}/harness", "--save-ckpt", f"{tmp}/harness_ckpt"]
         log(f"phase 11: python -m petr_tpu_torch.tools.synth_train_eval {' '.join(args)}")
@@ -3932,23 +3958,27 @@ def check_parallel(torch, ca, sm_clock_hz, card):
         assert [r["step"] for r in read_log(work) if "loss" in r] == [1, 2]
         assert latest_checkpoint(f"{work}/ckpts").endswith("step_00000002")
 
-        log(f"phase 12e: cli.train over 2 gloo ranks on the card, global batch 4, 1 epoch, eval hook on the "
-            f"{n_val} val samples (odd: the ranks decode 2 and 1)")
+        spe = n_train // 2 // 2
+        log(f"phase 12e: cli.train over 2 gloo ranks on the card, global batch 4, 3 epochs, eval hook on the "
+            f"{n_val} val samples (odd: the ranks decode 2 and 1), both ranks sent SIGTERM once rank 0 logged step "
+            f"{spe + 1}, the first of the second epoch")
         work = f"{tmp}/two"
         port = free_port()
         t0 = time.perf_counter()
-        outs = run_ranks(root, [cli_args(work, port, 2, r, "gloo", "--batch-size", "4", "--epochs", "1",
-                                         "--eval-infos", val) for r in range(2)], "2 ranks", env)
+        outs = run_ranks(root, [cli_args(work, port, 2, r, "gloo", "--batch-size", "4", "--epochs", "3",
+                                         "--eval-infos", val) for r in range(2)], "2 ranks", env,
+                         signal_after=spe + 1)
         times["cli_2rank_s"] = time.perf_counter() - t0
         assert "epoch 0 done; checkpoint saved" in outs[0] and "checkpoint saved" not in outs[1]
         assert '{"env"' in outs[0] and '{"env"' not in outs[1] and '{"epoch"' not in outs[1]
         logged = read_log(work)
-        spe = n_train // 2 // 2
-        assert [r["step"] for r in logged if "loss" in r] == list(range(1, spe + 1)), logged
+        stopped = max(r["step"] for r in logged if "loss" in r)
+        assert spe < stopped < 3 * spe, (stopped, spe)
+        assert [r["step"] for r in logged if "loss" in r] == list(range(1, stopped + 1)), logged
         vals = [r for r in logged if "val/mAP" in r]
         assert len(vals) == 1 and vals[0]["step"] == spe, vals
-        ckpt = latest_checkpoint(f"{work}/ckpts")
-        assert ckpt.endswith(f"step_{spe:08d}"), ckpt
+        ckpt = f"{work}/ckpts/step_{spe:08d}"
+        assert os.path.isdir(ckpt), os.listdir(f"{work}/ckpts")
         from petr_tpu_torch.configs import get_config
 
         cfg = get_config(SYNTH_VOV)
@@ -3962,13 +3992,6 @@ def check_parallel(torch, ca, sm_clock_hz, card):
             f"{len(single)} metrics (tol {PAR_EVAL_TOL}); mAP {single['mAP']:.4f}, NDS {single['NDS']:.4f}")
         assert diff <= PAR_EVAL_TOL, diff
         assert all((np.isfinite(vals[0][f"val/{k}"]) == np.isfinite(v)) for k, v in single.items())
-
-        log("phase 12e: the same 2 ranks for 3 epochs, both sent SIGTERM once rank 0 logged step 2")
-        work = f"{tmp}/sig"
-        port = free_port()
-        outs = run_ranks(root, [cli_args(work, port, 2, r, "gloo", "--batch-size", "4", "--epochs", "3")
-                                for r in range(2)], "SIGTERM", env, signal_after=2)
-        stopped = max(r["step"] for r in read_log(work) if "loss" in r)
         assert f"checkpoint saved at step {stopped}; exiting on signal" in outs[0], outs[0][-2000:]
         assert f"rank 1: stopping at step {stopped}" in outs[1], outs[1][-2000:]
         assert latest_checkpoint(f"{work}/ckpts").endswith(f"step_{stopped:08d}")
@@ -3980,7 +4003,477 @@ def check_parallel(torch, ca, sm_clock_hz, card):
     return k3, times
 
 
-ALL_PHASES = {3, 4, 5, 6, 7, 8, 9, 10, 11, 12}
+# Phase 13: the deployment path. K6 (the int8 conv with int32 sums) at every
+# conv shape of the flagship's V-99 backbone (6 views at 320x800: input
+# planes below), then the int8 flagship end to end, cli.test's new options,
+# the AOT artifacts and PETRv2's streaming pair.
+PEAK_INT8_OPS = 1979e12
+INT8_SHAPES = {  # label: ((Cin, H, W, Co, kernel, stride) of the conv's input, launches per flagship forward)
+    "stem1": ((3, 320, 800, 64, 3, 2), 1),
+    "stem2": ((64, 160, 400, 64, 3, 1), 1),
+    "stem3": ((64, 160, 400, 128, 3, 2), 1),
+    "s2": ((128, 80, 200, 128, 3, 1), 5),
+    "s2 concat": ((768, 80, 200, 256, 1, 1), 1),
+    "s3 in256": ((256, 40, 100, 160, 3, 1), 1),
+    "s3 in512": ((512, 40, 100, 160, 3, 1), 2),
+    "s3": ((160, 40, 100, 160, 3, 1), 12),
+    "s3 concat1056": ((1056, 40, 100, 512, 1, 1), 1),
+    "s3 concat1312": ((1312, 40, 100, 512, 1, 1), 2),
+    "s4 in512": ((512, 20, 50, 192, 3, 1), 1),
+    "s4 in768": ((768, 20, 50, 192, 3, 1), 8),
+    "s4": ((192, 20, 50, 192, 3, 1), 36),
+    "s4 concat1472": ((1472, 20, 50, 768, 1, 1), 1),
+    "s4 concat1728": ((1728, 20, 50, 768, 1, 1), 8),
+    "s5 in768": ((768, 10, 25, 224, 3, 1), 1),
+    "s5 in1024": ((1024, 10, 25, 224, 3, 1), 2),
+    "s5": ((224, 10, 25, 224, 3, 1), 12),
+    "s5 concat1888": ((1888, 10, 25, 1024, 1, 1), 1),
+    "s5 concat2144": ((2144, 10, 25, 1024, 1, 1), 2),
+}
+INT8_PER_FORWARD = 99  # V-99: the stem's 3 convs and 6 in each of its 16 OSA blocks
+# petr_tpu's bound on the int8 model's relative L2 error against the float one
+# (tests/test_quant.py::test_detector_int8_e2e, at tiny_debug)
+INT8_REL_ERR = 0.05
+R50 = "petr_r50_p4_1408x512"
+CLI_SAMPLES = 3  # cli.test's new options: a run each, a few samples (its process start dominates)
+
+
+def int8_inputs(torch, gen, C, H, W, Co, k, ties=False):
+    """bf16 x (6 views), an He-scaled fp32 weight, a BN mul and add, and an
+    amax at 0.9 of max |x| (the largest inputs saturate at +-127). With
+    ``ties`` x lies on half-integers and amax is 127 (sa = 1): every x / sa
+    is a tie, which rounding half to even and half away from zero split."""
+    if ties:
+        x = (torch.randint(-100, 100, (CONV_VIEWS, C, H, W), generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+        amax = torch.tensor(127.0, device="cuda")
+    else:
+        x = torch.randn(CONV_VIEWS, C, H, W, generator=gen, device="cuda").to(torch.bfloat16)
+        amax = x.abs().amax().float() * 0.9
+    w = torch.randn(Co, C, k, k, generator=gen, device="cuda") * (2.0 / (k * k * C)) ** 0.5
+    mul = torch.rand(Co, generator=gen, device="cuda") + 0.5
+    add = torch.randn(Co, generator=gen, device="cuda") * 0.3
+    return x, w, mul, add, amax
+
+
+def im2col_int8(torch, xi, k, s):
+    """int8 NCHW -> the (B * Ho * Wo, k * k * C) patches, tap-major, K padded
+    with zeros to a multiple of 8 (torch._int_mm's)."""
+    import torch.nn.functional as F
+
+    xh = xi.permute(0, 2, 3, 1)
+    if k == 3:
+        xh = F.pad(xh, (0, 0, 1, 1, 1, 1))
+    win = xh.unfold(1, k, s).unfold(2, k, s)  # (B, Ho, Wo, C, k, k)
+    a = win.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * xi.shape[1])
+    pad = -a.shape[1] % 8
+    return F.pad(a, (0, pad)).contiguous() if pad else a.contiguous()
+
+
+def loop_ms(torch, fn, n=20, warmup=3):
+    """Mean ms per call over ``n`` calls launched back to back between two
+    CUDA events: where a call's kernels outlast its launch, the device's time
+    per call. Not the profiler: late in a full run its short per-call passes
+    came back without some kernels (PR 12's final run), these do not."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def check_conv_int8(torch, c8, card):
+    """K6 against its plain version at every conv shape of the flagship's
+    V-99 at 6 views: the int32 sums bit for bit, the bf16 outputs within
+    KERNEL_TOL (one rounding of the same fp32 epilogue), and a case whose
+    every activation is a rounding tie; then each shape timed beside cuDNN's
+    bf16 F.conv2d (the dense floor) and torch._int_mm on its im2col
+    patches (the library's int8 GEMM), with its bound at the int8 peak:
+    one call between CUDA events (``*_ms``), and 20 calls back to back
+    (``*_loop_ms``; for K6 also its conv kernel and its quantisation pass
+    launched alone)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    log(f"phase 13: conv_int8_bn_act (K6) against its plain version at the {len(INT8_SHAPES)} conv shapes of "
+        f"{FLAGSHIP}'s V-99 ({INT8_PER_FORWARD} convs per forward, {CONV_VIEWS} views, bf16 in and out)")
+    assert sum(n for _, n in INT8_SHAPES.values()) == INT8_PER_FORWARD
+    lib, stream = c8._library(), torch.cuda.current_stream().cuda_stream
+    errs, shapes = {}, []
+    sums = dict.fromkeys(("kernel_ms", "loop_ms", "conv_loop_ms", "quant_loop_ms", "cudnn_bf16_ms",
+                          "cudnn_bf16_loop_ms", "int_mm_ms", "int_mm_loop_ms", "bound_ms"), 0.0)
+    for label, ((C, H, W, Co, k, s), per_forward) in INT8_SHAPES.items():
+        for ties in ((False, True) if label == "s2" else (False,)):
+            x, w, mul, add, amax = int8_inputs(torch, gen, C, H, W, Co, k, ties)
+            wi, sw = c8.quantize_weight(w, mul)
+            sa = c8.act_scale(amax)
+            acc = c8.conv_int8_accumulate(x, wi, sa, s)
+            want_acc = c8.conv_int8_accumulate_reference(c8.quantize_activation(x, sa), wi, s)
+            before = (c8.LAUNCHES, c8.QUANT_LAUNCHES)
+            out = c8.conv_int8_bn_act(x, w, mul, add, amax, s, True)
+            torch.cuda.synchronize()
+            assert (c8.LAUNCHES, c8.QUANT_LAUNCHES) == (before[0] + 1, before[1] + 1), "K6 did not count its launch"
+            want = c8.conv_int8_bn_act_plain(x, w, mul, add, amax, s, True)
+            differ = int((acc != want_acc).sum())
+            log(f"  {label}{' (every x / sa a tie)' if ties else ''}: int32 sums {acc.shape[1:]} x {acc.shape[0]}: "
+                f"{differ} differ from the plain version's (max |sum| {want_acc.abs().max().item()}); outputs equal "
+                f"bit for bit: {torch.equal(out, want)}")
+            assert differ == 0, f"{label}: K6's int32 sums differ from the plain version's at {differ} outputs"
+            errs[(label, ties)] = kernel_compare(torch, f"{label} outputs", out, want, "bf16")
+        xi = c8.quantize_activation(x, sa)
+        scale, addf = sa * sw, add.float()
+        Ho, Wo = out.shape[2:]
+        M = CONV_VIEWS * Ho * Wo
+        ops = 2.0 * M * Co * k * k * C
+        nbytes = 2 * x.numel() + wi.numel() + 8 * Co + 2 * out.numel()
+        b_ms, b_by, _ = roofline(ops, nbytes, PEAK_INT8_OPS)
+
+        def call():
+            c8.conv_int8_bn_act_op(x, wi, sa, scale, addf, s, True)
+
+        # the op's two kernels launched alone on its prepared operands
+        Cp = -(-C // c8.CHANNEL_STEP) * c8.CHANNEL_STEP
+        xq = torch.empty((CONV_VIEWS, H, W, Cp), dtype=torch.int8, device="cuda")
+        wq, y = c8.pack_weight(wi, Cp), torch.empty_like(out)
+        sa32, sc32 = sa.float().contiguous(), scale.float().contiguous()
+        quant_only = lambda: lib.petr_quantize_act(x.data_ptr(), 1, sa32.data_ptr(), xq.data_ptr(),  # noqa: E731
+                                                   CONV_VIEWS, C, H, W, Cp, stream)
+        conv_only = lambda: lib.petr_conv_int8_fwd(  # noqa: E731
+            xq.data_ptr(), wq.data_ptr(), sc32.data_ptr(), addf.data_ptr(), y.data_ptr(), None, 1, CONV_VIEWS, Cp,
+            H, W, Co, k, s, Ho, Wo, 1, stream)
+        assert quant_only() == 0 and conv_only() == 0
+        torch.cuda.synchronize()
+        assert torch.equal(y, out), f"{label}: the conv kernel launched alone differs from the op"
+        k_ms, op_loop = cuda_time_ms(call), loop_ms(torch, call)
+        conv_loop, quant_loop = loop_ms(torch, conv_only), loop_ms(torch, quant_only)
+        wb = w.to(torch.bfloat16)
+        cudnn = lambda: F.conv2d(x, wb, stride=s, padding=k // 2)  # noqa: E731
+        cudnn_ms, cudnn_loop = cuda_time_ms(cudnn), loop_ms(torch, cudnn)
+        a = im2col_int8(torch, xi, k, s)
+        b = F.pad(wi.permute(0, 2, 3, 1).reshape(Co, -1), (0, a.shape[1] - k * k * C)).t()
+        try:
+            torch._int_mm(a, b)
+        except RuntimeError:  # a build of torch that takes the right operand row-major only
+            b = b.contiguous()
+        int_mm_ms, int_mm_loop = cuda_time_ms(lambda: torch._int_mm(a, b)), loop_ms(torch, lambda: torch._int_mm(a, b))
+        im2col_ms = cuda_time_ms(lambda: im2col_int8(torch, xi, k, s), warmup=2, iters=10)
+        assert torch.equal(torch._int_mm(a, b), want_acc.permute(0, 2, 3, 1).reshape(M, Co)), (
+            f"{label}: torch._int_mm on the patches differs from the plain version's sums")
+        rec = {"label": label, "cin": C, "h": H, "w": W, "co": Co, "kernel": k, "stride": s,
+               "launches_per_forward": per_forward, "kernel_ms": k_ms, "loop_ms": op_loop,
+               "conv_loop_ms": conv_loop, "quant_loop_ms": quant_loop, "cudnn_bf16_ms": cudnn_ms,
+               "cudnn_bf16_loop_ms": cudnn_loop, "int_mm_ms": int_mm_ms, "int_mm_loop_ms": int_mm_loop,
+               "im2col_ms": im2col_ms, "bound_ms": b_ms, "bound_by": b_by, "gop": ops / 1e9}
+        shapes.append(rec)
+        for key in sums:
+            sums[key] += per_forward * rec[key]
+        log(f"  {label}: {C} -> {Co}, {k}x{k}/{s} at {H}x{W}, x{per_forward} per forward: the op {k_ms:.4f} ms "
+            f"(one call between CUDA events), {op_loop:.4f} back to back; launched alone back to back, the conv "
+            f"{conv_loop:.4f}, the activation quantisation {quant_loop:.4f}; cuDNN bf16 F.conv2d {cudnn_ms:.4f} "
+            f"({cudnn_loop:.4f} back to back); torch._int_mm on the patches {int_mm_ms:.4f} ({int_mm_loop:.4f}; "
+            f"im2col {im2col_ms:.4f}); bound_ms {b_ms:.4f} ({b_by}; {ops / 1e9:.2f} GOP), {ops / conv_loop / 1e9:.1f} "
+            f"TOPS in the conv [{card}]")
+    log(f"  per flagship forward ({INT8_PER_FORWARD} convs): the op {sums['kernel_ms']:.3f} ms one call at a time "
+        f"(CUDA events), {sums['loop_ms']:.3f} back to back (the convs {sums['conv_loop_ms']:.3f}, the quantisation "
+        f"{sums['quant_loop_ms']:.3f} launched alone); cuDNN bf16 {sums['cudnn_bf16_ms']:.3f} "
+        f"({sums['cudnn_bf16_loop_ms']:.3f}); torch._int_mm {sums['int_mm_ms']:.3f} ({sums['int_mm_loop_ms']:.3f}); "
+        f"bound {sums['bound_ms']:.3f} ms [{card}]")
+    (C, H, W, Co, k, s), _ = INT8_SHAPES["s4"]
+    x, w, mul, add, amax = int8_inputs(torch, gen, C, H, W, Co, k)
+    wi, sw = c8.quantize_weight(w, mul)
+    sa = c8.act_scale(amax)
+    plain_ms = cuda_time_ms(lambda: c8.conv_int8_bn_act_reference(x, wi, sa, sa * sw, add, s, True), warmup=1,
+                            iters=5)
+    quant_plain_ms = cuda_time_ms(
+        lambda: c8.quantize_activation(x, sa).permute(0, 2, 3, 1).contiguous(), warmup=2, iters=10)
+    s4 = next(r for r in shapes if r["label"] == "s4")
+    q_bound, q_by, _ = roofline(0.0, 2 * x.numel() + x.numel(), PEAK_INT8_OPS)
+    Cp = -(-C // c8.CHANNEL_STEP) * c8.CHANNEL_STEP
+    xq = torch.empty((CONV_VIEWS, H, W, Cp), dtype=torch.int8, device="cuda")
+    sa32 = sa.float().contiguous()
+    quant_ms = cuda_time_ms(lambda: lib.petr_quantize_act(x.data_ptr(), 1, sa32.data_ptr(), xq.data_ptr(),
+                                                           CONV_VIEWS, C, H, W, Cp, stream))
+    assert torch.equal(xq[..., :C], c8.quantize_activation(x, sa).permute(0, 2, 3, 1))
+    log(f"  the record's shape (s4): plain_ms {plain_ms:.4f} (float64 sums); the quantisation pass alone "
+        f"{quant_ms:.4f} ms, its plain version {quant_plain_ms:.4f}, bound {q_bound:.4f} ({q_by}) [{card}]")
+    conv_rec = {
+        "name": "conv_int8_bn_act",
+        "route": "cuda",
+        "source": "petr_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "petr_tpu/models/layers.py:202::ConvBNReLU._int8_forward (XLA's int8 conv, no Pallas)",
+        "launches": None,  # filled from the int8 flagship's forward
+        "max_abs_err": max(errs.values()),
+        "ms": s4["kernel_ms"],  # stage 4, 192 -> 192: 36 of the 99 launches of a forward
+        "plain_ms": plain_ms,
+        "bound_ms": s4["bound_ms"],
+        "bound_by": s4["bound_by"],
+        "library_ms": s4["int_mm_ms"],  # torch._int_mm on the im2col patches (the GEMM alone)
+        "loop_ms": s4["loop_ms"],
+        "conv_loop_ms": s4["conv_loop_ms"],
+        "library_loop_ms": s4["int_mm_loop_ms"],
+        "cudnn_bf16_ms": s4["cudnn_bf16_ms"],
+        "cudnn_bf16_loop_ms": s4["cudnn_bf16_loop_ms"],
+        "shapes": shapes,
+        "per_forward": sums,
+    }
+    quant_rec = {
+        "name": "quantize_act",
+        "route": "cuda",
+        "source": "petr_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "petr_tpu/models/layers.py:214 (XLA's clip(round(x / sa)) before the int8 conv, no Pallas)",
+        "launches": None,
+        "max_abs_err": 0.0,  # equal through every sum above
+        "ms": quant_ms,  # the pass alone, one call between CUDA events
+        "plain_ms": quant_plain_ms,
+        "bound_ms": q_bound,
+        "bound_by": q_by,
+        "library_ms": None,  # no PyTorch call rounds half to even into a symmetric int8 NHWC copy
+        "loop_ms": s4["quant_loop_ms"],
+    }
+    return conv_rec, quant_rec
+
+
+def replay_code(paths, inputs, out_dir):
+    """The script a fresh process runs to replay artifacts: the runtime and
+    the op library only (it asserts that no model module is loaded), each
+    artifact's launches of K1, K4 and K6 counted per call."""
+    return f"""
+import sys, json, numpy as np, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import petr_tpu_torch.runtime as runtime
+from petr_tpu_torch.ops import conv_int8 as c8, cross_attention as ca, dcn
+counts = {{}}
+for name, path in {paths!r}.items():
+    fn, meta = runtime.load_artifact(path)
+    d = np.load({inputs!r}[name])
+    args = [d[f"arr_{{i}}"] for i in range(len(d.files))]
+    fn(*args)
+    torch.cuda.synchronize()
+    c8.LAUNCHES = c8.QUANT_LAUNCHES = ca.LAUNCHES = ca.LAUNCHES_FP32 = dcn.LAUNCHES = dcn.LAUNCHES_FP32 = 0
+    out = fn(*args)
+    torch.cuda.synchronize()
+    counts[name] = {{"K1": ca.LAUNCHES, "K1_FP32": ca.LAUNCHES_FP32, "K4": dcn.LAUNCHES, "K4_FP32": dcn.LAUNCHES_FP32,
+                    "K6": c8.LAUNCHES, "K6_QUANT": c8.QUANT_LAUNCHES, "ops": meta["op_names"]}}
+    np.savez({out_dir!r} + f"/{{name}}_out.npz", **{{k: v.cpu().numpy() for k, v in out.items()}})
+models = sorted(m for m in sys.modules if m.startswith(("petr_tpu_torch.models", "petr_tpu_torch.serve")))
+assert not models, models
+print(json.dumps(counts))
+"""
+
+
+def run_module(args, label, timeout=900):
+    """``python -m ARGS`` from this script's directory in a process of its
+    own: it must exit 0. Returns its stdout."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=root, capture_output=True, text=True, timeout=timeout)
+    log(f"  {label}: python {' '.join(args)[:300]} -> exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    for line in proc.stdout.splitlines()[-8:]:
+        log(f"    | {line[:300]}")
+    assert proc.returncode == 0, f"{label} exited {proc.returncode}:\n{proc.stderr[-4000:]}"
+    return proc.stdout
+
+
+def check_deployment(torch, ca, c8, dcn, card):
+    """Phase 13 after K6's own check: the flagship calibrated by ``cli.quantize
+    --synthetic`` and served int8 through ``InferenceServer`` (K6 99 and K1 6
+    launches per forward; against K6's plain version; its error against the
+    bf16 model); ``cli.test --fuse-conv-bn`` and ``--tta hflip``; the serving
+    artifacts of the flagship (bf16 and int8) and of petr_r50_p4_1408x512
+    replayed in a fresh process without model modules, launching the
+    kernels themselves; PETRv2's streaming pair over 3 frames."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from petr_tpu_torch.configs import get_config
+    from petr_tpu_torch.data import generate_synthetic_scenes
+    from petr_tpu_torch.models import layers, resnet
+    from petr_tpu_torch.quant import load_scales, quant_convs, set_quant
+    from petr_tpu_torch.serve import (StreamingArtifactRunner, StreamingPETRv2, build_detector, export_serving,
+                                      export_streaming, make_serving_fn, save_artifact, save_streaming_artifact,
+                                      serving_input_spec)
+
+    cfg = get_config(FLAGSHIP)
+    hc = cfg.model.head
+    L = hc.num_layers
+    t_phase = time.perf_counter()
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- the int8 flagship: calibrate, serve, check ----------------------
+        log(f"phase 13: {FLAGSHIP} int8: cli.quantize --synthetic (random weights, seed {SEED}), then served int8")
+        scales_path = f"{tmp}/scales.npz"
+        run_module(["-m", "petr_tpu_torch.cli.quantize", "--config", FLAGSHIP, "--synthetic", "--num-batches", "2",
+                    "--out", scales_path], "cli.quantize")
+        scales = load_scales(scales_path)
+        model = build_detector(cfg, seed=SEED, device="cuda")
+        fn = make_serving_fn(cfg, model, device="cuda", quant_scales=scales)  # switches the backbone to int8
+        convs = quant_convs(model)
+        assert len(convs) == INT8_PER_FORWARD and all(c.quant == "int8" for c in convs.values()), len(convs)
+        seen, kept = [], layers.conv_int8_bn_act
+
+        def recording(x, w, mul, add, amax, stride=1, relu=True):
+            seen.append((tuple(x.shape[1:]), w.shape[0], w.shape[-1], stride))
+            return kept(x, w, mul, add, amax, stride, relu)
+
+        requests = make_requests(cfg, 1)
+        one = [torch.as_tensor(np.stack([requests[0][k]])).cuda() for k in serving_input_spec(cfg)]
+        layers.conv_int8_bn_act = recording
+        try:
+            with torch.inference_mode():
+                forward(model, one)
+        finally:
+            layers.conv_int8_bn_act = kept
+        want_shapes = sorted(((C, H, W), Co, k, s) for (C, H, W, Co, k, s), n in INT8_SHAPES.values() for _ in range(n))
+        assert sorted(seen) == want_shapes, f"the int8 convs differ from INT8_SHAPES: {sorted(seen)}"
+        log(f"  the model's {len(seen)} int8 convs are INT8_SHAPES' (phase 13's kernel check)")
+        int8_tol = {"cls_logits": (MODEL_ATOL, MODEL_RTOL), "bbox_codes": (MODEL_ATOL, MODEL_RTOL)}
+        launches, args, _, results = serve_and_check(
+            torch, cfg, model,
+            {"K6": (c8, "LAUNCHES"), "K6 quant": (c8, "QUANT_LAUNCHES"), "K1": (ca, "LAUNCHES"),
+             "K1 fp32": (ca, "LAUNCHES_FP32")},
+            {"K6": INT8_PER_FORWARD, "K6 quant": INT8_PER_FORWARD, "K1": L, "K1 fp32": 0},
+            [(layers, "conv_int8_bn_act", c8.conv_int8_bn_act_plain)], int8_tol, MODEL_MEAN, card)
+        with torch.inference_mode():
+            out_q = forward(model, args)
+            set_quant(model, "none")
+            out_bf16 = forward(model, args)
+            fwd = {}
+            for mode in ("int8", "none", "int8", "none"):  # alternated pairs on CUDA events
+                set_quant(model, mode)
+                fwd.setdefault(mode, []).append(cuda_time_ms(lambda: forward(model, one), warmup=1, iters=5))
+            set_quant(model, "int8")
+            dev_q, per_kernel_q = profile(torch, lambda: forward(model, one), card)
+            set_quant(model, "none")
+            dev_f, _ = profile(torch, lambda: forward(model, one), card)
+            set_quant(model, "int8")
+        rel = {}
+        for k in ("cls_logits", "bbox_codes"):
+            q, r = out_q[k].float(), out_bf16[k].float()
+            assert torch.isfinite(q).all(), k
+            rel[k] = ((q - r).norm() / r.norm()).item()
+        log(f"  int8 against bf16, the same weights and padded request: relative L2 error cls_logits "
+            f"{rel['cls_logits']:.4f}, bbox_codes {rel['bbox_codes']:.4f} (petr_tpu's bound {INT8_REL_ERR})")
+        assert max(rel.values()) < INT8_REL_ERR, rel
+        times.update(int8_rel_err=rel, int8_forward_ms=fwd["int8"], bf16_forward_ms=fwd["none"],
+                     int8_forward_device_ms=dev_q, bf16_forward_device_ms=dev_f,
+                     k6_device_ms_per_forward=per_kernel_q.get("K6", 0.0),
+                     k6_quant_device_ms_per_forward=per_kernel_q.get("K6 quant", 0.0))
+        log(f"  B=1 forward on CUDA events, int8 {', '.join(f'{t:.2f}' for t in fwd['int8'])} ms, bf16 "
+            f"{', '.join(f'{t:.2f}' for t in fwd['none'])} ms; device time int8 {dev_q:.3f} ms, bf16 {dev_f:.3f} ms "
+            f"[{card}]")
+
+        # -- cli.test's new options on the synthetic scenes ---------------
+        H, W = cfg.data.src_hw
+        scenes = dict(EVAL_SCENES, n_scenes=2, val_scenes=2)
+        splits = generate_synthetic_scenes(f"{tmp}/synth", image_hw=(H, W), **scenes)
+        val_pkl = f"{tmp}/synth/synth_infos_val.pkl"
+        log(f"phase 13: cli.test --fuse-conv-bn and --tta hflip on {CLI_SAMPLES} of the {len(splits['val'])} val "
+            f"samples of phase 10's synthetic scenes ({H}x{W}; random weights, seed {SEED})")
+        for extra in (["--fuse-conv-bn"], ["--tta", "hflip"]):
+            out, wall = run_cli(["--config", FLAGSHIP, "--infos", val_pkl, "--classes", EVAL_CLASSES,
+                                 "--max-samples", str(CLI_SAMPLES), *extra], " ".join(extra))
+            metrics = printed_metrics(out)
+            assert {"mAP", "NDS"} <= set(metrics) and all(np.isfinite(float(v)) for v in metrics.values()), metrics
+            assert f"inference: {CLI_SAMPLES} samples" in out, out
+            times["cli_" + extra[0].strip("-").replace("-", "_") + "_s"] = wall
+
+        # -- the serving artifacts, replayed without the model code ---------
+        log("phase 13: serving artifacts (torch.export, weights embedded): the flagship bf16 and int8, "
+            f"{R50} at B=1; replayed in a fresh process that imports the runtime and the op library only")
+        batch2 = [np.stack([requests[0][k]] * 2) for k in serving_input_spec(cfg)]
+        paths, inputs, wants, expect = {}, {}, {}, {}
+        for name, mode in (("flagship_bf16", "none"), ("flagship_int8", "int8")):
+            set_quant(model, mode)
+            wants[name] = make_serving_fn(cfg, model, device="cuda")(*batch2)
+            t0 = time.perf_counter()
+            exported = export_serving(cfg, model, batch_size=2, embed_params=True)
+            times[f"export_{name}_s"] = time.perf_counter() - t0
+            paths[name], inputs[name] = f"{tmp}/{name}.petrx", f"{tmp}/{name}_in.npz"
+            meta = save_artifact(paths[name], exported, cfg, model, batch_size=2, embed_params=True)
+            np.savez(inputs[name], *batch2)
+            expect[name] = {"K1": L, "K4": 0, "K6": INT8_PER_FORWARD if mode == "int8" else 0}
+            log(f"  {name}: exported in {times[f'export_{name}_s']:.1f} s, {os.path.getsize(paths[name]) / 1e6:.1f} MB, "
+                f"quant {meta['quant']}, ops {meta['op_names']}")
+        del exported
+        r50_cfg = get_config(R50)
+        r50 = build_detector(r50_cfg, seed=SEED, device="cuda")
+        resnet.redraw_offset_convs(r50, SEED + 1)
+        r50_in = [np.stack([make_requests(r50_cfg, 1)[0][k]]) for k in serving_input_spec(r50_cfg)]
+        wants["r50"] = make_serving_fn(r50_cfg, r50, device="cuda")(*r50_in)
+        t0 = time.perf_counter()
+        meta = save_artifact(f"{tmp}/r50.petrx", export_serving(r50_cfg, r50, batch_size=1, embed_params=True),
+                             r50_cfg, r50, batch_size=1, embed_params=True)
+        times["export_r50_s"] = time.perf_counter() - t0
+        paths["r50"], inputs["r50"] = f"{tmp}/r50.petrx", f"{tmp}/r50_in.npz"
+        np.savez(inputs["r50"], *r50_in)
+        expect["r50"] = {"K1": L, "K4": 9, "K6": 0}
+        log(f"  r50: exported in {times['export_r50_s']:.1f} s, ops {meta['op_names']}")
+        del r50
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = run_module(["-c", replay_code(paths, inputs, tmp)], "the replay")
+        times["replay_process_s"] = time.perf_counter() - t0
+        counts = json.loads(out.strip().splitlines()[-1])
+        for name, want in expect.items():
+            got = counts[name]
+            log(f"  {name}: launches per artifact call {got} (expected {want}, no fp32 variant)")
+            assert (got["K1"], got["K4"], got["K6"], got["K6_QUANT"]) == (want["K1"], want["K4"], want["K6"], want["K6"])
+            assert got["K1_FP32"] == got["K4_FP32"] == 0, got
+            replayed = dict(np.load(f"{tmp}/{name}_out.npz"))
+            for k, v in wants[name].items():
+                same = np.array_equal(replayed[k], v)
+                log(f"    {k}: equal to make_serving_fn's bit for bit: {same}"
+                    + ("" if same else f" (max abs difference {np.abs(replayed[k].astype(float) - v).max():.3e})"))
+                if not same:  # the graph's ops and the eager step's differ somewhere: hold to phase 4's limits
+                    assert k in ("boxes", "scores") and np.allclose(replayed[k], v, rtol=MODEL_RTOL, atol=MODEL_ATOL), k
+        times["replay_launches"] = counts
+
+        # -- PETRv2's streaming pair ------------------------------------------
+        v2 = get_config(PETRV2)
+        log(f"phase 13: {PETRV2} streaming pair (torch.export, weights embedded), 3 frames through "
+            "StreamingArtifactRunner against StreamingPETRv2.step")
+        vmodel = build_detector(v2, seed=SEED, device="cuda")
+        t0 = time.perf_counter()
+        save_streaming_artifact(f"{tmp}/v2.petrx", export_streaming(v2, vmodel, embed_params=True), v2, vmodel,
+                                batch_size=1, embed_params=True)
+        times["export_streaming_s"] = time.perf_counter() - t0
+        runner = StreamingArtifactRunner(f"{tmp}/v2.petrx")
+        stream = StreamingPETRv2(v2, vmodel, device="cuda")
+        rng = np.random.RandomState(SEED)
+        reqs = make_requests(v2, 3)
+        for frame, req in enumerate(reqs):
+            images = req["images"][None, :6]
+            ts = frame_timestamps(rng)
+            ca.LAUNCHES = 0
+            got = runner.step(images, req["img2lidar"][None], req["img_hw"][None], ts)
+            torch.cuda.synchronize()
+            k1 = ca.LAUNCHES
+            want = stream.step(images, req["img2lidar"][None], req["img_hw"][None], ts)
+            same = {k: torch.equal(got[k], want[k]) for k in want}
+            log(f"  frame {frame}: K1 {k1} launches in the replayed step (expected {L}); equal to "
+                f"StreamingPETRv2.step bit for bit: {same}")
+            assert k1 == L
+            for k in want:
+                if not same[k]:
+                    assert k in ("boxes", "scores") and torch.allclose(got[k].float(), want[k].float(),
+                                                                       rtol=MODEL_RTOL, atol=MODEL_ATOL), k
+        del vmodel, model
+        torch.cuda.empty_cache()
+    times["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13: {times['phase_s']:.1f} s [{card}]")
+    return launches, times
+
+
+ALL_PHASES = {3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
 
 
 def training_phase(torch, fn, *args):
@@ -4012,6 +4505,7 @@ def main() -> int:
     try:
         from petr_tpu_torch.ops import build
         from petr_tpu_torch.ops import conv3x3 as conv
+        from petr_tpu_torch.ops import conv_int8 as c8
         from petr_tpu_torch.ops import cross_attention as ca
         from petr_tpu_torch.ops import dcn
     except ImportError as e:
@@ -4038,7 +4532,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    sources = ("flash_cross_attention", "flash_cross_attention_bwd", "deform_conv", "conv3x3_bn_relu")
+    sources = ("flash_cross_attention", "flash_cross_attention_bwd", "deform_conv", "conv3x3_bn_relu", "conv_int8")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         libs = list(pool.map(build.build, sources))
     log(f"  built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s")
@@ -4128,6 +4622,22 @@ def main() -> int:
         k3, par_times = training_phase(torch, check_parallel, torch, ca, sm_clock_hz, card)
         k3["parallel"] = par_times
         records.append(k3)
+
+    if 13 in phases:
+        k6, k6_quant = check_conv_int8(torch, c8, card)
+        k6_launches, deploy = check_deployment(torch, ca, c8, dcn, card)
+        k6["launches"], k6_quant["launches"] = k6_launches["K6"], k6_launches["K6 quant"]
+        for r in (k6, k6_quant):
+            r["launches_note"] = (f"the int8 flagship's 2 batched forwards through InferenceServer ({INT8_PER_FORWARD} "
+                                  "per forward); an artifact call's in deployment.replay_launches")
+        k6["deployment"] = deploy
+        k6["device_ms_per_forward"] = deploy["k6_device_ms_per_forward"]
+        k6_quant["device_ms_per_forward"] = deploy["k6_quant_device_ms_per_forward"]
+        replay = deploy["replay_launches"]
+        if records:
+            k1["launches_artifact"] = replay["flagship_bf16"]["K1"]
+            k4["launches_artifact"] = replay["r50"]["K4"]
+        records += [k6, k6_quant]
 
     if phases != ALL_PHASES:
         log(f"only phases {sorted(phases)} ran: no kernels record and no result line")

@@ -9,8 +9,10 @@ split, nuScenes mAP/NDS from the built-in evaluator, and optionally a
 results json (nuScenes submission schema) for the official devkit. It runs
 on the card unless ``--device cpu`` is given, and raises when the card is
 asked for and absent. Without ``--ckpt`` the weights are random, drawn
-from seed 0. ``--tta``, ``--quant-scales`` and ``--fuse-conv-bn`` are not
-ported yet (ROADMAP.md §1, item 11): anything but their defaults raises.
+from seed 0. ``--fuse-conv-bn`` folds the frozen BN into the convs
+(``utils.fuse``), ``--quant-scales`` serves the int8 PTQ backbone with the
+scales of ``cli.quantize`` (offline and ``--streaming``), and ``--tta``
+averages the features of test-time augmentations (``apply_tta``).
 """
 
 from __future__ import annotations
@@ -19,15 +21,17 @@ import argparse
 import json
 import time
 
+import numpy as np
+
 from petr_tpu_torch.configs import get_config
 from petr_tpu_torch.data import Loader, NuScenesDataset
 from petr_tpu_torch.metrics.nuscenes import boxes_from_arrays, evaluate_detections, ground_truth_from_infos
 from petr_tpu_torch.metrics.submission import build_submission
+from petr_tpu_torch.quant import load_scales
 from petr_tpu_torch.serve import StreamingPETRv2, build_detector, resolve_device
 from petr_tpu_torch.train import make_eval_step
 from petr_tpu_torch.train.checkpoint import load_params
-
-UNPORTED = "ROADMAP.md §1, item 11"
+from petr_tpu_torch.utils.fuse import fold_frozen_bn
 
 
 def parse_args(argv=None):
@@ -43,7 +47,7 @@ def parse_args(argv=None):
     p.add_argument(
         "--fuse-conv-bn", action="store_true",
         help="fold frozen BN into conv kernels before inference "
-        f"(reference tools/test.py --fuse-conv-bn); not ported yet: {UNPORTED}",
+        "(reference tools/test.py --fuse-conv-bn)",
     )
     p.add_argument(
         "--set", nargs="*", default=[], dest="overrides", metavar="KEY=VAL",
@@ -51,12 +55,17 @@ def parse_args(argv=None):
     )
     p.add_argument(
         "--quant-scales", default=None, metavar="NPZ",
-        help=f"int8 PTQ serving: activation-scale .npz; not ported yet: {UNPORTED}",
+        help="int8 PTQ serving: activation-scale .npz from petr_tpu_torch.cli.quantize "
+        "(or petr_tpu.cli.quantize: the same keys)",
     )
     p.add_argument(
         "--tta", default="none", choices=("none", "identity", "hflip"),
         help="test-time augmentation (reference MultiScaleFlipAug3D + "
-        f"petr3d.aug_test feature averaging, petr3d.py:239-247); not ported yet: {UNPORTED}",
+        "petr3d.aug_test feature averaging, petr3d.py:239-247): stacks aug "
+        "variants on an aug axis, features are averaged before the head "
+        "with the FIRST variant's geometry (the reference's img_metas[0] "
+        "semantics). 'identity' duplicates (a consistency no-op), 'hflip' "
+        "adds a horizontally mirrored variant",
     )
     p.add_argument(
         "--classes", default=None, metavar="A,B,...",
@@ -74,16 +83,21 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    """Raise for each option whose machinery the port lacks, rather than
-    evaluate without it."""
-    for flag, on in (("--tta", args.tta != "none"), ("--quant-scales", args.quant_scales is not None),
-                     ("--fuse-conv-bn", args.fuse_conv_bn)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet: {UNPORTED}")
+def apply_tta(images: np.ndarray, mode: str) -> np.ndarray:
+    """(B, N, H, W, C) -> (B, A, N, H, W, C) aug stack for the detector's
+    feature-averaging TTA axis (reference `petr3d.py:239-247`)."""
+    if mode == "none":
+        return images
+    if mode == "identity":
+        aug = images
+    elif mode == "hflip":
+        aug = images[..., ::-1, :]  # mirror W; per-channel norm commutes
+    else:
+        raise ValueError(mode)
+    return np.stack([images, aug], axis=1)
 
 
-def run_streaming_inference(cfg, model, ds, device="cuda"):
+def run_streaming_inference(cfg, model, ds, device="cuda", quant_scales=None):
     """Scene-ordered streaming inference over the val infos.
 
     Uses each sample's own ego-aligned sweep record for the previous
@@ -97,7 +111,7 @@ def run_streaming_inference(cfg, model, ds, device="cuda"):
     if ds.infos and "scene_token" in ds.infos[0]:
         order.sort(key=lambda i: (
             str(ds.infos[i]["scene_token"]), float(ds.infos[i]["timestamp"])))
-    runner = StreamingPETRv2(cfg, model, decode=True, device=device)
+    runner = StreamingPETRv2(cfg, model, decode=True, quant_scales=quant_scales, device=device)
     preds = {}
     prev_info = None
     t0 = time.time()
@@ -129,7 +143,6 @@ def run_streaming_inference(cfg, model, ds, device="cuda"):
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_unported(args)
     device = resolve_device(args.device)
     cfg = get_config(args.config, args.overrides)
     ds = NuScenesDataset.from_pkl(
@@ -140,18 +153,22 @@ def main(argv=None):
     model = build_detector(cfg, seed=0, device=device)
     if args.ckpt:
         load_params(args.ckpt, model)
+    if args.fuse_conv_bn:
+        model.load_state_dict(fold_frozen_bn(model.state_dict()))
+    scales = load_scales(args.quant_scales) if args.quant_scales else None
 
     preds = {}
     if args.streaming:
-        preds, n, wall = run_streaming_inference(cfg, model, ds, device=device)
+        preds, n, wall = run_streaming_inference(cfg, model, ds, device=device, quant_scales=scales)
     else:
         loader = Loader(ds, args.batch_size, shuffle=False, drop_last=False)
-        eval_step = make_eval_step(cfg)
+        eval_step = make_eval_step(cfg, scales)
         t0 = time.time()
         n = 0
         info_by_token = {info["token"]: info for info in ds.infos}
         for batch in loader.epoch(0):
             tokens = batch.pop("tokens")
+            batch["images"] = apply_tta(batch["images"], args.tta)
             det = {k: v.cpu().numpy() for k, v in eval_step(model, batch).items()}
             for i, tok in enumerate(tokens):
                 preds[tok] = boxes_from_arrays(

@@ -82,8 +82,8 @@ def _remat_scope(cfg: ModelConfig) -> str:
 
 def _unsupported(cfg: ModelConfig) -> str:
     """The ROADMAP.md item that ports what ``cfg`` needs, or '' if supported."""
-    if cfg.backbone.quant != "none":
-        return f"backbone.quant={cfg.backbone.quant!r}: ROADMAP.md §1, item 11 (quant/ptq.py)"
+    if cfg.use_grid_mask and not cfg.grid_mask_exact:
+        return "GridMask's grid_mask_exact=False: ROADMAP.md §1, item 11"
     if cfg.backbone.bn_mode not in ("frozen", "batch"):
         raise ValueError(f"bn_mode must be frozen|batch, got {cfg.backbone.bn_mode!r}")
     return ""
@@ -95,9 +95,11 @@ def _backbone(cfg: ModelConfig) -> Tuple[nn.Module, Tuple[int, ...]]:
     remat = cfg.remat and _remat_scope(cfg) in ("all", "backbone")
     if bb.kind == "vovnet":
         stage_out = SPECS[bb.spec]["stage_out_ch"]
-        return (VoVNet(bb.spec, bb.out_indices, remat=remat, bn_mode=bb.bn_mode),
+        return (VoVNet(bb.spec, bb.out_indices, remat=remat, bn_mode=bb.bn_mode, quant=bb.quant),
                 tuple(stage_out[i] for i in bb.out_indices))
     if bb.kind == "resnet":
+        if bb.quant != "none":  # as petr_tpu (`detector.py:57-60`)
+            raise NotImplementedError("backbone.quant is only supported for the VoVNet backbone")
         model = ResNet(int(bb.spec[1:]), bb.out_indices, bb.dcn_stages, remat=remat, bn_mode=bb.bn_mode)
         return model, tuple(STAGE_OUT[i] for i in bb.out_indices)
     raise ValueError(f"backbone kind must be vovnet or resnet, got {bb.kind!r}")
@@ -151,7 +153,7 @@ class PETRDetector(nn.Module):
 
     def forward(
         self,
-        images: torch.Tensor,  # (B, N, H, W, 3) normalized
+        images: torch.Tensor,  # (B, N, H, W, 3) normalized, or (B, A, N, H, W, 3) for TTA
         img2lidar: torch.Tensor,  # (B, N, 4, 4)
         img_hw: torch.Tensor,  # (B, N, 2)
         noise: Optional[TrainNoise] = None,  # train mode only
@@ -161,7 +163,16 @@ class PETRDetector(nn.Module):
         lidar2img: Optional[torch.Tensor] = None,  # (B, N, 4, 4)
     ) -> Dict[str, torch.Tensor]:
         """petr_tpu's ``PETRDetector.__call__``: GridMask in training, then
-        ``extract_feats`` and ``forward_head``."""
+        ``extract_feats`` and ``forward_head``. 6-d images stack A test-time
+        augmentations of each sample: their features are averaged (in
+        fp32, one rounding to the compute dtype, as jnp.mean) before the
+        head, which reads the first variant's geometry, ``img2lidar`` and
+        ``img_hw`` (petr_tpu `detector.py:181-196`, the reference's
+        ``aug_test``)."""
+        num_aug = 1
+        if images.dim() == 6:
+            B, num_aug = images.shape[:2]
+            images = images.reshape(B * num_aug, *images.shape[2:])
         H, W = images.shape[2:4]
         layer_seeds = None
         if self.training:
@@ -174,7 +185,10 @@ class PETRDetector(nn.Module):
                     images = grid_mask(images, noise.grid)
         elif noise is not None:
             raise ValueError("TrainNoise is for train mode; call model.train() first")
-        return self.forward_head(self.extract_feats(images), img2lidar, img_hw, (H, W),
+        feats = self.extract_feats(images)
+        if num_aug > 1:
+            feats = feats.reshape(B, num_aug, *feats.shape[1:]).float().mean(dim=1).to(feats.dtype)
+        return self.forward_head(feats, img2lidar, img_hw, (H, W),
                                  timestamp=timestamp, layer_seeds=layer_seeds,
                                  gt_boxes=gt_boxes, gt_valid=gt_valid, lidar2img=lidar2img)
 

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from petr_tpu_torch.ops.conv3x3 import conv3x3_bn_relu, conv_impl
+from petr_tpu_torch.ops.conv_int8 import conv_int8_bn_act
 from petr_tpu_torch.ops.cross_attention import flash_cross_attention
 from petr_tpu_torch.parallel.mesh import current_mesh, data_mean, data_parallel
 from petr_tpu_torch.parallel.sharded_attention import flash_partial_attention, project_shard
@@ -196,6 +197,54 @@ class FrozenBatchNorm(nn.Module):
         return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]
 
 
+QUANT_MODES = ("none", "calib", "int8")
+
+
+class QuantConv2d(Conv2d):
+    """The conv of a ``ConvBNReLU``, with petr_tpu's int8 PTQ state
+    (`layers.py:164-174`): ``quant`` is "none", "calib" (the forward records
+    the running max |x| of its input in fp32) or "int8" (the conv runs on
+    int8 operands, ``ops.conv_int8``). The recorded max, ``act_amax``, is a
+    non-persistent buffer registered when a mode other than "none" is first
+    set: the ``state_dict``, checkpoints and the converter stay as they are,
+    as petr_tpu keeps it in its own "quant" collection."""
+
+    quant = "none"
+
+    def set_quant(self, mode: str) -> None:
+        if mode not in QUANT_MODES:
+            raise ValueError(f"quant must be one of {QUANT_MODES}, got {mode!r}")
+        if mode != "none" and "act_amax" not in self._buffers:
+            self.register_buffer("act_amax", torch.zeros((), device=self.weight.device), persistent=False)
+        self.quant = mode
+
+
+def conv_bn_act(conv: QuantConv2d, norm: "FrozenBatchNorm", relu: Optional[nn.Module], x: torch.Tensor,
+                fused_route: bool = True) -> torch.Tensor:
+    """conv (no bias) -> BN -> ReLU (if ``relu``), the forward of ``ConvBNReLU``
+    and of VoVNet's stem. With ``conv.quant`` "int8" the three run as one
+    int8 conv (``conv_int8_bn_act``: K6 on CUDA) on the BN folded to
+    ``mul``/``add``; "calib" records max |x| first. ``fused_route``: a 3x3
+    stride-1 conv may take the K5 route (``PETR_TPU_TORCH_CONV_IMPL=cuda``)."""
+    if conv.quant != "none":
+        if norm.use_batch_stats:
+            raise ValueError("int8 PTQ requires frozen BN (serving path)")
+        if conv.quant == "int8":
+            mul = norm.weight * torch.rsqrt(norm.running_var + norm.eps)
+            add = norm.bias - norm.running_mean * mul
+            return conv_int8_bn_act(x, conv.weight, mul, add, conv.act_amax, conv.stride[0], relu is not None)
+        with torch.no_grad():
+            conv.act_amax.copy_(torch.maximum(conv.act_amax, x.abs().amax().float()))
+    fusable = (conv.kernel_size == (3, 3) and conv.stride == (1, 1)
+               and conv.dilation == (1, 1) and conv.groups == 1)
+    if fused_route and conv_impl() == "cuda" and fusable and not norm.batch_moments():
+        mul = norm.weight * torch.rsqrt(norm.running_var + norm.eps)
+        add = norm.bias - norm.running_mean * mul
+        return conv3x3_bn_relu(x, conv.weight, mul, add, relu=relu is not None)
+    y = norm(conv(x))
+    return y if relu is None else relu(y)
+
+
 class ConvBNReLU(nn.Sequential):
     """conv (no bias) + BN + optional ReLU, the backbone workhorse.
 
@@ -208,15 +257,19 @@ class ConvBNReLU(nn.Sequential):
     repacks it) and the BN folded to an fp32 ``mul``/``add``, as petr_tpu's
     ``PETR_TPU_CONV_IMPL=pallas`` does (`layers.py:243-252`). The default,
     ``cudnn``, runs the children in turn, and so does a BN that normalises
-    with the batch's moments (petr_tpu `layers.py:243`).
+    with the batch's moments (petr_tpu `layers.py:243`). ``quant`` is the
+    conv's int8 PTQ mode (``QuantConv2d``), which takes precedence over
+    both routes; "calib" and "int8" refuse batch-moments BN, as petr_tpu's.
     """
 
     def __init__(
         self, name: str, in_channels: int, out_channels: int, kernel: int = 3,
-        stride: int = 1, relu: bool = True, bn_mode: str = "frozen",
+        stride: int = 1, relu: bool = True, bn_mode: str = "frozen", quant: str = "none",
     ):
+        conv = QuantConv2d(in_channels, out_channels, kernel, stride, kernel // 2, bias=False)
+        conv.set_quant(quant)
         layers = [
-            (f"{name}/conv", Conv2d(in_channels, out_channels, kernel, stride, kernel // 2, bias=False)),
+            (f"{name}/conv", conv),
             (f"{name}/norm", FrozenBatchNorm(out_channels, use_batch_stats=bn_mode == "batch")),
         ]
         if relu:
@@ -224,14 +277,7 @@ class ConvBNReLU(nn.Sequential):
         super().__init__(OrderedDict(layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv, norm = self[0], self[1]
-        fusable = (conv.kernel_size == (3, 3) and conv.stride == (1, 1)
-                   and conv.dilation == (1, 1) and conv.groups == 1)
-        if conv_impl() == "cuda" and fusable and not norm.batch_moments():
-            mul = norm.weight * torch.rsqrt(norm.running_var + norm.eps)
-            add = norm.bias - norm.running_mean * mul
-            return conv3x3_bn_relu(x, conv.weight, mul, add, relu=len(self) == 3)
-        return super().forward(x)
+        return conv_bn_act(self[0], self[1], self[2] if len(self) == 3 else None, x)
 
 
 class MLP(nn.Sequential):

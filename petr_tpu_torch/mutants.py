@@ -58,6 +58,12 @@ MUTANTS = {
         "__fmul_rn(__fmul_rn(cv.at(2, i + u), wx0), wy0)",
         "3",
     ),
+    "k6_round_half_away": (
+        "csrc/conv_int8.cu",
+        "const float r = rintf(to_float(",  # the activation quantisation rounds ties away from zero
+        "const float r = roundf(to_float(",
+        "13",
+    ),
     "gather_backward_with_atomics": (
         "ops/sampling.py",
         "        v = gather_rows(flat, idx)\n",  # the fix reverted: torch.gather's backward, a scatter_add

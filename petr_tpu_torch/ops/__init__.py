@@ -1,3 +1,9 @@
+"""The port's numeric ops and its kernels' wrappers. Importing the package
+registers every kernel's ``torch.library`` op (``petr_tpu_torch::*``: K1's,
+K4's, K5's and K6's forwards), which is all that an exported serving
+artifact needs besides PyTorch (``petr_tpu_torch.runtime``)."""
+
+from petr_tpu_torch.ops import conv3x3, conv_int8, dcn  # noqa: F401  (registers the ops)
 from petr_tpu_torch.ops.boxes import box_corners, decode_bbox, encode_bbox
 from petr_tpu_torch.ops.cross_attention import (
     flash_cross_attention,

@@ -73,16 +73,34 @@ def conv3x3_bn_relu_reference(
     return y.to(x.dtype)
 
 
+@torch.library.custom_op("petr_tpu_torch::conv3x3_bn_relu_fwd", mutates_args=())
+def conv3x3_bn_relu_fwd_op(x: torch.Tensor, weight: torch.Tensor, mul: Optional[torch.Tensor],
+                           add: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
+    """The forward as a ``torch.library`` op, so that ``torch.export`` keeps
+    it whole: K5 on CUDA tensors, the plain version on any other device."""
+    return conv3x3_bn_relu_reference(x, weight, mul, add, relu)
+
+
+@conv3x3_bn_relu_fwd_op.register_kernel("cuda")
+def _conv3x3_bn_relu_fwd_cuda(x, weight, mul, add, relu):
+    return _forward_cuda(x, weight, mul, add, relu)
+
+
+@conv3x3_bn_relu_fwd_op.register_fake
+def _conv3x3_bn_relu_fwd_fake(x, weight, mul, add, relu):
+    return x.new_empty((x.shape[0], weight.shape[0], *x.shape[2:]))
+
+
 class _Conv3x3BNReLU(torch.autograd.Function):
     """(x, weight, mul, add) -> out. Forward: K5 on CUDA, the plain version
     on the CPU or when ``plain``. Backward: autograd of the plain version."""
 
     @staticmethod
     def forward(ctx, x, weight, mul, add, relu, plain):
-        if plain or x.device.type == "cpu":
+        if plain:
             out = conv3x3_bn_relu_reference(x, weight, mul, add, relu)
         else:
-            out = _forward_cuda(x, weight, mul, add, relu)
+            out = conv3x3_bn_relu_fwd_op(x, weight, mul, add, relu)
         ctx.save_for_backward(x, weight, mul, add)
         ctx.relu = relu
         return out

@@ -35,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -151,8 +152,13 @@ def flash_cross_attention_reference(
 def logit_scale_log2(D: int) -> float:
     """fp32(1/sqrt(D)) * fp32(log2 e), rounded to fp32: the factor by which
     the bf16 kernel takes q.k to log2 units (its ``scale * LOG2E``)."""
-    one = lambda x: torch.tensor(x, dtype=torch.float32)
-    return (one(1.0 / math.sqrt(D)) * one(LOG2E)).item()
+    # the product of two fp32 values is exact in fp64, so rounding it once
+    # to fp32 gives fp32's product; pure Python, so that tracing sees a constant
+    return _fp32(_fp32(1.0 / math.sqrt(D)) * _fp32(LOG2E))
+
+
+def _fp32(x: float) -> float:
+    return struct.unpack("f", struct.pack("f", x))[0]
 
 
 def _reference_rounded(q, k, v, masked, dropout_rate, dropout_seed, dropout_offsets=(0, 0)):
@@ -232,6 +238,36 @@ def flash_cross_attention_backward_reference(
     return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
 
 
+# ------------------------------------------------------------ the op (K1)
+@torch.library.custom_op("petr_tpu_torch::flash_cross_attention_fwd", mutates_args=())
+def flash_cross_attention_fwd_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_padding_mask: Optional[torch.Tensor],
+    dropout_rate: float, dropout_seed: Optional[int], batch_offset: int, key_offset: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward as a ``torch.library`` op, so that ``torch.export`` keeps
+    it whole: K1 on CUDA tensors, the plain version on any other device."""
+    return flash_cross_attention_reference(q, k, v, key_padding_mask, dropout_rate, dropout_seed,
+                                           dropout_offsets=(batch_offset, key_offset))
+
+
+@flash_cross_attention_fwd_op.register_kernel("cuda")
+def _flash_cross_attention_fwd_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed, batch_offset,
+                                    key_offset):
+    return _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed,
+                         offsets=(batch_offset, key_offset))
+
+
+@flash_cross_attention_fwd_op.register_fake
+def _flash_cross_attention_fwd_fake(q, k, v, key_padding_mask, dropout_rate, dropout_seed, batch_offset,
+                                    key_offset):
+    B, H, Q, D = q.shape
+    if q.device.type == "cuda":  # K1 writes a (B, H, Q, D) view of a (B, Q, H, D) buffer
+        out = q.new_empty((B, Q, H, D)).transpose(1, 2)
+    else:
+        out = q.new_empty((B, H, Q, D))
+    return out, q.new_empty((B, H, Q), dtype=torch.float32)
+
+
 # --------------------------------------------------------------- autograd
 class _FlashCrossAttention(torch.autograd.Function):
     """(q, k, v) -> (out, lse). Saves q, k, v, the mask, the seed and its
@@ -240,11 +276,11 @@ class _FlashCrossAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, key_padding_mask, dropout_rate, dropout_seed, lse_grad, plain, offsets):
-        if plain or q.device.type == "cpu":
+        if plain:
             out, lse = flash_cross_attention_reference(q, k, v, key_padding_mask, dropout_rate, dropout_seed,
                                                        dropout_offsets=offsets)
         else:
-            out, lse = _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed, offsets=offsets)
+            out, lse = flash_cross_attention_fwd_op(q, k, v, key_padding_mask, dropout_rate, dropout_seed, *offsets)
         ctx.save_for_backward(q, k, v, key_padding_mask, out, lse)
         ctx.dropout = (dropout_rate, dropout_seed, offsets)
         ctx.plain = plain

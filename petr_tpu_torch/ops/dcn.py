@@ -99,6 +99,25 @@ def modulated_deform_conv_reference(
     return out.to(x.dtype)
 
 
+# ------------------------------------------------------------ the op (K4)
+@torch.library.custom_op("petr_tpu_torch::modulated_deform_conv_fwd", mutates_args=())
+def modulated_deform_conv_fwd_op(x: torch.Tensor, off_mask: torch.Tensor, weight: torch.Tensor, stride: int,
+                                 dilation: int) -> torch.Tensor:
+    """The forward as a ``torch.library`` op, so that ``torch.export`` keeps
+    it whole: K4 on CUDA tensors, the plain version on any other device."""
+    return modulated_deform_conv_reference(x, off_mask, weight, stride, dilation)
+
+
+@modulated_deform_conv_fwd_op.register_kernel("cuda")
+def _modulated_deform_conv_fwd_cuda(x, off_mask, weight, stride, dilation):
+    return _forward_cuda(x, off_mask, weight, stride, dilation)
+
+
+@modulated_deform_conv_fwd_op.register_fake
+def _modulated_deform_conv_fwd_fake(x, off_mask, weight, stride, dilation):
+    return x.new_empty((x.shape[0], weight.shape[0], *off_mask.shape[-2:]))
+
+
 # --------------------------------------------------------------- autograd
 class _ModulatedDeformConv(torch.autograd.Function):
     """(x, off_mask, weight) -> out. Forward: K4 on CUDA, the plain version
@@ -106,10 +125,10 @@ class _ModulatedDeformConv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, off_mask, weight, stride, dilation, plain):
-        if plain or x.device.type == "cpu":
+        if plain:
             out = modulated_deform_conv_reference(x, off_mask, weight, stride, dilation)
         else:
-            out = _forward_cuda(x, off_mask, weight, stride, dilation)
+            out = modulated_deform_conv_fwd_op(x, off_mask, weight, stride, dilation)
         ctx.save_for_backward(x, off_mask, weight)
         ctx.conv = (stride, dilation)
         return out

@@ -26,6 +26,7 @@ import torch
 from petr_tpu_torch.configs.config import ExperimentConfig
 from petr_tpu_torch.models.detector import PETRDetector
 from petr_tpu_torch.ops.nms_free import nms_free_decode
+from petr_tpu_torch.quant.ptq import apply_scales
 from petr_tpu_torch.serve.export import resolve_device
 
 
@@ -33,7 +34,9 @@ class StreamingPETRv2:
     """Stateful per-frame runner of a 2-frame (12-view) PETRv2 model.
 
     ``model`` is the serving detector (``build_detector(cfg)``); it moves to
-    ``device``. With ``decode`` a step returns the decoded boxes of the last
+    ``device``. ``quant_scales`` (petr_tpu's "quant" tree) switches its
+    backbone to int8 with those scales (``quant.apply_scales``). With
+    ``decode`` a step returns the decoded boxes of the last
     decoder layer (``boxes``, ``scores``, ``labels``, ``valid``), otherwise
     the per-layer ``cls_logits`` and ``bbox_codes``; tensors on ``device``.
 
@@ -52,11 +55,11 @@ class StreamingPETRv2:
         if cfg.data.num_frames < 2:
             raise ValueError(f"StreamingPETRv2 needs a 2-frame config, got num_frames="
                              f"{cfg.data.num_frames} ({cfg.name})")
-        if quant_scales is not None:
-            raise NotImplementedError("the int8 PTQ backbone is not ported yet: ROADMAP.md §1, item 11")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        if quant_scales is not None:  # the int8 PTQ backbone for the per-frame features
+            apply_scales(self.model, quant_scales)
         self.decode = decode
         self.input_hw = tuple(cfg.data.image_size)
         self._prev_feats: Optional[torch.Tensor] = None

@@ -46,6 +46,7 @@ above 1) hands each rank the replicated gradient itself.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -55,6 +56,7 @@ from petr_tpu_torch.configs.config import ExperimentConfig
 from petr_tpu_torch.models.detector import PETRDetector, draw_train_noise, init_weights
 from petr_tpu_torch.models.layers import collect_batch_moments
 from petr_tpu_torch.parallel.mesh import Mesh, data_mean, use_mesh
+from petr_tpu_torch.quant.ptq import apply_scales
 from petr_tpu_torch.serve.export import decode_last_layer, resolve_device
 from petr_tpu_torch.train.losses import petr_set_loss
 from petr_tpu_torch.train.optim import build_optimizer, clip_by_global_norm, global_norm, make_lr_schedule
@@ -313,20 +315,29 @@ def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None):
     return train_step
 
 
-def make_eval_step(cfg: ExperimentConfig):
+def make_eval_step(cfg: ExperimentConfig, quant_scales=None):
     """``eval_step(model, batch)`` -> dict of boxes (B, max_det, 9), scores,
     labels and valid (B, max_det), tensors on the model's device: the
     forward of ``model`` in eval mode, then the NMS-free decode of its last
     decoder layer (petr_tpu's ``make_eval_step``, `train_step.py:325-366`).
     It reads ``batch_keys(cfg)`` but the GT labels; a Depthr model reads
-    the GT boxes and cameras at test time too (an oracle)."""
+    the GT boxes and cameras at test time too (an oracle). 6-d images (B,
+    A, N, H, W, 3) run test-time augmentation (``cli.test.apply_tta``).
+
+    ``quant_scales`` (petr_tpu's "quant" tree, ``quant.calibrate_detector``)
+    switches the model's backbone to int8 with those scales at its first
+    step (``quant.apply_scales``; the model stays so)."""
     keys = tuple(k for k in batch_keys(cfg) if k != "gt_labels")
     if cfg.model.head.kind != "depthr":
         keys = tuple(k for k in keys if not k.startswith("gt_"))
+    quantised = weakref.WeakSet()
 
     def eval_step(model: PETRDetector, batch) -> Dict[str, torch.Tensor]:
         if model.training:
             raise ValueError("eval_step takes a model in eval mode (model.eval())")
+        if quant_scales is not None and model not in quantised:
+            apply_scales(model, quant_scales)
+            quantised.add(model)
         device = next(model.parameters()).device
         with torch.inference_mode():
             return decode_last_layer(cfg, _forward(model, _to_device(batch, keys, device)))

@@ -290,3 +290,68 @@ def named_parameters_from_jax(
     """
     sd = state_dict_from_jax(tree, model)
     return {name: sd[name] for name, _ in model.named_parameters()}
+
+
+# ------------------------------------------------------- int8 PTQ scales
+# petr_tpu keeps each quantised conv's calibrated max |x| in its "quant"
+# collection, ``{"backbone": {"stem1": {"act_amax": ()}, "stage2_block0":
+# {"conv0": ..., "concat": ...}, ...}}``; the port keeps it on the conv
+# (``models.layers.QuantConv2d.act_amax``). These carry one to the other.
+_QUANT_STEM = re.compile(r"img_backbone\.stem\.stem_(\d)/conv")
+_QUANT_OSA = re.compile(r"img_backbone\.stage(\d)\.OSA\d_(\d+)\.(?:layers\.(\d+)\.OSA\d_\d+_\d+|concat\.OSA\d_\d+_concat)/conv")
+
+
+def quant_path_from_port(name: str) -> Tuple[str, ...]:
+    """A quantised conv's module name in the port's detector -> its leaf's
+    path in petr_tpu's "quant" tree."""
+    m = _QUANT_STEM.fullmatch(name)
+    if m:
+        return ("backbone", f"stem{m.group(1)}", "act_amax")
+    m = _QUANT_OSA.fullmatch(name)
+    if m:
+        s, b, i = m.groups()
+        return ("backbone", f"stage{s}_block{int(b) - 1}", "concat" if i is None else f"conv{i}", "act_amax")
+    raise KeyError(f"{name} is not a quantised conv of the VoVNet backbone")
+
+
+def quant_scales_to_port(tree: Mapping[str, Any], names) -> Dict[str, np.ndarray]:
+    """petr_tpu's "quant" tree -> {conv module name: amax} for the port's
+    quantised convs ``names``; raises on a conv the tree lacks and on a
+    leaf no conv takes."""
+    flat = {tuple(k.split("/")): v for k, v in flatten_quant_tree(tree).items()}
+    out, missing = {}, []
+    for name in names:
+        path = quant_path_from_port(name)
+        if path in flat:
+            out[name] = np.asarray(flat.pop(path), dtype=np.float32)
+        else:
+            missing.append("/".join(path))
+    if missing or flat:
+        raise KeyError(f"quant scales: missing {missing}, unexpected {sorted('/'.join(k) for k in flat)}")
+    return out
+
+
+def quant_scales_from_port(scales: Mapping[str, Any]) -> Dict[str, Any]:
+    """{conv module name: amax} -> petr_tpu's nested "quant" tree of fp32
+    numpy arrays."""
+    tree: Dict[str, Any] = {}
+    for name, v in scales.items():
+        *parents, leaf = quant_path_from_port(name)
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(v, dtype=np.float32)
+    return tree
+
+
+def flatten_quant_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """A "quant" tree -> {"backbone/stem1/act_amax": array, ...}, the keys of
+    petr_tpu's ``save_scales``."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, Mapping):
+            out.update(flatten_quant_tree(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out

@@ -2,9 +2,9 @@
 K1 (the forward, with and without dropout), K2 (the backward's dK/dV and dQ
 kernels), both with a shard's hash offsets, K3 (the lse cotangent through
 the autograd Function), K4 (DCNv2,
-forward and the gradients through its Function) and K5 (the fused conv3x3);
-each kernel in both variants, bf16 on the tensor cores and fp32 on the CUDA
-cores. The bf16 K1 and K4 are also held to their rounding floors (the plain
+forward and the gradients through its Function), K5 (the fused conv3x3) and
+K6 (the int8 conv with int32 sums, bf16 and fp32 out); K1, K2, K4 and K5 in
+both variants, bf16 on the tensor cores and fp32 on the CUDA cores. The bf16 K1 and K4 are also held to their rounding floors (the plain
 version rounding to bf16 where the kernel does) under KERNEL_TOL.
 
 Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
@@ -678,3 +678,63 @@ def test_tiny_batch_bn_step_on_the_card_matches_the_cpu(cuda):
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
     for k, want in out["cpu"][1].items():
         assert (out["cuda"][1][k] - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-7, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize(
+    "B,C,H,W,Co,k,s",
+    [(2, 3, 33, 47, 64, 3, 2),  # the stem's first conv (Cin 3 padded to 32), odd planes
+     (1, 64, 20, 50, 72, 3, 1), (2, 96, 9, 13, 40, 1, 1), (1, 128, 17, 19, 64, 3, 2), (1, 32, 5, 7, 8, 1, 2)],
+)
+def test_conv_int8_kernel_matches_plain_version(cuda, dtype, B, C, H, W, Co, k, s):
+    """K6: the int32 sums bit for bit, the output equal to the plain version's
+    (the same fp32 epilogue, one rounding), and its two launches counted."""
+    from petr_tpu_torch.ops import conv_int8 as c8
+
+    gen = torch.Generator(device="cuda").manual_seed(C + H)
+    x = torch.randn(B, C, H, W, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(Co, C, k, k, generator=gen, device="cuda") * (2.0 / (k * k * C)) ** 0.5
+    mul = torch.rand(Co, generator=gen, device="cuda") + 0.5
+    add = torch.randn(Co, generator=gen, device="cuda")
+    amax = x.abs().amax().float() * 0.8
+    wi, _ = c8.quantize_weight(w, mul)
+    sa = c8.act_scale(amax)
+    acc = c8.conv_int8_accumulate(x, wi, sa, s)
+    assert torch.equal(acc, c8.conv_int8_accumulate_reference(c8.quantize_activation(x, sa), wi, s))
+    before = (c8.LAUNCHES, c8.QUANT_LAUNCHES)
+    for relu in (True, False):
+        out = c8.conv_int8_bn_act(x, w, mul, add, amax, s, relu)
+        assert out.dtype == dtype and torch.equal(out, c8.conv_int8_bn_act_plain(x, w, mul, add, amax, s, relu))
+    assert (c8.LAUNCHES, c8.QUANT_LAUNCHES) == (before[0] + 2, before[1] + 2)
+
+
+def test_tiny_int8_detector_on_the_card_matches_the_cpu(cuda):
+    """tiny_debug (fp32) with calibrated scales: K6 once per quantised conv
+    (39 in V-39), the outputs as on the CPU's plain int8 conv (fp32 ops
+    outside it round apart by an ulp, which may move an activation across a
+    quantisation step: the fp32 detector tests' limits)."""
+    import numpy as np
+
+    from petr_tpu_torch.cli.quantize import synthetic_batch
+    from petr_tpu_torch.configs import get_config
+    from petr_tpu_torch.ops import conv_int8 as c8
+    from petr_tpu_torch.quant import apply_scales, calibrate_detector
+    from petr_tpu_torch.serve import build_detector
+
+    cfg = get_config("tiny_debug")
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = build_detector(cfg, seed=0, device="cpu")
+    scales = calibrate_detector(cfg, cpu, [synthetic_batch(cfg, 1, 0)])
+    card = build_detector(cfg, seed=0, device="cuda")
+    for model in (cpu, card):
+        apply_scales(model, scales)
+    batch = synthetic_batch(cfg, 1, 1)
+    args = [torch.from_numpy(np.asarray(batch[k])) for k in ("images", "img2lidar", "img_hw")]
+    with torch.inference_mode():
+        want = cpu(*args)
+        before = c8.LAUNCHES
+        got = card(*[a.cuda() for a in args])
+        torch.cuda.synchronize()
+    assert c8.LAUNCHES == before + 39
+    for key in ("cls_logits", "bbox_codes"):
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-3, atol=2e-3)

@@ -18,11 +18,13 @@ Checkpoints: a save and restore round trip and a restored train step are
 equal bit for bit; rotation keeps the same ``step_*`` directories as
 petr_tpu's orbax ``save_checkpoint``; ``load_params`` names a missing or an
 unexpected key. The CLI's ``main`` on ``--device cpu`` prints petr_tpu's
-metric lines; its unported options raise; ``--streaming`` on
-``tiny_debug_v2`` gives petr_tpu's detections.
+metric lines, also with ``--tta``, ``--quant-scales`` and
+``--fuse-conv-bn``; ``--streaming`` on ``tiny_debug_v2`` gives petr_tpu's
+detections.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import pickle
@@ -253,11 +255,64 @@ def test_cli_prints_petr_tpu_metrics_from_a_checkpoint(run, val_pkl, tmp_path, c
     assert sorted(sub["results"]) == sorted(info["token"] for info in run.val)
 
 
+def _jax_cli_metrics(run, params, tta="none", scales=None):
+    """petr_tpu's ``cli.test`` evaluation loop (`petr_tpu/cli/test.py:170-196`)
+    over the val split: ``apply_tta`` on the images, ``make_eval_step`` with
+    the scales on the int8 config, the devkit metrics. Its attention runs
+    the plain branch (``use_flash_attention=False``; the interpret-mode
+    Pallas kernel would triple this test's time), equal to the flash
+    semantics where no row is fully masked, as here."""
+    from petr_tpu.data import Loader as JLoader
+    from petr_tpu.train import make_eval_step as jax_eval_step
+
+    model = dataclasses.replace(run.jcfg.model, use_flash_attention=False)
+    if scales is not None:
+        model = dataclasses.replace(model, backbone=dataclasses.replace(model.backbone, quant="int8"))
+    step = jax.jit(jax_eval_step(dataclasses.replace(run.jcfg, model=model), scales))
+    info = {i["token"]: i for i in run.val}
+    preds = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr("petr_tpu.data.native.available", lambda: False)
+        for batch in JLoader(run.jds, 2, shuffle=False, drop_last=False).epoch(0):
+            tokens = batch.pop("tokens")
+            batch["images"] = jax_cli.apply_tta(batch["images"], tta)
+            det = jax.device_get(step(params, {k: jnp.asarray(v) for k, v in batch.items()}))
+            for i, tok in enumerate(tokens):
+                preds[tok] = jax_nuscenes.boxes_from_arrays(tok, det["boxes"][i], det["scores"][i], det["labels"][i],
+                                                            det["valid"][i], info=info.get(tok))
+    return jax_nuscenes.evaluate_detections(jax_nuscenes.ground_truth_from_infos(run.val), preds, classes=CLASSES)
+
+
 @pytest.mark.parametrize("extra", [["--tta", "hflip"], ["--quant-scales", "scales.npz"], ["--fuse-conv-bn"]],
                          ids=["tta", "quant_scales", "fuse_conv_bn"])
-def test_cli_refuses_unported_options(val_pkl, extra):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli.main(_args("tiny_debug", val_pkl, *extra))
+def test_cli_refuses_unported_options(run, val_pkl, tmp_path, capsys, extra):
+    """Named for when these options raised; they are ported: each runs from
+    the parity run's weights and prints petr_tpu's metric dict for the same
+    option within METRIC_TOL. For ``--quant-scales`` the port calibrates on
+    the val split and writes the file, which both CLIs' evaluations read
+    (petr_tpu's through its ``load_scales``)."""
+    from petr_tpu.quant import load_scales as jax_load_scales
+    from petr_tpu.utils.fuse import fold_frozen_bn as jax_fold
+    from petr_tpu_torch.quant import calibrate_detector, save_scales
+
+    params = _jax_params(run.model, run.jcfg, run.jds)
+    scales = None
+    if extra[0] == "--quant-scales":
+        extra = ["--quant-scales", str(tmp_path / "scales.npz")]
+        batches = [{k: v[None] for k, v in run.ds.get(i).items() if k in ("images", "img2lidar", "img_hw")}
+                   for i in range(len(run.val))]
+        save_scales(extra[1], calibrate_detector(run.cfg, run.model, batches))
+        scales = jax_load_scales(extra[1])
+    want = _jax_cli_metrics(run, jax.tree.map(jnp.asarray, jax_fold(params)) if extra[0] == "--fuse-conv-bn"
+                            else params, tta=extra[1] if extra[0] == "--tta" else "none", scales=scales)
+    state = create_train_state(run.cfg, 5, 10, device="cpu")
+    state.model.load_state_dict(run.model.state_dict())
+    ckpt = checkpoint.save_checkpoint(str(tmp_path / "ckpts"), 0, state)
+    results = cli.main(_args("tiny_debug", val_pkl, "--ckpt", ckpt, "--batch-size", "2", *extra))
+    capsys.readouterr()
+    assert list(results) == list(want)
+    for k, v in want.items():
+        assert abs(results[k] - v) <= METRIC_TOL, (k, results[k], v)
 
 
 def test_cli_raises_when_the_card_is_absent(val_pkl):

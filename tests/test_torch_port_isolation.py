@@ -43,7 +43,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "petr_tpu_torch.cli.train, petr_tpu_torch.train.bn_warmup, petr_tpu_torch.train.diagnostics, "
         "petr_tpu_torch.train.forensics, petr_tpu_torch.tools.synth_train_eval, petr_tpu_torch.tools.nan_replay, "
         "petr_tpu_torch.parallel, petr_tpu_torch.parallel.distributed, petr_tpu_torch.parallel.sharded_attention, "
-        "petr_tpu_torch.parallel.dryrun, petr_tpu_torch.cli.scaling, tests.test_torch_port_parallel_workers\n"
+        "petr_tpu_torch.parallel.dryrun, petr_tpu_torch.cli.scaling, tests.test_torch_port_parallel_workers, "
+        "petr_tpu_torch.quant, petr_tpu_torch.utils.fuse, petr_tpu_torch.runtime, petr_tpu_torch.cli.quantize, "
+        "petr_tpu_torch.cli.export\n"
         "from petr_tpu_torch.ops import build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"

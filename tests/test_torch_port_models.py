@@ -215,16 +215,17 @@ def test_tiny_debug_detector_matches(tiny, bf16_model, dtype):
 @pytest.mark.parametrize(
     "name,overrides",
     [
-        # PETRv2, unshared branches, Depthr and bn_mode="batch" are ported
-        # (tests/test_torch_port_petrv2.py, tests/test_torch_port_depthr.py,
-        # tests/test_torch_port_bn.py); the int8 PTQ backbone's "calib" and
-        # "int8" modes are not
-        ("petrv2_vov_p4_800x320", ("model.backbone.quant=int8",)),
-        ("tiny_debug_v2", ("model.backbone.quant=calib",)),
-        ("depthr_r50_c5_512x1408_gtdepth", ("model.backbone.quant=int8",)),
-        ("petr_vov_p4_800x320", ("model.head.kind=depthr", "model.backbone.quant=calib")),
-        ("petr_vov_p4_800x320", ("model.backbone.quant=int8",)),
-        ("petr_vov_p4_800x320", ("model.backbone.quant=calib", "model.backbone.bn_mode=batch")),
+        # PETRv2, unshared branches, Depthr, bn_mode="batch" and the int8 PTQ
+        # backbone are ported (tests/test_torch_port_petrv2.py,
+        # tests/test_torch_port_depthr.py, tests/test_torch_port_bn.py,
+        # tests/test_torch_port_quant.py); GridMask's grid_mask_exact=False
+        # is not, in any family or mode
+        ("petrv2_vov_p4_800x320", ("model.grid_mask_exact=False",)),
+        ("tiny_debug_v2", ("model.use_grid_mask=True", "model.grid_mask_exact=False")),
+        ("depthr_r50_c5_512x1408_gtdepth", ("model.use_grid_mask=True", "model.grid_mask_exact=False")),
+        ("petr_vov_p4_800x320", ("model.head.kind=depthr", "model.grid_mask_exact=False")),
+        ("petr_vov_p4_800x320", ("model.backbone.quant=int8", "model.grid_mask_exact=False")),
+        ("petr_vov_p4_800x320", ("model.grid_mask_exact=False", "model.backbone.bn_mode=batch")),
     ],
 )
 def test_detector_refuses_unported_configs(name, overrides):

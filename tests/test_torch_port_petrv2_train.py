@@ -244,7 +244,7 @@ def test_streaming_matches_its_own_full_forward(stream):
     assert s._prev_feats is None
     with pytest.raises(ValueError, match="6 views"):
         s.step(np.zeros((1, 12) + img_a.shape[2:], np.float32), i2l12, hw12, ts)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(KeyError, match="missing"):  # scales that name no conv of the backbone
         StreamingPETRv2(stream.cfg, stream.model, quant_scales={}, device="cpu")
 
 
