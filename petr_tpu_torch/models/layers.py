@@ -36,6 +36,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -44,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from petr_tpu_torch.ops.conv3x3 import conv3x3_bn_relu, conv_impl
-from petr_tpu_torch.ops.conv_int8 import conv_int8_bn_act
+from petr_tpu_torch.ops.conv_int8 import conv_int8_bn_act_tiled, conv_plan, fold_bn, prepare_operands, tile_weight
 from petr_tpu_torch.ops.cross_attention import flash_cross_attention
 from petr_tpu_torch.parallel.mesh import current_mesh, data_mean, data_parallel
 from petr_tpu_torch.parallel.sharded_attention import flash_partial_attention, project_shard
@@ -207,9 +208,23 @@ class QuantConv2d(Conv2d):
     int8 operands, ``ops.conv_int8``). The recorded max, ``act_amax``, is a
     non-persistent buffer registered when a mode other than "none" is first
     set: the ``state_dict``, checkpoints and the converter stay as they are,
-    as petr_tpu keeps it in its own "quant" collection."""
+    as petr_tpu keeps it in its own "quant" collection.
+
+    In "int8" the weight side of the op (the BN folded in, quantised per
+    output channel, packed and tiled for K6's plan) is prepared once and kept
+    in a plain attribute (not a buffer: nothing of it is saved). It is
+    prepared again when any of its sources (the weight, the BN's four tensors,
+    ``act_amax``) is another tensor object (``load_state_dict(assign=True)``,
+    a new Parameter), was updated in place (its version counter: ``copy_``,
+    ``load_state_dict``, an optimizer step) or moved (device, data pointer).
+    A write through ``.data`` bypasses version counters: call
+    ``drop_int8_operands`` after one. Under tracing the operands are inputs of
+    the program, prepared once outside it: ``serve.export`` passes them
+    (``_int8_given``), and a trace without them raises."""
 
     quant = "none"
+    _int8_cache = None  # (weakrefs to the sources, (eps, their marks), weakref to the BN, prepared, {bn: tiles})
+    _int8_given = None  # ({bn: tiles}, sa, scale, add), set while serve.export traces
 
     def set_quant(self, mode: str) -> None:
         if mode not in QUANT_MODES:
@@ -217,22 +232,69 @@ class QuantConv2d(Conv2d):
         if mode != "none" and "act_amax" not in self._buffers:
             self.register_buffer("act_amax", torch.zeros((), device=self.weight.device), persistent=False)
         self.quant = mode
+        self.drop_int8_operands()
+
+    def drop_int8_operands(self) -> None:
+        """Forget the prepared int8 operands: the next int8 forward prepares them."""
+        self._int8_cache = None
+
+    def int8_prepared(self) -> Optional[Tuple["FrozenBatchNorm", Tuple[torch.Tensor, ...], Dict[int, torch.Tensor]]]:
+        """(the BN folded in, (wq, sa, scale, add), {tile width: wt}) as the
+        last int8 forward prepared them, or None."""
+        if self._int8_cache is None:
+            return None
+        _, _, norm, prepared, tiles = self._int8_cache
+        return norm(), prepared, tiles
+
+    def int8_operands(self, norm: "FrozenBatchNorm", x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(wt, the int8 weight tiles at the tile width of K6's plan for ``x``;
+        sa; scale = sa * sw; add) of the int8 conv with ``norm`` folded in,
+        prepared once per weight (see above), and laid out once per tile
+        width."""
+        bn = conv_plan(*x.shape, self.out_channels, self.kernel_size[0], self.stride[0]).bn
+        if self._int8_given is not None:
+            tiles, sa, scale, add = self._int8_given
+            if bn not in tiles:
+                raise ValueError(f"the traced int8 conv was given tiles of width {sorted(tiles)}, its plan takes {bn}")
+            return tiles[bn], sa, scale, add
+        if torch.compiler.is_compiling():
+            raise RuntimeError("an int8 conv is traced on operands prepared once, outside the program "
+                               "(serve.export passes them): it does not quantise its weight per call")
+        sources = (self.weight, norm.weight, norm.bias, norm.running_mean, norm.running_var, self.act_amax)
+        # inference tensors have no version counter: prepared on every call
+        marks = None if any(t.is_inference() for t in sources) else (
+            norm.eps,) + tuple((t._version, t.device, t.data_ptr()) for t in sources)
+        cache = self._int8_cache
+        if (cache is None or marks is None or cache[1] != marks
+                or any(ref() is not t for ref, t in zip(cache[0], sources))):
+            with torch.no_grad():
+                mul, add = fold_bn(norm.weight, norm.bias, norm.running_mean, norm.running_var, norm.eps)
+                prepared = prepare_operands(self.weight, mul, add, self.act_amax)
+            if marks is None:
+                return (tile_weight(prepared[0], bn),) + prepared[1:]
+            cache = self._int8_cache = (tuple(weakref.ref(t) for t in sources), marks, weakref.ref(norm), prepared, {})
+        prepared, tiles = cache[3], cache[4]
+        if bn not in tiles:
+            tiles[bn] = tile_weight(prepared[0], bn)
+        return (tiles[bn],) + prepared[1:]
 
 
 def conv_bn_act(conv: QuantConv2d, norm: "FrozenBatchNorm", relu: Optional[nn.Module], x: torch.Tensor,
                 fused_route: bool = True) -> torch.Tensor:
     """conv (no bias) -> BN -> ReLU (if ``relu``), the forward of ``ConvBNReLU``
     and of VoVNet's stem. With ``conv.quant`` "int8" the three run as one
-    int8 conv (``conv_int8_bn_act``: K6 on CUDA) on the BN folded to
+    int8 conv (``conv_int8_bn_act_tiled``: K6 on CUDA) on the BN folded to
     ``mul``/``add``; "calib" records max |x| first. ``fused_route``: a 3x3
-    stride-1 conv may take the K5 route (``PETR_TPU_TORCH_CONV_IMPL=cuda``)."""
+    stride-1 conv may take the K5 route (``PETR_TPU_TORCH_CONV_IMPL=cuda``).
+    The int8 conv's weight side is prepared once per weight
+    (``QuantConv2d.int8_operands``)."""
     if conv.quant != "none":
         if norm.use_batch_stats:
             raise ValueError("int8 PTQ requires frozen BN (serving path)")
         if conv.quant == "int8":
-            mul = norm.weight * torch.rsqrt(norm.running_var + norm.eps)
-            add = norm.bias - norm.running_mean * mul
-            return conv_int8_bn_act(x, conv.weight, mul, add, conv.act_amax, conv.stride[0], relu is not None)
+            wt, sa, scale, add = conv.int8_operands(norm, x)
+            return conv_int8_bn_act_tiled(x, wt, sa, scale, add, conv.stride[0], relu is not None)
         with torch.no_grad():
             conv.act_amax.copy_(torch.maximum(conv.act_amax, x.abs().amax().float()))
     fusable = (conv.kernel_size == (3, 3) and conv.stride == (1, 1)

@@ -60,8 +60,14 @@ MUTANTS = {
     ),
     "k6_round_half_away": (
         "csrc/conv_int8.cu",
-        "const float r = rintf(to_float(",  # the activation quantisation rounds ties away from zero
-        "const float r = roundf(to_float(",
+        "const float r = rintf(q);",  # the activation quantisation rounds ties away from zero
+        "const float r = roundf(q);",
+        "13",
+    ),
+    "k6_split_partial_dropped": (
+        "csrc/conv_int8.cu",
+        "bulk_reduce_add(w, part, BM * BN * 4);",  # a split K's first split never reaches the sums
+        "if (blockIdx.z != 0) bulk_reduce_add(w, part, BM * BN * 4);",
         "13",
     ),
     "gather_backward_with_atomics": (

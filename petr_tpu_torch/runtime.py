@@ -11,6 +11,11 @@ first launch), and nothing of ``petr_tpu_torch.models``. Counterpart of
 petr_tpu's ``load_artifact`` and ``StreamingArtifactRunner``
 (`petr_tpu/serve/export.py:125-300`), whose StableHLO modules replay with
 JAX alone.
+
+An artifact exported without its weights also takes each int8 conv's
+prepared operands (the BN folded in, quantised, tiled) after them:
+``prepare_int8_operands`` makes them once, when the artifact is loaded, from
+the weights it is given, with the op library's own functions.
 """
 
 from __future__ import annotations
@@ -38,14 +43,35 @@ def _read(path: str, fmt: str, programs: Sequence[str]) -> Tuple[Dict[str, Any],
     return meta, eps
 
 
-class _Program:
-    """One loaded program: array-likes in (moved to the artifact's device as
-    fp32), tensors on the device out."""
+def prepare_int8_operands(meta: Dict[str, Any], program: str, params: Sequence[torch.Tensor]
+                          ) -> Tuple[torch.Tensor, ...]:
+    """The int8 convs' operands that ``program`` takes after the weights
+    (``meta["int8_operands"]``), prepared from ``params`` (the state_dict's
+    tensors in ``meta["param_names"]``' order) as the model prepares them."""
+    specs = meta.get("int8_operands", {}).get(program, [])
+    if not specs:
+        return ()
+    conv_int8 = importlib.import_module(meta["ops"] + ".conv_int8")
+    index = {name: i for i, name in enumerate(meta["param_names"])}
+    out = []
+    with torch.no_grad():
+        for spec in specs:
+            weight, *norm = (params[index[name]] for name in (spec["weight"], *spec["norm"]))
+            mul, add = conv_int8.fold_bn(*norm, spec["eps"])
+            amax = torch.tensor(spec["amax"], dtype=torch.float32, device=weight.device)
+            wq, sa, scale, add = conv_int8.prepare_operands(weight, mul, add, amax)
+            out += [conv_int8.tile_weight(wq, bn) for bn in spec["bns"]] + [sa, scale, add]
+    return tuple(out)
 
-    def __init__(self, ep, meta: Dict[str, Any], params: Optional[Sequence[torch.Tensor]]):
+
+class _Program:
+    """One loaded program (``program``, its file in the zip): array-likes in
+    (moved to the artifact's device as fp32), tensors on the device out."""
+
+    def __init__(self, ep, meta: Dict[str, Any], params: Optional[Sequence[torch.Tensor]], program: str):
         self.module = ep.module()
         self.device = torch.device(meta["device"])
-        self.params = ()
+        self.params = self.int8 = ()
         if not meta["embed_params"]:
             if params is None:
                 raise ValueError("artifact exported without params; pass params= (the state_dict's tensors in order)")
@@ -55,6 +81,7 @@ class _Program:
             # folding of batch dimensions, hence its sum order, depends on it
             self.params = tuple(torch.as_tensor(p).detach().to(self.device).requires_grad_(g)
                                 for p, g in zip(params, meta["param_requires_grad"]))
+            self.int8 = prepare_int8_operands(meta, program, self.params)
 
     def tensor(self, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
@@ -63,7 +90,7 @@ class _Program:
 
     def __call__(self, *inputs):
         with torch.inference_mode():
-            return self.module(*self.params, *inputs)
+            return self.module(*self.params, *self.int8, *inputs)
 
 
 def load_artifact(path: str, params: Optional[Sequence[torch.Tensor]] = None
@@ -75,7 +102,7 @@ def load_artifact(path: str, params: Optional[Sequence[torch.Tensor]] = None
     model's ``state_dict`` tensors in order (``meta["param_names"]``), on
     that device."""
     meta, (ep,) = _read(path, SERVING_FORMAT, ("program.pt2",))
-    program = _Program(ep, meta, params)
+    program = _Program(ep, meta, params, "program.pt2")
     n = len(meta["input_spec"])
 
     def fn(*inputs) -> Dict[str, torch.Tensor]:
@@ -98,8 +125,8 @@ class StreamingArtifactRunner:
 
     def __init__(self, path: str, params: Optional[Sequence[torch.Tensor]] = None):
         self.meta, (feat, head) = _read(path, STREAMING_FORMAT, ("feature.pt2", "head.pt2"))
-        self._feat = _Program(feat, self.meta, params)
-        self._head = _Program(head, self.meta, params)
+        self._feat = _Program(feat, self.meta, params, "feature.pt2")
+        self._head = _Program(head, self.meta, params, "head.pt2")
         self._prev: Optional[torch.Tensor] = None
 
     def reset(self) -> None:

@@ -16,7 +16,12 @@ without the model code: the kernels are ``torch.library`` ops of
 ``StreamingArtifactRunner``) is PETRv2's feature extractor and head, the
 previous frame's features kept on the device between them. ``quant_scales``
 (petr_tpu's "quant" tree) switches the model's backbone to int8 first
-(``quant.apply_scales``); the scales go into the program.
+(``quant.apply_scales``); the scales go into the program. An int8 conv's
+weight side (the BN folded in, quantised, tiled) is prepared once, not in
+the program: with ``embed_params`` the program holds the prepared operands
+as constants; otherwise it takes them after the weights, and
+``meta["int8_operands"]`` says how the runtime prepares them once from the
+weights it is given.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from __future__ import annotations
 import io
 import json
 import zipfile
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,6 +37,7 @@ from torch import nn
 
 from petr_tpu_torch.configs.config import ExperimentConfig, eval_model_config
 from petr_tpu_torch.models.detector import PETRDetector, init_weights
+from petr_tpu_torch.models.layers import QuantConv2d
 from petr_tpu_torch.ops.nms_free import nms_free_decode
 from petr_tpu_torch.quant.ptq import apply_scales
 from petr_tpu_torch.runtime import SERVING_FORMAT, STREAMING_FORMAT, StreamingArtifactRunner, load_artifact
@@ -131,21 +137,57 @@ def make_serving_fn(
 
 
 # ------------------------------------------------------- AOT artifacts
+class _Int8Conv(NamedTuple):
+    conv: QuantConv2d
+    spec: Dict[str, Any]  # meta["int8_operands"]'s entry: how the runtime prepares its operands
+    operands: Tuple[torch.Tensor, ...]  # the tiles at each width of spec["bns"], sa, scale, add
+
+
+def _int8_convs(fn: Callable, model: PETRDetector, example: Sequence[torch.Tensor]) -> List[_Int8Conv]:
+    """The int8 convs that ``fn(model, *example)`` runs, in module order, with
+    the operands each prepared (once) in one eager call."""
+    convs = [(n, m) for n, m in model.named_modules() if isinstance(m, QuantConv2d) and m.quant == "int8"]
+    if not convs:
+        return []
+    for _, conv in convs:
+        conv.drop_int8_operands()
+    with torch.no_grad():
+        fn(model, *example)
+    names = {id(m): n for n, m in model.named_modules()}
+    out = []
+    for name, conv in convs:
+        got = conv.int8_prepared()
+        if got is None:  # not on fn's path
+            continue
+        norm, (_, sa, scale, add), tiles = got
+        bns = sorted(tiles)
+        n = names[id(norm)]
+        spec = {"weight": f"{name}.weight", "norm": [f"{n}.{k}" for k in ("weight", "bias", "running_mean",
+                                                                          "running_var")],
+                "eps": norm.eps, "amax": float(conv.act_amax), "bns": bns}
+        out.append(_Int8Conv(conv, spec, tuple(tiles[bn] for bn in bns) + (sa, scale, add)))
+    return out
+
+
 class _Step(nn.Module):
-    """What ``torch.export`` traces: ``forward(*params, *inputs)`` =
+    """What ``torch.export`` traces: ``forward(*params, *int8, *inputs)`` =
     ``fn(model, *inputs)``. Without ``names`` the model is a submodule and
-    the program embeds its weights. With ``names`` (the model's
-    ``state_dict`` keys, in order) the weights come in as the first
-    arguments, swapped into the model's modules for the call, and the model
-    is kept off this module, so that the program holds none of them. A
-    tensor that the state_dict lists under two names (a shared branch: one
+    the program embeds its weights, and the int8 convs' prepared operands
+    as buffers (``int8``). With ``names`` (the model's ``state_dict`` keys,
+    in order) the weights come in as the first arguments, swapped into the
+    model's modules for the call, then the int8 convs' operands, and the
+    model is kept off this module, so that the program holds none of them.
+    A tensor that the state_dict lists under two names (a shared branch: one
     module, two paths) is taken from the first."""
 
-    def __init__(self, fn: Callable, model: PETRDetector, names: Optional[Sequence[str]]):
+    def __init__(self, fn: Callable, model: PETRDetector, names: Optional[Sequence[str]], int8: List[_Int8Conv]):
         super().__init__()
         self.fn, self.names = fn, names
+        self.int8 = [(c.conv, c.spec["bns"], len(c.operands)) for c in int8]
         if names is None:
             self.model = model
+            for i, t in enumerate(t for c in int8 for t in c.operands):
+                self.register_buffer(f"int8_{i}", t, persistent=False)
             return
         object.__setattr__(self, "_model", model)
         self.slots, seen = [], set()
@@ -157,18 +199,31 @@ class _Step(nn.Module):
                 self.slots.append((module, attr, i))
 
     def forward(self, *args):
+        n_int8 = sum(n for _, _, n in self.int8)
         if self.names is None:
-            return self.fn(self.model, *args)
+            operands, inputs = [getattr(self, f"int8_{i}") for i in range(n_int8)], args
+        else:
+            n = len(self.names)
+            operands, inputs = args[n:n + n_int8], args[n + n_int8:]
         saved = []
         try:
+            at = 0
+            for conv, bns, n in self.int8:
+                ops = operands[at:at + n]
+                conv._int8_given = (dict(zip(bns, ops[:len(bns)])), *ops[len(bns):])
+                at += n
+            if self.names is None:
+                return self.fn(self.model, *inputs)
             for module, attr, i in self.slots:
                 table = module._parameters if attr in module._parameters else module._buffers
                 saved.append((table, attr, table[attr]))
                 table[attr] = args[i]
-            return self.fn(self._model, *args[len(self.names):])
+            return self.fn(self._model, *inputs)
         finally:
             for table, attr, t in reversed(saved):
                 table[attr] = t
+            for conv, _, _ in self.int8:
+                conv._int8_given = None
 
 
 def _prepared(cfg: ExperimentConfig, model: PETRDetector, quant_scales) -> torch.device:
@@ -182,12 +237,17 @@ def _prepared(cfg: ExperimentConfig, model: PETRDetector, quant_scales) -> torch
 
 
 def _export(fn: Callable, model: PETRDetector, example: Sequence[torch.Tensor], embed_params: bool):
-    """Trace ``fn(model, *example)`` into an ExportedProgram."""
+    """Trace ``fn(model, *example)`` into an ExportedProgram, with
+    ``int8_operands`` set on it: what ``meta["int8_operands"]`` records for
+    it (empty with ``embed_params``)."""
+    int8 = _int8_convs(fn, model, example)
     state = model.state_dict()
-    step = _Step(fn, model, None if embed_params else list(state))
-    params = () if embed_params else tuple(state.values())
+    step = _Step(fn, model, None if embed_params else list(state), int8)
+    params = () if embed_params else (*state.values(), *(t for c in int8 for t in c.operands))
     with torch.no_grad():
-        return torch.export.export(step, (*params, *example), strict=False)
+        ep = torch.export.export(step, (*params, *example), strict=False)
+    ep.int8_operands = [] if embed_params else [c.spec for c in int8]
+    return ep
 
 
 def _example(spec: Mapping[str, Tuple[Tuple[int, ...], str]], device: torch.device,
@@ -233,9 +293,10 @@ def export_serving(
 
 
 def _meta(cfg: ExperimentConfig, model: PETRDetector, fmt: str, spec, batch_size: int, embed_params: bool,
-          programs) -> Dict[str, Any]:
+          programs: Mapping[str, Any]) -> Dict[str, Any]:
+    """``programs``: {file name in the zip: ExportedProgram}."""
     quant = {m.quant for name, m in model.named_modules() if hasattr(m, "set_quant")}
-    ops = sorted({str(node.target) for ep in programs for node in ep.graph.nodes
+    ops = sorted({str(node.target) for ep in programs.values() for node in ep.graph.nodes
                   if node.op == "call_function" and str(node.target).startswith("petr_tpu_torch.")})
     return {
         "format": fmt,
@@ -252,6 +313,11 @@ def _meta(cfg: ExperimentConfig, model: PETRDetector, fmt: str, spec, batch_size
         # matmul fold its batch dimensions otherwise, a different sum order
         "param_requires_grad": [] if embed_params else [
             bool(t.requires_grad) for t in model.state_dict(keep_vars=True).values()],
+        # per program, the int8 convs whose operands follow the weights
+        # (``runtime.prepare_int8_operands``): weight and BN names, eps, the
+        # calibrated max, the tile widths
+        "int8_operands": {name: ep.int8_operands for name, ep in programs.items()
+                          if getattr(ep, "int8_operands", None)},
         "torch": torch.__version__,
     }
 
@@ -271,7 +337,7 @@ def save_artifact(path: str, exported, cfg: ExperimentConfig, model: PETRDetecto
     keys, with ``device`` for ``platforms`` and the op library ``ops``) into
     the zip ``path`` -> the meta."""
     meta = _meta(cfg, model, SERVING_FORMAT, serving_input_spec(cfg, batch_size), batch_size, embed_params,
-                 (exported,))
+                 {"program.pt2": exported})
     with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
         z.writestr("meta.json", json.dumps(meta, indent=1))
         z.writestr("program.pt2", _program_bytes(exported))
@@ -340,7 +406,7 @@ def save_streaming_artifact(path: str, exported_pair, cfg: ExperimentConfig, mod
     (replayed by ``StreamingArtifactRunner``) -> the meta."""
     ef, eh = exported_pair
     meta = _meta(cfg, model, STREAMING_FORMAT, streaming_input_spec(cfg, batch_size), batch_size, embed_params,
-                 exported_pair)
+                 {"feature.pt2": ef, "head.pt2": eh})
     with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
         z.writestr("meta.json", json.dumps(meta, indent=1))
         z.writestr("feature.pt2", _program_bytes(ef))

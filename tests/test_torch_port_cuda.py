@@ -3,7 +3,8 @@ K1 (the forward, with and without dropout), K2 (the backward's dK/dV and dQ
 kernels), both with a shard's hash offsets, K3 (the lse cotangent through
 the autograd Function), K4 (DCNv2,
 forward and the gradients through its Function), K5 (the fused conv3x3) and
-K6 (the int8 conv with int32 sums, bf16 and fp32 out); K1, K2, K4 and K5 in
+K6 (the int8 conv with int32 sums, bf16 and fp32 out, at the classes of V-99's
+shapes and odd ones, every split and store branch, the ties case); K1, K2, K4 and K5 in
 both variants, bf16 on the tensor cores and fp32 on the CUDA cores. The bf16 K1 and K4 are also held to their rounding floors (the plain
 version rounding to bf16 where the kernel does) under KERNEL_TOL.
 
@@ -680,12 +681,27 @@ def test_tiny_batch_bn_step_on_the_card_matches_the_cpu(cuda):
         assert (out["cuda"][1][k] - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-7, k
 
 
+K6_SHAPES = [  # (B, C, H, W, Co, k, s): the classes of V-99's 20 shapes at 6 views, then odd ones
+    (6, 3, 320, 800, 64, 3, 2),  # stem1: Cin 3 -> 32, the strided 4-D box, 16-byte stores
+    (6, 64, 160, 400, 128, 3, 2),  # stem3: the strided box, tw 8
+    (6, 128, 80, 200, 128, 3, 1),  # s2: flat padded rows, unsplit
+    (6, 768, 80, 200, 256, 1, 1),  # s2 concat: 1x1 rows, n 256, 16-byte stores
+    (6, 256, 40, 100, 160, 3, 1),  # s3 in256: n 160, a chunk's 9 taps from one halo a stage
+    (6, 1312, 40, 100, 512, 1, 1),  # s3 concat: two tile columns
+    (6, 192, 20, 50, 192, 3, 1),  # s4: n 64, three tile columns, one element a thread stores
+    (6, 1728, 20, 50, 768, 1, 1),  # s4 concat: three tile columns
+    (6, 768, 20, 50, 192, 3, 1),  # s4 in768: K split in 2, the partial sums reduced in L2
+    (6, 224, 10, 25, 224, 3, 1),  # s5: 56 blocks
+    (6, 1024, 10, 25, 224, 3, 1),  # s5 in1024: split, four tile columns
+    (6, 2144, 10, 25, 1024, 1, 1),  # s5 concat: 1x1, K = 67 slices, a partial last stage
+    (2, 3, 33, 47, 64, 3, 2), (1, 64, 20, 50, 300, 3, 1), (2, 96, 9, 13, 40, 1, 1), (1, 128, 17, 19, 72, 3, 2),
+    (1, 32, 5, 7, 8, 1, 2), (1, 40, 7, 9, 24, 3, 1),
+    (1, 32, 3, 700, 64, 3, 1),  # W + 1 = 701: a stage takes one kernel row's taps (group 3)
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize(
-    "B,C,H,W,Co,k,s",
-    [(2, 3, 33, 47, 64, 3, 2),  # the stem's first conv (Cin 3 padded to 32), odd planes
-     (1, 64, 20, 50, 72, 3, 1), (2, 96, 9, 13, 40, 1, 1), (1, 128, 17, 19, 64, 3, 2), (1, 32, 5, 7, 8, 1, 2)],
-)
+@pytest.mark.parametrize("B,C,H,W,Co,k,s", K6_SHAPES)
 def test_conv_int8_kernel_matches_plain_version(cuda, dtype, B, C, H, W, Co, k, s):
     """K6: the int32 sums bit for bit, the output equal to the plain version's
     (the same fp32 epilogue, one rounding), and its two launches counted."""
@@ -701,11 +717,61 @@ def test_conv_int8_kernel_matches_plain_version(cuda, dtype, B, C, H, W, Co, k, 
     sa = c8.act_scale(amax)
     acc = c8.conv_int8_accumulate(x, wi, sa, s)
     assert torch.equal(acc, c8.conv_int8_accumulate_reference(c8.quantize_activation(x, sa), wi, s))
+    wq, sa, scale, addf = c8.prepare_operands(w, mul, add, amax)
+    wt = c8.tile_weight(wq, c8.conv_plan(B, C, H, W, Co, k, s).bn)
     before = (c8.LAUNCHES, c8.QUANT_LAUNCHES)
     for relu in (True, False):
-        out = c8.conv_int8_bn_act(x, w, mul, add, amax, s, relu)
+        out = c8.conv_int8_bn_act_tiled(x, wt, sa, scale, addf, s, relu)
         assert out.dtype == dtype and torch.equal(out, c8.conv_int8_bn_act_plain(x, w, mul, add, amax, s, relu))
     assert (c8.LAUNCHES, c8.QUANT_LAUNCHES) == (before[0] + 2, before[1] + 2)
+
+
+def test_conv_int8_rounds_ties_to_even(cuda):
+    """Every x / sa a tie (x on half-integers, sa = 1): the quantised rows and
+    the sums as the plain version rounds them, half to even."""
+    from petr_tpu_torch.ops import conv_int8 as c8
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = (torch.randint(-100, 100, (6, 128, 80, 200), generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+    w = torch.randn(128, 128, 3, 3, generator=gen, device="cuda") * 0.05
+    wi, _ = c8.quantize_weight(w, torch.ones(128, device="cuda"))
+    sa = c8.act_scale(torch.tensor(127.0, device="cuda"))
+    for s, plan in ((1, c8.conv_plan(6, 128, 80, 200, 128, 3, 1)), (2, c8.conv_plan(6, 128, 80, 200, 64, 3, 2))):
+        xi, zeros = c8.unpack_rows(c8.quantize_rows(x, sa, plan), plan)
+        assert torch.equal(xi, c8.quantize_activation(x, sa)) and not zeros.any(), s
+    acc = c8.conv_int8_accumulate(x, wi, sa, 1)
+    assert torch.equal(acc, c8.conv_int8_accumulate_reference(c8.quantize_activation(x, sa), wi, 1))
+
+
+def test_conv_int8_split_workspace_left_zero(cuda):
+    """A split plan's workspace and counters are zero again after the launch,
+    and a second launch gives the same sums."""
+    from petr_tpu_torch.ops import conv_int8 as c8
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(6, 768, 20, 50, generator=gen, device="cuda").to(torch.bfloat16)
+    wi = torch.randint(-127, 128, (192, 768, 3, 3), generator=gen, device="cuda").to(torch.int8)
+    sa = c8.act_scale(x.abs().amax())
+    assert c8.conv_plan(6, 768, 20, 50, 192, 3, 1).splits > 1
+    first = c8.conv_int8_accumulate(x, wi, sa, 1)
+    second = c8.conv_int8_accumulate(x, wi, sa, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    for ws, counters in c8._workspaces.values():
+        assert not ws.any() and not counters.any()
+
+
+def test_conv_int8_refuses_what_it_does_not_take(cuda):
+    from petr_tpu_torch.ops import conv_int8 as c8
+
+    x = torch.randn(1, 32, 8, 8, device="cuda")
+    wt = c8.tile_weight(torch.zeros(16, 3, 3, 32, dtype=torch.int8, device="cuda"), 64)
+    one, s16 = torch.ones((), device="cuda"), torch.ones(16, device="cuda")
+    for bad in (dict(wt=wt[:, :4]), dict(x=x.half()), dict(stride=3), dict(wt=wt.float()), dict(scale=s16[:8])):
+        args = dict(x=x, wt=wt, sa=one, scale=s16, add=s16, stride=1)
+        args.update(bad)
+        with pytest.raises(ValueError):
+            c8.conv_int8_bn_act_tiled(args["x"], args["wt"], args["sa"], args["scale"], args["add"], args["stride"])
 
 
 def test_tiny_int8_detector_on_the_card_matches_the_cpu(cuda):
