@@ -150,10 +150,10 @@ nothing of petr_tpu. Phases, each fatal on failure:
    and synth_small for 6 steps on the fp32 variants only; both recipes'
    steps at their batch of 4 timed on CUDA events and the host's clock
    with the loader (busy and wait shares, one profiler pass, an eval
-   pass) and their learning runs' wall time projected; ``python -m
-   petr_tpu_torch.tools.synth_train_eval --config synth_small --steps 60
-   --bn-warmup 4 --eval-every 30 --floor 0``: its JSON line, a loss that
-   fell, BN statistics moved by the warm-up.
+   pass) and their learning runs' wall time projected; the harness,
+   ``tools.synth_train_eval --config synth_small --steps 30 --bn-warmup 4
+   --eval-every 15 --floor 0`` through its entry point in this process:
+   its JSON line, a loss that fell, BN statistics moved by the warm-up.
 12. parallel training over torch.distributed, ranks spawned on the one
    card (Gloo stages all-reduce and broadcast of CUDA tensors through the
    host; NCCL refuses two ranks on one device). K3 at the token shard's
@@ -185,14 +185,15 @@ nothing of petr_tpu. Phases, each fatal on failure:
    graphs (the op on operands prepared once, the conv and the pass alone)
    beside cuDNN's bf16 F.conv2d and torch._int_mm on the im2col patches,
    with its bound at the int8 peak, and summed per forward. The flagship
-   calibrated by ``python -m petr_tpu_torch.cli.quantize --synthetic`` in
-   a process of its own and served int8 through ``InferenceServer`` (K6
+   calibrated by ``cli.quantize --synthetic`` (its entry point, in this
+   process) and served int8 through ``InferenceServer`` (K6
    99 and K1 6 launches per forward, its 99 convs the shapes above, their
    weights prepared once and not again per forward; held to K6's plain
    version under phase 4's limits; its relative L2 error against the bf16 model
    reported beside petr_tpu's bound of 0.05; B=1 forwards of both on CUDA
    events and profiled); ``cli.test --fuse-conv-bn`` and ``--tta hflip``
-   on 3 val samples of phase 10's synthetic scenes; the serving
+   (its entry point, in this process) on 3 val samples of phase 10's
+   synthetic scenes; the serving
    artifacts (``torch.export``, weights embedded) of the flagship in bf16
    and int8 at B=2 and of ``petr_r50_p4_1408x512`` at B=1, replayed in a
    fresh process that imports the runtime and the op library and no
@@ -200,6 +201,25 @@ nothing of petr_tpu. Phases, each fatal on failure:
    outputs equal to ``make_serving_fn``'s; PETRv2's streaming pair over 3
    frames through ``StreamingArtifactRunner``, each equal to
    ``StreamingPETRv2.step`` (K1 6 per frame).
+14. tools: ``cli.benchmark`` (its entry point, in this process) on the
+   flagship at B=1 for inference, ``--train`` and int8 (phase 13's
+   scales), each JSON line printed with its ``mfu_pct``, K1 6 launches
+   per forward, 12 and K2 6 + 6 per step, K6 99 per int8 forward;
+   ``utils.mfu.count_flops`` of the bf16 forward and of the train step
+   equal on the kernel route (K1's op by its formula, K2 by its formula
+   in the backward) and with every kernel routed to its plain version,
+   and ``cli.flops``' line with that count and the forward's peak memory;
+   the native loader built from ``csrc/dataload.cpp`` with g++ and
+   libjpeg (or a line saying the machine has no ``jpeglib.h``) and held
+   to the PIL path on phase 10's val samples at 900x1600 under petr_tpu's
+   limits, then the loader's time per batch and an eval pass's wait on it
+   on each branch; ``cli.convert`` of a reference-shaped ``.pth`` (the
+   flagship's random weights under legacy keys in mmcv's wrapper), the
+   converted model's forward equal to the source model's bit for bit,
+   and ``cli.publish`` of that checkpoint round-tripped through
+   ``load_published``.
+Phases 10, 13 and 14 share one rendering of the scenes, and 13 and 14 one
+calibration. The seconds of each phase are printed before the card's line.
 ``--phases 3,8`` runs only the phases named (1 and 2 always run), prints no
 kernels record and no result line, and exits 1 either way: a failed check
 raises an AssertionError; ``--phases 3`` alone checks and times every kernel. With no
@@ -218,8 +238,10 @@ import sys
 import time
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): bf16 tensor
-# cores and HBM3. exp2 runs on the SFUs at 16 results per SM per clock
-# (CUDA C Programming Guide, arithmetic throughput table, compute 9.0).
+# cores and HBM3. The bf16 peak is the card's from utils.mfu's table once
+# main has read it (the SXM's where the table has no entry, said so in the
+# run). exp2 runs on the SFUs at 16 results per SM per clock (CUDA C
+# Programming Guide, arithmetic throughput table, compute 9.0).
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 SFU_EXP_PER_SM_CLOCK = 16
@@ -251,7 +273,6 @@ STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_FLOOR = 1e-4, 1e-3, 1e-3
 NUDGE_MARGIN = 3.0
 # the r50dcn presets, and the fp32 SM peak of one H100 SXM (data sheet)
 R50 = "petr_r50_p4_1408x512"
-CLI_SAMPLES = 3  # cli.test's new options: a run each, a few samples (its process start dominates)
 R50_C5 = "petr_r50_c5_1408x512"
 # Depthr: the r50dcn backbone (C5, no neck) and a decoder over 6 x 16 x 44 depth tokens
 DEPTHR = "depthr_r50_c5_512x1408_gtdepth"
@@ -384,13 +405,13 @@ def device_ms(torch, fn, name=None, warmup=3, iters=20):
     return total, named
 
 
-def bound_ms(pairs, flops_per_pair, nbytes, sm_count, sm_clock_hz, peak_flops=PEAK_BF16_FLOPS):
+def bound_ms(pairs, flops_per_pair, nbytes, sm_count, sm_clock_hz, peak_flops=None):
     """Least time for an attention kernel: the larger of its products over the
     peak of their type (the bf16 tensor cores by default), its exponentials
     (one per pair) over the SFU rate, and its bytes (each input read once,
     each output written once) over HBM bandwidth. ``pairs`` counts the
     (query, unmasked key) pairs of the inputs."""
-    t_flops = flops_per_pair * pairs / peak_flops
+    t_flops = flops_per_pair * pairs / (peak_flops or PEAK_BF16_FLOPS)
     t_exp = pairs / (sm_count * SFU_EXP_PER_SM_CLOCK * sm_clock_hz)
     t_bytes = nbytes / PEAK_HBM_BYTES
     bound = max(t_flops, t_exp, t_bytes)
@@ -898,11 +919,11 @@ def kernel_compare(torch, name, got, want, tag):
     return err.max().item()
 
 
-def roofline(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+def roofline(flops, nbytes, peak_flops=None):
     """(bound_ms, bound_by, parts): the larger of the products over the
-    bf16 tensor-core peak and the bytes (each input read once, each output
-    written once) over HBM bandwidth."""
-    t_flops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
+    bf16 tensor-core peak (or ``peak_flops``) and the bytes (each input read
+    once, each output written once) over HBM bandwidth."""
+    t_flops, t_bytes = flops / (peak_flops or PEAK_BF16_FLOPS), nbytes / PEAK_HBM_BYTES
     bound = max(t_flops, t_bytes)
     return bound * 1e3, ("bytes" if t_bytes >= t_flops else "operations"), {
         "tensor_core_ms": t_flops * 1e3, "bytes_ms": t_bytes * 1e3, "fp32_core_ms": flops / PEAK_FP32_FLOPS * 1e3}
@@ -2891,6 +2912,65 @@ def torch_defaults(torch):
          torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
 
 
+_SHARED = {}
+
+
+def shared_dir() -> str:
+    """A directory for the inputs that several phases read (the rendered
+    scenes, the int8 scales), made on first use and removed at exit."""
+    import tempfile
+
+    if "tmp" not in _SHARED:
+        _SHARED["tmp"] = tempfile.TemporaryDirectory()
+    return _SHARED["tmp"].name
+
+
+def eval_scenes(H, W):
+    """EVAL_SCENES rendered at HxW, once per run (phases 10, 13 and 14 read
+    them; each renders them when it runs first) -> (splits, directory,
+    seconds this call spent rendering)."""
+    from petr_tpu_torch.data import generate_synthetic_scenes
+
+    key = ("scenes", H, W)
+    t0 = time.perf_counter()
+    if key not in _SHARED:
+        out = f"{shared_dir()}/synth_{H}x{W}"
+        _SHARED[key] = generate_synthetic_scenes(out, image_hw=(H, W), **EVAL_SCENES), out
+    return (*_SHARED[key], time.perf_counter() - t0)
+
+
+def run_main(module, args, label):
+    """``module.main(args)`` in this process (a CLI's entry point without a
+    process start), its standard output captured and echoed: (the output, wall s)."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        module.main(list(args))
+    wall = time.perf_counter() - t0
+    log(f"  {label}: {module.__name__}.main({' '.join(args)[:300]}) in {wall:.1f} s")
+    for line in buf.getvalue().splitlines()[-8:]:
+        log(f"    | {line[:400]}")
+    return buf.getvalue(), wall
+
+
+def synthetic_scales():
+    """``cli.quantize --synthetic`` of the flagship (random weights, seed 0,
+    2 batches) in this process, once per run (phases 13 and 14 read it) ->
+    (the scales file, seconds this call spent)."""
+    import os
+
+    from petr_tpu_torch.cli import quantize
+
+    path = f"{shared_dir()}/scales.npz"
+    if os.path.exists(path):
+        return path, 0.0
+    _, wall = run_main(quantize, ["--config", FLAGSHIP, "--synthetic", "--num-batches", "2", "--out", path],
+                       "cli.quantize")
+    return path, wall
+
+
 def run_cli(args, label):
     """``python -m petr_tpu_torch.cli.test ARGS`` from this script's directory
     in a process of its own: it must exit 0. Returns (stdout, wall s)."""
@@ -2915,6 +2995,50 @@ def printed_metrics(stdout):
     return dict(lines)
 
 
+def loader_cost(torch, cfg, model, ds, card):
+    """The host's data cost beside the card's on the test-mode dataset
+    ``ds``: each sample's loader time (``get`` and collation, batch 1), the
+    eval step (copy in, forward, decode) on CUDA events, and an eval pass
+    through ``Loader`` (4 threads) with the card's wait on it -> dict."""
+    import numpy as np
+
+    from petr_tpu_torch.data import Loader, collate_batch
+    from petr_tpu_torch.data.transforms import sample_ida_params
+    from petr_tpu_torch.train import make_eval_step
+
+    H, W = cfg.data.src_hw
+    ida = sample_ida_params(np.random.default_rng(0), (H, W), cfg.data.final_dim, cfg.data.resize_lim,
+                            cfg.data.bot_pct_lim, cfg.data.rot_lim, cfg.data.rand_flip, False)
+    host = []
+    for i in range(len(ds)):
+        t0 = time.perf_counter()
+        batch = collate_batch([ds.get(i, seed=i)])
+        host.append((time.perf_counter() - t0) * 1e3)
+    eval_step = make_eval_step(cfg)
+    dev_ms = cuda_time_ms(lambda: eval_step(model, batch), warmup=3, iters=10)
+    wait = 0.0
+    t_all = time.perf_counter()
+    it = iter(Loader(ds, 1, shuffle=False, drop_last=False).epoch(0))
+    n = 0
+    while True:
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        wait += time.perf_counter() - t0
+        if batch is None:
+            break
+        {k: v.cpu() for k, v in eval_step(model, batch).items()}
+        n += 1
+    wall = time.perf_counter() - t_all
+    log(f"  the loader's host time per batch of 1 (6 views of {H}x{W}: JPEG decode, bicubic resize to "
+        f"{ida.resize_dims[0]}x{ida.resize_dims[1]}, crop {ida.crop}, normalisation, collation): median "
+        f"{statistics.median(host):.3f} ms (" + ", ".join(f"{t:.3f}" for t in host) + ")")
+    log(f"  the eval step (copy in, forward, decode) on CUDA events: median {dev_ms:.3f} ms per batch of 1")
+    log(f"  an eval pass through Loader (4 threads) and the eval step: {n} samples in {wall:.4f} s, "
+        f"{n / wall:.4f} samples/s; the card waited on the loader {100 * wait / wall:.2f}% of it [{card}]")
+    return {"loader_ms_per_batch": host, "eval_step_ms": dev_ms, "eval_wall_s": wall,
+            "loader_wait_share": wait / wall, "eval_samples_per_s": n / wall}
+
+
 def check_eval(torch, ca, card):
     """Phase 10: the port's data, metrics, evaluation, checkpoints and
     evaluation CLI on synthetic scenes rendered at 900x1600: a bf16 train
@@ -2931,8 +3055,7 @@ def check_eval(torch, ca, card):
 
     from petr_tpu_torch.cli.test import run_streaming_inference
     from petr_tpu_torch.configs import get_config
-    from petr_tpu_torch.data import Loader, NuScenesDataset, collate_batch, generate_synthetic_scenes
-    from petr_tpu_torch.data.transforms import sample_ida_params
+    from petr_tpu_torch.data import Loader, NuScenesDataset, collate_batch
     from petr_tpu_torch.metrics.nuscenes import evaluate_detections, ground_truth_from_infos
     from petr_tpu_torch.metrics.submission import build_submission
     from petr_tpu_torch.models import layers
@@ -2945,17 +3068,15 @@ def check_eval(torch, ca, card):
     classes = tuple(EVAL_CLASSES.split(","))
     times = {}
     with torch_defaults(torch), tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        splits = generate_synthetic_scenes(f"{tmp}/synth", image_hw=(H, W), **EVAL_SCENES)
-        times["render_s"] = time.perf_counter() - t0
+        splits, synth, times["render_s"] = eval_scenes(H, W)
         val, train = splits["val"], splits["train"]
-        n_jpeg = sum(name.endswith(".jpg") for name in os.listdir(f"{tmp}/synth"))
+        n_jpeg = sum(name.endswith(".jpg") for name in os.listdir(synth))
         log(f"phase 10: rendered {EVAL_SCENES['n_scenes']} scenes of {EVAL_SCENES['frames_per_scene']} frames "
             f"(seed {SEED}, {EVAL_SCENES['n_objects']} objects, {EVAL_SCENES['val_scenes']} held out) at {H}x{W}: "
             f"{len(val)} val and {len(train)} train samples, {n_jpeg} JPEGs with the warm-up sweeps, in "
             f"{times['render_s']:.3f} s")
         assert (len(val), len(train), n_jpeg) == (6, 6, 4 * 4 * 6)
-        val_pkl = f"{tmp}/synth/synth_infos_val.pkl"
+        val_pkl = f"{synth}/synth_infos_val.pkl"
         with open(val_pkl, "rb") as f:
             assert [i["token"] for i in pickle.load(f)["infos"]] == [i["token"] for i in val]
 
@@ -3083,37 +3204,8 @@ def check_eval(torch, ca, card):
         assert sub_err <= SUBMISSION_TOL, "the CLI's detections differ from evaluate_model's"
 
         # -- the host's data cost beside the card's --------------------------
-        ida = sample_ida_params(np.random.default_rng(0), (H, W), cfg.data.final_dim, cfg.data.resize_lim,
-                                cfg.data.bot_pct_lim, cfg.data.rot_lim, cfg.data.rand_flip, False)
-        host = []
-        for i in range(len(ds)):
-            t0 = time.perf_counter()
-            collate_batch([ds.get(i, seed=i)])
-            host.append((time.perf_counter() - t0) * 1e3)
-        eval_step = make_eval_step(cfg)
-        dev_ms = cuda_time_ms(lambda: eval_step(model, batches[0]), warmup=3, iters=10)
-        wait = 0.0
-        t_all = time.perf_counter()
-        it = iter(Loader(ds, 1, shuffle=False, drop_last=False).epoch(0))
-        n = 0
-        while True:
-            t0 = time.perf_counter()
-            batch = next(it, None)
-            wait += time.perf_counter() - t0
-            if batch is None:
-                break
-            {k: v.cpu() for k, v in eval_step(model, batch).items()}
-            n += 1
-        wall = time.perf_counter() - t_all
-        times.update({"loader_ms_per_batch": host, "eval_step_ms": dev_ms, "eval_wall_s": wall,
-                      "loader_wait_share": wait / wall, "eval_samples_per_s": n / wall})
-        log(f"  the loader's host time per batch of 1 (6 views of {H}x{W}: JPEG decode, bicubic resize to "
-            f"{ida.resize_dims[0]}x{ida.resize_dims[1]}, crop {ida.crop}, normalisation, collation): median "
-            f"{statistics.median(host):.3f} ms (" + ", ".join(f"{t:.3f}" for t in host) + ")")
-        log(f"  the eval step (copy in, forward, decode) on CUDA events: median {dev_ms:.3f} ms per batch of 1")
-        log(f"  an eval pass through Loader (4 threads) and the eval step: {n} samples in {wall:.4f} s, "
-            f"{n / wall:.4f} samples/s; the card waited on the loader {100 * wait / wall:.2f}% of it; the CLI: "
-            f"{times['cli_samples_per_s']} samples/s, {cli_wall:.3f} s with its start [{card}]")
+        times.update(loader_cost(torch, cfg, model, ds, card))
+        log(f"  the CLI: {times['cli_samples_per_s']} samples/s, {cli_wall:.3f} s with its start [{card}]")
         del model
         torch.cuda.empty_cache()
 
@@ -3180,7 +3272,7 @@ def check_eval(torch, ca, card):
 SYNTH_SCENES = dict(n_scenes=6, frames_per_scene=4, n_objects=6, val_scenes=1, seed=SEED)
 SYNTH_HW = (128, 320)
 SYNTH_VOV, SYNTH_R50 = "synth_small", "synth_small_r50dcn"
-HARNESS_STEPS = 60  # the harness's run: its JSON line, a loss that fell, the warm-up's BN statistics
+HARNESS_STEPS = 30  # the harness's run: its JSON line, a loss that fell, the warm-up's BN statistics
 # the learning runs' steps, held-out val samples and intermediate evals
 RECIPES = {SYNTH_VOV: dict(steps=4000, val_samples=24, evals=1),
            SYNTH_R50: dict(steps=8000, val_samples=24, evals=4)}
@@ -3304,8 +3396,8 @@ def check_learning(torch, ca, dcn, card):
     runs it again here for 3 steps, which must log the same losses and
     gradient norms bit for bit, counting K1, K2 and K4 launches per step
     (bf16 variants only), and synth_small (fp32 variants only); times both
-    recipes; runs ``python -m petr_tpu_torch.tools.synth_train_eval`` for
-    HARNESS_STEPS steps with the BN warm-up."""
+    recipes; runs the harness (``tools.synth_train_eval``'s entry point, in
+    this process) for HARNESS_STEPS steps with the BN warm-up."""
     import os
     import signal
     import tempfile
@@ -3315,6 +3407,7 @@ def check_learning(torch, ca, dcn, card):
     from petr_tpu_torch.cli import train as cli_train
     from petr_tpu_torch.data import Loader, NuScenesDataset, generate_synthetic_scenes
     from petr_tpu_torch.models import resnet
+    from petr_tpu_torch.tools import synth_train_eval
     from petr_tpu_torch.tools.synth_train_eval import recipe_config
     from petr_tpu_torch.train.checkpoint import latest_checkpoint
 
@@ -3461,21 +3554,16 @@ def check_learning(torch, ca, dcn, card):
                 str(HARNESS_STEPS // 2), "--floor", "0",
                 "--scenes", str(SYNTH_SCENES["n_scenes"]), "--val-scenes", str(SYNTH_SCENES["val_scenes"]),
                 "--out-dir", f"{tmp}/harness", "--save-ckpt", f"{tmp}/harness_ckpt"]
-        log(f"phase 11: python -m petr_tpu_torch.tools.synth_train_eval {' '.join(args)}")
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "petr_tpu_torch.tools.synth_train_eval", *args], cwd=root,
-                              capture_output=True, text=True, timeout=900)
-        times["harness_s"] = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
-            log(f"    | {line}")
-        assert proc.returncode == 0, f"synth_train_eval exited {proc.returncode}:\n{proc.stderr[-4000:]}"
-        rec = json.loads([line for line in proc.stdout.splitlines() if line.startswith('{"steps"')][-1])
+        log(f"phase 11: petr_tpu_torch.tools.synth_train_eval {' '.join(args)}, in this process")
+        with torch_defaults(torch):  # as in the harness's own process
+            stdout, times["harness_s"] = run_main(synth_train_eval, args, "the harness")
+        rec = json.loads([line for line in stdout.splitlines() if line.startswith('{"steps"')][-1])
         metric_keys = {"mAP", "NDS", "mATE", "mASE", "mAOE", "mAVE", "mAAE", "AP_car", "AP_bus", "AP_pedestrian"}
         assert set(rec) == {"steps", "train_loss_first", "train_loss_last", "wall_s"} | {
             f"val/{k}" for k in metric_keys}, sorted(rec)
         assert all(np.isfinite(v) for v in rec.values()), rec
         assert rec["train_loss_last"] < rec["train_loss_first"], rec
-        assert "bn-warmup: estimated BN stats from 4 batches" in proc.stdout
+        assert "bn-warmup: estimated BN stats from 4 batches" in stdout
         state = torch.load(f"{latest_checkpoint(f'{tmp}/harness_ckpt')}/state.pt", map_location="cpu",
                            weights_only=True)["model"]
         stats = {k: v for k, v in state.items() if k.endswith(("running_mean", "running_var"))}
@@ -4039,7 +4127,7 @@ INT8_ROUNDS = 3  # interleaved timing rounds per shape (their spread)
 # (tests/test_quant.py::test_detector_int8_e2e, at tiny_debug)
 INT8_REL_ERR = 0.05
 R50 = "petr_r50_p4_1408x512"
-CLI_SAMPLES = 3  # cli.test's new options: a run each, a few samples (its process start dominates)
+CLI_SAMPLES = 3  # cli.test's new options: a run each in this process, a few samples
 
 
 def int8_inputs(torch, gen, C, H, W, Co, k, ties=False):
@@ -4340,8 +4428,8 @@ def check_deployment(torch, ca, c8, dcn, card):
 
     import numpy as np
 
+    from petr_tpu_torch.cli import test as cli_test
     from petr_tpu_torch.configs import get_config
-    from petr_tpu_torch.data import generate_synthetic_scenes
     from petr_tpu_torch.models import layers, resnet
     from petr_tpu_torch.quant import load_scales, quant_convs, set_quant
     from petr_tpu_torch.serve import (StreamingArtifactRunner, StreamingPETRv2, build_detector, export_serving,
@@ -4356,9 +4444,7 @@ def check_deployment(torch, ca, c8, dcn, card):
     with tempfile.TemporaryDirectory() as tmp:
         # -- the int8 flagship: calibrate, serve, check ----------------------
         log(f"phase 13: {FLAGSHIP} int8: cli.quantize --synthetic (random weights, seed {SEED}), then served int8")
-        scales_path = f"{tmp}/scales.npz"
-        run_module(["-m", "petr_tpu_torch.cli.quantize", "--config", FLAGSHIP, "--synthetic", "--num-batches", "2",
-                    "--out", scales_path], "cli.quantize")
+        scales_path, times["cli_quantize_s"] = synthetic_scales()
         scales = load_scales(scales_path)
         model = build_detector(cfg, seed=SEED, device="cuda")
         fn = make_serving_fn(cfg, model, device="cuda", quant_scales=scales)  # switches the backbone to int8
@@ -4433,14 +4519,14 @@ def check_deployment(torch, ca, c8, dcn, card):
 
         # -- cli.test's new options on the synthetic scenes ---------------
         H, W = cfg.data.src_hw
-        scenes = dict(EVAL_SCENES, n_scenes=2, val_scenes=2)
-        splits = generate_synthetic_scenes(f"{tmp}/synth", image_hw=(H, W), **scenes)
-        val_pkl = f"{tmp}/synth/synth_infos_val.pkl"
+        splits, synth, _ = eval_scenes(H, W)
+        val_pkl = f"{synth}/synth_infos_val.pkl"
         log(f"phase 13: cli.test --fuse-conv-bn and --tta hflip on {CLI_SAMPLES} of the {len(splits['val'])} val "
-            f"samples of phase 10's synthetic scenes ({H}x{W}; random weights, seed {SEED})")
+            f"samples of phase 10's synthetic scenes ({H}x{W}; random weights, seed {SEED}), in this process")
         for extra in (["--fuse-conv-bn"], ["--tta", "hflip"]):
-            out, wall = run_cli(["--config", FLAGSHIP, "--infos", val_pkl, "--classes", EVAL_CLASSES,
-                                 "--max-samples", str(CLI_SAMPLES), *extra], " ".join(extra))
+            with torch_defaults(torch):  # as in the CLI's own process
+                out, wall = run_main(cli_test, ["--config", FLAGSHIP, "--infos", val_pkl, "--classes", EVAL_CLASSES,
+                                                "--max-samples", str(CLI_SAMPLES), *extra], " ".join(extra))
             metrics = printed_metrics(out)
             assert {"mAP", "NDS"} <= set(metrics) and all(np.isfinite(float(v)) for v in metrics.values()), metrics
             assert f"inference: {CLI_SAMPLES} samples" in out, out
@@ -4539,7 +4625,227 @@ def check_deployment(torch, ca, c8, dcn, card):
     return launches, times
 
 
-ALL_PHASES = {3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
+# Phase 14: the measurement tools, the native loader and the remaining CLIs
+# at the flagship's full width. cli.benchmark's timed iterations per mode,
+# after its 5 warm-up ones and before the one its FLOP count runs.
+BENCH_ITERS = {"inference": 20, "train": 5, "int8": 20}
+BENCH_WARMUP = 5
+# The native loader against the PIL path, per pixel of a normalised view:
+# petr_tpu's limits (tests/test_native_dataload.py), its bicubic in fp32
+# against PIL's fixed-point intermediate.
+NATIVE_MEDIAN_ERR, NATIVE_PIXEL_ERR, NATIVE_PIXEL_SHARE = 0.05, 0.25, 0.99
+
+
+def check_tools(torch, ca, c8, card):
+    """Phase 14: ``cli.benchmark`` in this process on the flagship at B=1
+    (inference, ``--train`` and int8 with the scales of ``cli.quantize
+    --synthetic``), each JSON line printed and its launches counted (K1 6
+    per forward; K1 12, K2 6 + 6 per step; K6 99 per int8 forward);
+    ``utils.mfu.count_flops`` of the bf16 forward and the train step equal
+    on the kernel route and with every kernel routed to its plain version,
+    and ``cli.flops``' line (that count, the parameters, the forward's peak
+    memory); the native loader built from ``csrc/dataload.cpp`` (or a line saying the
+    machine has no libjpeg headers) and held to the PIL path on phase 10's
+    scenes at 900x1600, then the loader's time per batch and the eval pass's
+    wait on it on each branch; ``cli.convert`` of a reference-shaped
+    ``.pth`` (the model's random weights under legacy keys, wrapped as mmcv
+    saves them), the converted model's forward equal bit for bit to the
+    source's, and ``cli.publish`` of its checkpoint round-tripped through
+    ``load_published``."""
+    import hashlib
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from petr_tpu_torch.cli import benchmark
+    from petr_tpu_torch.cli import convert as convert_cli
+    from petr_tpu_torch.cli import flops as flops_cli
+    from petr_tpu_torch.cli import publish as publish_cli
+    from petr_tpu_torch.configs import get_config
+    from petr_tpu_torch.configs.config import NUSCENES_CLASSES
+    from petr_tpu_torch.data import NuScenesDataset, native
+    from petr_tpu_torch.serve import build_detector
+    from petr_tpu_torch.train import create_train_state, make_train_step, step_generator
+    from petr_tpu_torch.train.checkpoint import load_params
+    from petr_tpu_torch.utils import mfu
+    from petr_tpu_torch.utils.publish import load_published
+    from petr_tpu_torch.utils.torch_convert import LEGACY_MAP
+
+    cfg = get_config(FLAGSHIP)
+    L = cfg.model.head.num_layers
+    t_phase = time.perf_counter()
+    out = {"benchmark": {}, "launches_per_iter": {}}
+    counters = {"K1": (ca, "LAUNCHES"), "K1 fp32": (ca, "LAUNCHES_FP32"), "K2 dK/dV": (ca, "DKDV_LAUNCHES"),
+                "K2 dQ": (ca, "DQ_LAUNCHES"), "K6": (c8, "LAUNCHES"), "K6 quant": (c8, "QUANT_LAUNCHES")}
+
+    def zero():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def counts():
+        return {label: getattr(mod, attr) for label, (mod, attr) in counters.items()}
+
+    # -- cli.benchmark: inference, --train, int8 -------------------------
+    scales, _ = synthetic_scales()
+    per_iter = {"inference": {"K1": L}, "train": {"K1": 2 * L, "K2 dK/dV": L, "K2 dQ": L},
+                "int8": {"K1": L, "K6": INT8_PER_FORWARD, "K6 quant": INT8_PER_FORWARD}}
+    extra = {"inference": [], "train": ["--train"], "int8": ["--quant-scales", scales]}
+    for mode, n in BENCH_ITERS.items():
+        argv = ["--config", FLAGSHIP, "--batch-size", "1", "--iters", str(n), "--warmup", str(BENCH_WARMUP),
+                *extra[mode]]
+        log(f"phase 14: cli.benchmark {' '.join(argv)} (random weights, seed {SEED}), in this process")
+        zero()
+        with torch_defaults(torch):  # as in the CLI's own process
+            stdout, _ = run_main(benchmark, argv, mode)
+        launches = counts()
+        iters = BENCH_WARMUP + n + 1  # the warm-up, the timed loop, the FLOP count's iteration
+        want = {label: per_iter[mode].get(label, 0) * iters for label in counters}
+        rec = json.loads(stdout.strip().splitlines()[-1])
+        log(json.dumps(rec))
+        log(f"  launches over {iters} iterations {launches} (expected {want})")
+        assert launches == want, (mode, launches, want)
+        assert set(rec) == {"metric", "value", "unit", "ms_per_iter", "model_gflops", "achieved_tflops",
+                            "mfu_pct", "device"}, sorted(rec)
+        assert rec["device"] == card and rec["value"] > 0 and 0 < rec["mfu_pct"] < 100, rec
+        out["benchmark"][mode] = rec
+        out["launches_per_iter"][mode] = {label: v // iters for label, v in launches.items() if v}
+
+    # -- the FLOP count on both routes -----------------------------------
+    log(f"phase 14: utils.mfu.count_flops of the {cfg.model.compute_dtype} forward and the train step at B=1, "
+        "on the kernel route and with every kernel routed to its plain version")
+    batch = benchmark.benchmark_batch(cfg, 1, seed=SEED)
+    model = build_detector(cfg, seed=SEED, device="cuda")
+    args, kwargs = benchmark.forward_inputs(cfg, batch, "cuda")
+    flops = {}
+    zero()
+    with torch.inference_mode():
+        flops["forward"] = mfu.count_flops(model, *args, **kwargs)
+        fwd_launches = counts()
+        with mfu.plain_kernels():
+            flops["forward_plain"] = mfu.count_flops(model, *args, **kwargs)
+    assert counts() == fwd_launches and fwd_launches["K1"] == L, (fwd_launches, counts())
+    del model
+    state = create_train_state(cfg, SEED, 10, device="cuda")
+    step = make_train_step(cfg)
+    zero()
+    backward_flops = ca.BACKWARD_FLOPS
+    flops["step"] = mfu.count_flops(step, state, batch, step_generator(SEED, 0))
+    step_launches = counts()
+    flops["step_k2_formula"] = ca.BACKWARD_FLOPS - backward_flops
+    with mfu.plain_kernels():
+        flops["step_plain"] = mfu.count_flops(step, state, batch, step_generator(SEED, 1))
+    assert counts() == step_launches, (step_launches, counts())
+    assert (step_launches["K1"], step_launches["K2 dK/dV"], step_launches["K2 dQ"]) == (2 * L, L, L), step_launches
+    del state, step
+    torch.cuda.empty_cache()
+    log(f"  forward {flops['forward']} FLOPs on the kernel route (K1 {fwd_launches['K1']} launches, by its "
+        f"op's formula), {flops['forward_plain']} on the plain route; train step {flops['step']} (K1 "
+        f"{step_launches['K1']}, K2 {step_launches['K2 dK/dV']} + {step_launches['K2 dQ']}, of which "
+        f"{flops['step_k2_formula']} by K2's formula), {flops['step_plain']} on the plain route")
+    assert flops["forward"] == flops["forward_plain"], flops
+    assert flops["step"] == flops["step_plain"], flops
+    assert out["benchmark"]["inference"]["model_gflops"] == round(flops["forward"] / 1e9, 1), flops
+    assert out["benchmark"]["train"]["model_gflops"] == round(flops["step"] / 1e9, 1), flops
+    out["flops"] = flops
+    stdout, _ = run_main(flops_cli, ["--config", FLAGSHIP], "cli.flops")
+    rec = json.loads(stdout.strip().splitlines()[-1])
+    log(json.dumps(rec))
+    assert rec == {"config": FLAGSHIP, "params_m": round(flops_cli.param_count(cfg) / 1e6, 2),
+                   "forward_gflops": round(flops["forward"] / 1e9, 1), "input": "6x320x800",
+                   "peak_memory_mb": rec["peak_memory_mb"]} and rec["peak_memory_mb"] > 0, rec
+    out["flops_cli"] = rec
+
+    # -- the native loader against PIL, and the host's data cost -----------
+    H, W = cfg.data.src_hw
+    splits, synth, _ = eval_scenes(H, W)
+    log(f"phase 14: the native loader (csrc/dataload.cpp, g++ and libjpeg) on the {len(splits['val'])} val "
+        f"samples of phase 10's scenes at {H}x{W}")
+    try:
+        t0 = time.perf_counter()
+        lib = native.build()
+        log(f"  built {os.path.relpath(lib)} in {time.perf_counter() - t0:.1f} s")
+        branches = ("native", "pil")
+    except RuntimeError as e:
+        if "jpeglib.h" not in str(e):
+            raise
+        log("  this machine has no jpeglib.h (libjpeg's headers): the native loader cannot be built here, and "
+            "the loader stays on PIL")
+        branches = ("pil",)
+    out["native_built"] = branches[0] == "native"
+    ds = NuScenesDataset(splits["val"], cfg.data, training=False)
+    available = native.available
+    try:
+        if out["native_built"]:
+            errs = []
+            for i in range(len(ds)):
+                got = ds.get(i, seed=i)["images"]
+                native.available = lambda: False
+                want = ds.get(i, seed=i)["images"]
+                native.available = available
+                errs.append(np.abs(got - want))
+            err = np.concatenate([e.ravel() for e in errs])
+            share = float((err < NATIVE_PIXEL_ERR).mean())
+            log(f"  native against PIL over {len(ds)} samples: median error {np.median(err):.4e} (limit "
+                f"{NATIVE_MEDIAN_ERR}), {100 * share:.3f}% of values within {NATIVE_PIXEL_ERR} (limit "
+                f"{100 * NATIVE_PIXEL_SHARE}%), max {err.max():.4f}")
+            assert err.max() > 0 and np.median(err) < NATIVE_MEDIAN_ERR and share > NATIVE_PIXEL_SHARE
+        model = build_detector(cfg, seed=SEED, device="cuda")
+        for branch in branches:
+            native.available = available if branch == "native" else (lambda: False)
+            log(f"  the {branch} branch:")
+            out[f"loader_{branch}"] = loader_cost(torch, cfg, model, ds, card)
+    finally:
+        native.available = available
+    del model
+
+    # -- a reference checkpoint converted, served, published ----------------
+    with tempfile.TemporaryDirectory() as tmp:
+        source = build_detector(cfg, seed=SEED + 2, device="cuda")
+        back = {new: old for old, new in LEGACY_MAP.items()}
+
+        def legacy(key):
+            for new, old in back.items():
+                key = key.replace(new, old)
+            return key
+
+        sd = {legacy(k): v.detach().cpu() for k, v in source.state_dict().items()}
+        assert any(".self_attn." in k for k in sd) and any(".decoder.norm." in k for k in sd)
+        pth = f"{tmp}/petr_vov_reference.pth"
+        torch.save({"meta": {"epoch": 24, "CLASSES": list(NUSCENES_CLASSES)}, "state_dict": sd}, pth)
+        log(f"phase 14: cli.convert of a reference-shaped .pth ({os.path.getsize(pth) / 1e6:.1f} MB: the flagship's "
+            f"random weights, seed {SEED + 2}, under legacy keys, in mmcv's wrapper), in this process")
+        stdout, out["convert_s"] = run_main(convert_cli, ["--config", FLAGSHIP, "--torch-ckpt", pth, "--out",
+                                                          f"{tmp}/imported"], "cli.convert")
+        assert "skipped 0 reference keys; 0 target leaves unfilled" in stdout, stdout
+        model = load_params(f"{tmp}/imported", build_detector(cfg, seed=SEED + 3, device="cuda"))
+        args, kwargs = benchmark.forward_inputs(cfg, benchmark.benchmark_batch(cfg, 1, seed=SEED + 4), "cuda")
+        with torch.inference_mode():
+            a, b = source(*args, **kwargs), model(*args, **kwargs)
+        same = {k: torch.equal(a[k], b[k]) for k in ("cls_logits", "bbox_codes")}
+        log(f"  the converted model's forward against the source model's, bit for bit: {same}")
+        assert all(same.values()), same
+        stdout, _ = run_main(publish_cli, ["--ckpt", f"{tmp}/imported", "--out", f"{tmp}/petr_vov.pt"],
+                             "cli.publish")
+        final = stdout.strip().split("published ")[-1]
+        tag = re.fullmatch(r"petr_vov-([0-9a-f]{8})\.pt", os.path.basename(final))
+        with open(final, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        weights = load_published(final)
+        want = source.state_dict()
+        differ = [k for k in want if not torch.equal(weights[k], want[k].cpu())]
+        log(f"  published {os.path.basename(final)} ({os.path.getsize(final) / 1e6:.1f} MB, sha256 {digest[:16]}...); "
+            f"load_published: {len(weights)} tensors, {len(differ)} differ from the source model's")
+        assert tag and digest.startswith(tag.group(1)) and list(weights) == list(want) and not differ
+        del source, model
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 14: {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
+ALL_PHASES = {3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14}
 
 
 def training_phase(torch, fn, *args):
@@ -4554,6 +4860,7 @@ def training_phase(torch, fn, *args):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -4574,10 +4881,19 @@ def main() -> int:
         from petr_tpu_torch.ops import conv_int8 as c8
         from petr_tpu_torch.ops import cross_attention as ca
         from petr_tpu_torch.ops import dcn
+        from petr_tpu_torch.utils.mfu import device_peak_tflops
     except ImportError as e:
         print(f"chip_smoke: the petr_tpu_torch package is not beside this script ({e})", file=sys.stderr)
         return 1
 
+    stamps = []
+
+    def stamp(n):
+        """Mark the start of phase ``n`` (None: the end of the last)."""
+        if n is None or n < 3 or n in phases:
+            stamps.append((n, time.perf_counter()))
+
+    stamp(1)
     log("phase 1: device")
     card = nvidia_smi("name,power.limit")
     log(card)
@@ -4585,6 +4901,11 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}")
     sm_clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     log(f"  max SM clock {sm_clock_hz / 1e6:.0f} MHz")
+    global PEAK_BF16_FLOPS
+    peak = device_peak_tflops()
+    PEAK_BF16_FLOPS = peak * 1e12 if peak else PEAK_BF16_FLOPS
+    log(f"  bf16 dense peak {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, from utils.mfu's table"
+        + ("" if peak else ", which has no entry for this card: the H100 SXM's"))
     try:  # the data layer decodes, resamples and renders through Pillow
         import PIL
 
@@ -4594,6 +4915,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    stamp(2)
     log("phase 2: build")
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4610,6 +4932,7 @@ def main() -> int:
                     log("  ptxas:", line.strip())
 
     records = []
+    stamp(3)
     if 3 in phases:
         k1, k1_fp32, k1_v2 = check_flash_attention(torch, ca, sm_clock_hz, card)
         k2 = check_flash_backward(torch, ca, sm_clock_hz, card)
@@ -4617,12 +4940,14 @@ def main() -> int:
         k5, k5_fp32 = check_conv3x3(torch, conv, card)
         synth = {r["name"]: r for r in check_synth_shapes(torch, ca, dcn, sm_clock_hz, card)}
         records = [k1, k1_fp32, k1_v2, *k2, k4, k4_fp32, k5, k5_fp32, *synth.values()]
+    stamp(4)
     if 4 in phases:
         k1_launches, k5_launches, k5_fp32_launches, k5_times = check_serving(torch, ca, conv, card)
         if records:
             k1["launches"], k5["launches"], k5_fp32["launches"] = k1_launches, k5_launches, k5_fp32_launches
             k5_fp32["launches_note"] = "the flagship's fp32 twin, one forward on the route"
             k5.update(k5_times)
+    stamp(5)
     if 5 in phases:
         train_launches, fp32_launches = training_phase(torch, check_training, torch, ca, card)
         if records:
@@ -4632,6 +4957,7 @@ def main() -> int:
             k1_fp32["launches"], k2[2]["launches"], k2[3]["launches"] = fp32_launches
             for r in (k1_fp32, *k2[2:4]):
                 r["launches_note"] = "the flagship's fp32 train step"
+    stamp(6)
     if 6 in phases:
         r50_launches, r50_fwd_ms, c5_times = check_r50_serving(torch, ca, dcn, card)
         if records:
@@ -4639,12 +4965,14 @@ def main() -> int:
             k4["r50_forward_ms"] = r50_fwd_ms
             k1["launches_r50"] = r50_launches["K1"]
             k4.update(c5_times)
+    stamp(7)
     if 7 in phases:
         r50_train, k4_fp32_launches = training_phase(torch, check_r50_training, torch, ca, dcn, card)
         if records:
             k4["launches_train"] = r50_train["K4"]
             k4_fp32["launches"] = k4_fp32_launches
             k4_fp32["launches_note"] = "the r50dcn fp32 train step"
+    stamp(8)
     if 8 in phases:
         v2_serve, v2_train, v2_times = training_phase(torch, check_petrv2, torch, ca, card)
         if records:
@@ -4653,6 +4981,7 @@ def main() -> int:
             k1_v2.update({f"petrv2_{k}": v for k, v in v2_times.items()})
             k2[4]["launches"], k2[5]["launches"] = v2_train["K2 dK/dV"], v2_train["K2 dQ"]
 
+    stamp(9)
     if 9 in phases:
         d_eval, d_train, d_times = training_phase(torch, check_depthr, torch, ca, dcn, card)
         if records:
@@ -4660,6 +4989,7 @@ def main() -> int:
             k4["launches_depthr_train"] = d_train["K4"] // 3
             k4.update(d_times)
 
+    stamp(10)
     if 10 in phases:
         eval_per_batch, stream_per_frame, eval_times = check_eval(torch, ca, card)
         if records:
@@ -4667,6 +4997,7 @@ def main() -> int:
             k1["eval"] = eval_times
             k1_v2["launches_stream_eval"] = stream_per_frame
 
+    stamp(11)
     if 11 in phases:
         learn, learn_times = training_phase(torch, check_learning, torch, ca, dcn, card)
         if records:
@@ -4684,11 +5015,13 @@ def main() -> int:
                     f"per {SYNTH_R50} train step (cli.train), forward and remat recompute")
             synth["flash_cross_attention_fwd_synth"]["learning"] = learn_times
 
+    stamp(12)
     if 12 in phases:
         k3, par_times = training_phase(torch, check_parallel, torch, ca, sm_clock_hz, card)
         k3["parallel"] = par_times
         records.append(k3)
 
+    stamp(13)
     if 13 in phases:
         k6, k6_quant = check_conv_int8(torch, c8, card)
         k6_launches, deploy = check_deployment(torch, ca, c8, dcn, card)
@@ -4705,6 +5038,21 @@ def main() -> int:
             k4["launches_artifact"] = replay["r50"]["K4"]
         records += [k6, k6_quant]
 
+    stamp(14)
+    if 14 in phases:
+        tools = training_phase(torch, check_tools, torch, ca, c8, card)
+        per = tools["launches_per_iter"]
+        if 3 in phases:
+            k1["launches_benchmark"], k1["launches_benchmark_train"] = per["inference"]["K1"], per["train"]["K1"]
+            k2[0]["launches_benchmark_train"], k2[1]["launches_benchmark_train"] = (per["train"]["K2 dK/dV"],
+                                                                                    per["train"]["K2 dQ"])
+            k1["tools"] = tools
+        if 13 in phases:
+            k6["launches_benchmark_int8"], k6_quant["launches_benchmark_int8"] = per["int8"]["K6"], per["int8"]["K6 quant"]
+    stamp(None)
+
+    seconds = {n: round(stamps[i + 1][1] - t, 1) for i, (n, t) in enumerate(stamps[:-1])}
+    log(f"seconds per phase: {json.dumps(seconds)}; the script {time.perf_counter() - t_start:.1f} s")
     if phases != ALL_PHASES:
         log(f"only phases {sorted(phases)} ran: no kernels record and no result line")
         return 1

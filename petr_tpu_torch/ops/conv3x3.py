@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from petr_tpu_torch.ops import build
 
@@ -89,6 +90,13 @@ def _conv3x3_bn_relu_fwd_cuda(x, weight, mul, add, relu):
 @conv3x3_bn_relu_fwd_op.register_fake
 def _conv3x3_bn_relu_fwd_fake(x, weight, mul, add, relu):
     return x.new_empty((x.shape[0], weight.shape[0], *x.shape[2:]))
+
+
+@register_flop_formula(torch.ops.petr_tpu_torch.conv3x3_bn_relu_fwd)
+def _conv3x3_bn_relu_fwd_flops(x_shape, weight_shape, *args, out_shape=None, **kwargs) -> int:
+    """The plain version's conv, 2 B H W Co C 9 (the epilogue is elementwise)."""
+    B, C, H, W = x_shape
+    return 2 * B * H * W * weight_shape[0] * C * 9
 
 
 class _Conv3x3BNReLU(torch.autograd.Function):

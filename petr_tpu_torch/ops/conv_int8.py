@@ -45,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from petr_tpu_torch.ops import build
 
@@ -185,6 +186,15 @@ def _conv_int8_bn_act_cuda(x, wt, sa, scale, add, stride, relu):
 @conv_int8_bn_act_op.register_fake
 def _conv_int8_bn_act_fake(x, wt, sa, scale, add, stride, relu):
     return x.new_empty(_out_shape(x, wt, scale.shape[0], stride))
+
+
+@register_flop_formula(torch.ops.petr_tpu_torch.conv_int8_bn_act, get_raw=True)
+def _conv_int8_bn_act_flops(x, wt, sa, scale, add, stride, relu, out_val=None, **kwargs) -> int:
+    """The plain version's conv of the unpadded channels, 2 B Ho Wo Co C k k
+    (the quantisation and the epilogue are elementwise)."""
+    B, Co, Ho, Wo = _out_shape(x, wt, scale.shape[0], stride)
+    k = round((wt.shape[1] * CHANNEL_STEP // padded_channels(x.shape[1])) ** 0.5)
+    return 2 * B * Ho * Wo * Co * x.shape[1] * k * k
 
 
 def _check_device(x: torch.Tensor) -> None:

@@ -39,6 +39,7 @@ import struct
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from petr_tpu_torch.ops import build
 from petr_tpu_torch.ops.conv3x3 import _sm_count
@@ -56,6 +57,10 @@ DKDV_LAUNCHES = 0  # K2's dK/dV kernel, bf16 on the tensor cores
 DQ_LAUNCHES = 0  # K2's dQ kernel, bf16 on the tensor cores
 DKDV_LAUNCHES_FP32 = 0  # K2's dK/dV kernel, fp32 on the CUDA cores
 DQ_LAUNCHES_FP32 = 0  # K2's dQ kernel, fp32 on the CUDA cores
+# FLOPs of K2's backwards by formula (``backward_flops``), which no dispatcher
+# sees (ctypes launches inside an autograd backward): ``utils.mfu.count_flops``
+# adds them to what ``torch.utils.flop_counter`` counts. Only the CUDA path adds.
+BACKWARD_FLOPS = 0
 
 
 # ------------------------------------------------------------- dropout hash
@@ -238,6 +243,19 @@ def flash_cross_attention_backward_reference(
     return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
 
 
+# ------------------------------------------------------------------ FLOPs
+def forward_flops(B: int, H: int, Q: int, L: int, D: int) -> int:
+    """The plain forward's matmul FLOPs, q.k and p.v: 2 x 2 B H Q L D."""
+    return 4 * B * H * Q * L * D
+
+
+def backward_flops(B: int, H: int, Q: int, L: int, D: int) -> int:
+    """The plain backward's matmul FLOPs: the logits again, dP, dV, dQ and
+    dK, 5 x 2 B H Q L D (K2's two kernels each recompute the logits and dP;
+    the count is of the function, not of its kernels)."""
+    return 10 * B * H * Q * L * D
+
+
 # ------------------------------------------------------------ the op (K1)
 @torch.library.custom_op("petr_tpu_torch::flash_cross_attention_fwd", mutates_args=())
 def flash_cross_attention_fwd_op(
@@ -268,6 +286,11 @@ def _flash_cross_attention_fwd_fake(q, k, v, key_padding_mask, dropout_rate, dro
     return out, q.new_empty((B, H, Q), dtype=torch.float32)
 
 
+@register_flop_formula(torch.ops.petr_tpu_torch.flash_cross_attention_fwd)
+def _flash_cross_attention_fwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    return forward_flops(*q_shape[:3], k_shape[2], q_shape[3])
+
+
 # --------------------------------------------------------------- autograd
 class _FlashCrossAttention(torch.autograd.Function):
     """(q, k, v) -> (out, lse). Saves q, k, v, the mask, the seed and its
@@ -291,6 +314,7 @@ class _FlashCrossAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout, glse):
+        global BACKWARD_FLOPS
         q, k, v, key_padding_mask, out, lse = ctx.saved_tensors
         if gout is None:
             gout = torch.zeros_like(out)
@@ -301,6 +325,7 @@ class _FlashCrossAttention(torch.autograd.Function):
             dq, dk, dv = (g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
         else:
             dq, dk, dv = _backward_cuda(q, k, v, key_padding_mask, gout, lse, delta, rate, seed, offsets=offsets)
+            BACKWARD_FLOPS += backward_flops(*q.shape[:3], k.shape[2], q.shape[3])
         return dq, dk, dv, None, None, None, None, None, None
 
 

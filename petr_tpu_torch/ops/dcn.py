@@ -40,6 +40,7 @@ import functools
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from petr_tpu_torch.ops import build
 from petr_tpu_torch.ops.conv3x3 import repack_weight
@@ -116,6 +117,20 @@ def _modulated_deform_conv_fwd_cuda(x, off_mask, weight, stride, dilation):
 @modulated_deform_conv_fwd_op.register_fake
 def _modulated_deform_conv_fwd_fake(x, off_mask, weight, stride, dilation):
     return x.new_empty((x.shape[0], weight.shape[0], *off_mask.shape[-2:]))
+
+
+def forward_flops(x_shape, off_mask_shape, weight_shape) -> int:
+    """The plain version's contraction of the (B Ho Wo, K Cin) samples with
+    the weight: 2 B Ho Wo Cout Cin kh kw (the bilinear sampling is
+    elementwise and not counted, as ``torch.utils.flop_counter`` counts it)."""
+    B, Ho, Wo = x_shape[0], *off_mask_shape[-2:]
+    Cout, Cin, kh, kw = weight_shape
+    return 2 * B * Ho * Wo * Cout * Cin * kh * kw
+
+
+@register_flop_formula(torch.ops.petr_tpu_torch.modulated_deform_conv_fwd)
+def _modulated_deform_conv_fwd_flops(x_shape, off_mask_shape, weight_shape, *args, out_shape=None, **kwargs) -> int:
+    return forward_flops(x_shape, off_mask_shape, weight_shape)
 
 
 # --------------------------------------------------------------- autograd

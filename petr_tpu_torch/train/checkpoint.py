@@ -58,6 +58,22 @@ def save_checkpoint(
     return path
 
 
+def save_params(path: str, model: nn.Module, meta: Optional[dict] = None) -> str:
+    """Write ``model``'s weights alone as the checkpoint directory ``path``
+    (``state.pt`` holding ``{"model": state_dict}``, and ``meta.json``):
+    what ``load_params`` (``cli.test --ckpt``, ``cli.train --load-from``)
+    reads; ``restore_checkpoint`` needs a training state and refuses it."""
+    os.makedirs(path, exist_ok=True)
+    target = os.path.join(path, STATE_FILE)
+    tmp = target + ".tmp"
+    torch.save({"model": model.state_dict()}, tmp)
+    os.replace(tmp, target)
+    if meta is not None:
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f, indent=2, default=str)
+    return path
+
+
 def latest_checkpoint(base: str) -> Optional[str]:
     if not os.path.isdir(base):
         return None
@@ -82,6 +98,8 @@ def restore_checkpoint(path: str, state: Any) -> Any:
     """Load the checkpoint directory ``path`` into ``state`` (weights, AdamW
     moments and step counts, the step) in place, and return it."""
     payload = _read(path, state.model)
+    if "optimizer" not in payload:
+        raise KeyError(f"checkpoint {path} holds weights only (save_params): load it with load_params")
     _check_keys(state.model, payload["model"], path)
     state.model.load_state_dict(payload["model"])
     state.optimizer.load_state_dict(payload["optimizer"])

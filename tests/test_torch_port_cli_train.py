@@ -100,6 +100,7 @@ def step_losses(work):
 # --------------------------------------------------------- against petr_tpu
 def test_cli_losses_match_petr_tpu_step_loop(synth, tmp_path, monkeypatch):
     monkeypatch.setattr("petr_tpu.data.native.available", lambda: False)  # both decode through PIL
+    monkeypatch.setattr("petr_tpu_torch.data.native.available", lambda: False)
     jcfg = jax_config("tiny_debug", PARITY)
     assert jcfg.model.compute_dtype == "float32" and not jcfg.model.use_grid_mask
     epochs, steps = 2, 3

@@ -6,7 +6,9 @@ forward and the gradients through its Function), K5 (the fused conv3x3) and
 K6 (the int8 conv with int32 sums, bf16 and fp32 out, at the classes of V-99's
 shapes and odd ones, every split and store branch, the ties case); K1, K2, K4 and K5 in
 both variants, bf16 on the tensor cores and fp32 on the CUDA cores. The bf16 K1 and K4 are also held to their rounding floors (the plain
-version rounding to bf16 where the kernel does) under KERNEL_TOL.
+version rounding to bf16 where the kernel does) under KERNEL_TOL. Also the
+measurement tools' FLOP count, equal on the kernel and the plain route
+(``utils.mfu.count_flops``), and the native loader held to PIL.
 
 Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 False. The card's machine has no JAX, so this file imports none and runs
@@ -14,6 +16,8 @@ without the repository's conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
 """
+
+import contextlib
 
 import pytest
 import torch
@@ -804,3 +808,89 @@ def test_tiny_int8_detector_on_the_card_matches_the_cpu(cuda):
     assert c8.LAUNCHES == before + 39
     for key in ("cls_logits", "bbox_codes"):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-3, atol=2e-3)
+
+
+# ------------------------------------------------------ the measurement tools
+def test_flop_count_is_equal_on_both_routes(cuda):
+    """``utils.mfu.count_flops`` of the tiny_debug forward (K1's op, counted
+    by its formula) and train step (K2 launched by ctypes in the backward,
+    counted by its formula in ``BACKWARD_FLOPS``) on the card equals the
+    count with every kernel routed to its plain version, and the CPU's."""
+    from petr_tpu_torch.cli.benchmark import benchmark_batch, forward_inputs
+    from petr_tpu_torch.configs import get_config
+    from petr_tpu_torch.serve import build_detector
+    from petr_tpu_torch.train import create_train_state, make_train_step, step_generator
+    from petr_tpu_torch.utils import mfu
+
+    cfg = get_config("tiny_debug")
+    batch = benchmark_batch(cfg, 1, seed=0)
+    forward, step = {}, {}
+    for device in ("cuda", "cpu"):
+        model = build_detector(cfg, seed=0, device=device)
+        args, kwargs = forward_inputs(cfg, batch, device)
+        for plain in (False, True):
+            with torch.inference_mode(), (mfu.plain_kernels() if plain else contextlib.nullcontext()):
+                before = ca.LAUNCHES_FP32
+                forward[device, plain] = mfu.count_flops(model, *args, **kwargs)
+                assert ca.LAUNCHES_FP32 - before == (2 if device == "cuda" and not plain else 0)
+    kept = torch.backends.cudnn.deterministic
+    try:
+        for device in ("cuda", "cpu"):
+            for plain in (False, True):
+                state = create_train_state(cfg, 0, 10, device=device)
+                before = ca.DKDV_LAUNCHES_FP32, ca.BACKWARD_FLOPS
+                with mfu.plain_kernels() if plain else contextlib.nullcontext():
+                    step[device, plain] = mfu.count_flops(make_train_step(cfg), state, batch, step_generator(1, 0))
+                launched = device == "cuda" and not plain
+                assert ca.DKDV_LAUNCHES_FP32 - before[0] == (2 if launched else 0)  # one per decoder layer
+                assert (ca.BACKWARD_FLOPS > before[1]) == launched
+    finally:
+        torch.backends.cudnn.deterministic = kept
+    assert len(set(forward.values())) == 1 and len(set(step.values())) == 1, (forward, step)
+    assert step["cuda", False] > 3 * forward["cuda", False]
+
+
+def test_k2_counts_its_formula(cuda):
+    q, k, v, mask = _inputs(1, 8, 90, 600, 32, torch.bfloat16, seed=5)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    before = ca.BACKWARD_FLOPS
+    ca.flash_cross_attention(q, k, v, mask)[0].float().sum().backward()
+    torch.cuda.synchronize()
+    assert ca.BACKWARD_FLOPS - before == ca.backward_flops(1, 8, 90, 600, 32)
+
+
+def test_native_loader_built_and_held_to_pil(cuda, tmp_path):
+    """The port's native loader built from ``csrc/dataload.cpp`` into a
+    temporary directory, against the PIL path under petr_tpu's limits; skips
+    where the machine has no libjpeg headers (then the loader stays on PIL)."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from petr_tpu_torch.data import native
+    from petr_tpu_torch.data.transforms import IdaParams, apply_ida, normalize_image, pad_image
+
+    kept = native._LIB, native._TRIED
+    try:
+        try:
+            native.build(tmp_path)
+        except RuntimeError as e:
+            if "jpeglib.h" in str(e):
+                pytest.skip("this machine has no jpeglib.h (libjpeg's headers): the loader decodes through PIL")
+            raise
+        rng = np.random.RandomState(0)
+        base = np.asarray(Image.fromarray((rng.rand(113, 201, 3) * 255).astype(np.uint8)).resize((1600, 900)))
+        buf = io.BytesIO()
+        Image.fromarray(base).save(buf, format="JPEG", quality=95)
+        mean, std = (103.53, 116.28, 123.675), (57.375, 57.12, 58.395)
+        for flip in (False, True):
+            p = IdaParams(0.5, (800, 450), (0, 130, 800, 450), flip, 0.0)
+            out = native.process_images([buf.getvalue()], resize_wh=p.resize_dims, crop=p.crop, flip=flip,
+                                        out_hw=(320, 800), mean=mean, std=std)[0]
+            arr = np.asarray(apply_ida(Image.open(io.BytesIO(buf.getvalue())), p), np.float32)[..., ::-1]
+            err = np.abs(out - pad_image(normalize_image(arr, mean, std, False), (320, 800)))
+            assert np.median(err) < 0.05, np.median(err)
+            assert (err < 0.25).mean() > 0.99, err.max()
+    finally:
+        native._LIB, native._TRIED = kept

@@ -1,7 +1,7 @@
 """The port's data layer against petr_tpu's, on the CPU: bit for bit.
 
-`petr_tpu_torch/data/` is a copy of `petr_tpu/data/` (numpy and PIL; the
-native C++ branch is not ported), so for the same records, seed and
+`petr_tpu_torch/data/` is a copy of `petr_tpu/data/` (numpy and PIL, and
+the native C++ branch), so for the same records, seed and
 config every array must be equal to the last bit: the synthetic renderer's
 files and info records, ``NuScenesDataset.get`` in both modes (synth_small,
 tiny_debug_v2 with its sweep, synth_small_depthr with lidar2img, a corrupt
@@ -9,9 +9,12 @@ camera, ``use_valid_flag`` on and off, a photometric ``view_transform``),
 ``streaming_sample`` along scenes, ``Loader.epoch`` with and without a
 process shard, the transforms, and ``build_infos`` over a fake devkit.
 
-petr_tpu's dataset takes its native branch when `native/dataload` has been
-built; each test that builds one turns that off (``pil_only``), so both
-sides decode and resample through PIL.
+Either dataset takes its native branch when its library has been built
+(petr_tpu's `native/dataload`, the port's ``build/libpetrdata-*.so``), and
+that branch differs from PIL by pixel noise; each test that loads images
+pins both packages to PIL (``pil_only``), so that a library someone built
+changes no result. Both packages on the native branch are held to each
+other in `tests/test_torch_port_native.py`.
 """
 
 import copy
@@ -57,6 +60,7 @@ def assert_same(a, b, where="", roots=None):
 @pytest.fixture
 def pil_only(monkeypatch):
     monkeypatch.setattr("petr_tpu.data.native.available", lambda: False)
+    monkeypatch.setattr("petr_tpu_torch.data.native.available", lambda: False)
 
 
 @pytest.fixture(scope="module")

@@ -96,6 +96,7 @@ def run(tmp_path_factory):
     root = tmp_path_factory.mktemp("eval")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr("petr_tpu.data.native.available", lambda: False)  # both sides decode through PIL
+        mp.setattr("petr_tpu_torch.data.native.available", lambda: False)
         val = generate_synthetic_scenes(str(root / "synth"), n_scenes=2, frames_per_scene=2, image_hw=SRC_HW,
                                         n_objects=6, val_scenes=2, seed=1)["val"]
         jcfg, cfg = jax_config("tiny_debug"), get_config("tiny_debug")
@@ -273,6 +274,7 @@ def _jax_cli_metrics(run, params, tta="none", scales=None):
     preds = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr("petr_tpu.data.native.available", lambda: False)
+        mp.setattr("petr_tpu_torch.data.native.available", lambda: False)
         for batch in JLoader(run.jds, 2, shuffle=False, drop_last=False).epoch(0):
             tokens = batch.pop("tokens")
             batch["images"] = jax_cli.apply_tta(batch["images"], tta)
@@ -330,6 +332,7 @@ def test_cli_streaming_matches_petr_tpu(run, val_pkl, capsys):
     params = _jax_params(model, jcfg, jds, shared_branches=False)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr("petr_tpu.data.native.available", lambda: False)
+        mp.setattr("petr_tpu_torch.data.native.available", lambda: False)
         want, _, _ = jax_cli.run_streaming_inference(jcfg, params, jds)
     got, n, _ = cli.run_streaming_inference(cfg, model, ds, device="cpu")
     assert n == len(run.val) and list(got) == list(want)

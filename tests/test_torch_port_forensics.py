@@ -68,6 +68,7 @@ def synth(tmp_path_factory):
 
 def test_velocity_probe_matches_petr_tpu(synth, monkeypatch):
     monkeypatch.setattr("petr_tpu.data.native.available", lambda: False)  # both decode through PIL
+    monkeypatch.setattr("petr_tpu_torch.data.native.available", lambda: False)
     _, splits = synth
     jcfg, cfg = jax_config("tiny_debug", PLAIN), get_config("tiny_debug", PLAIN)
     jds = JDataset(splits["val"], jcfg.data, training=False)

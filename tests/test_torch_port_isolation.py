@@ -45,7 +45,13 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "petr_tpu_torch.parallel, petr_tpu_torch.parallel.distributed, petr_tpu_torch.parallel.sharded_attention, "
         "petr_tpu_torch.parallel.dryrun, petr_tpu_torch.cli.scaling, tests.test_torch_port_parallel_workers, "
         "petr_tpu_torch.quant, petr_tpu_torch.utils.fuse, petr_tpu_torch.runtime, petr_tpu_torch.cli.quantize, "
-        "petr_tpu_torch.cli.export\n"
+        "petr_tpu_torch.cli.export, petr_tpu_torch.utils.mfu, petr_tpu_torch.utils.profiler, "
+        "petr_tpu_torch.utils.publish, petr_tpu_torch.utils.torch_convert, petr_tpu_torch.data.native, "
+        "petr_tpu_torch.cli.benchmark, petr_tpu_torch.cli.flops, petr_tpu_torch.cli.convert, "
+        "petr_tpu_torch.cli.publish, petr_tpu_torch.cli.print_config, petr_tpu_torch.cli.create_data, "
+        "petr_tpu_torch.cli.analyze_logs, petr_tpu_torch.cli.browse_dataset, petr_tpu_torch.cli.visualize\n"
+        "from petr_tpu_torch.data import native\n"
+        "assert not native._TRIED, 'the native loader was looked for on import'\n"
         "from petr_tpu_torch.ops import build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
