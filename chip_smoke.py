@@ -128,31 +128,32 @@ nothing of petr_tpu. Phases, each fatal on failure:
    to the uninterrupted one bit for bit (loss, ``grad_norm``, weights,
    AdamW moments); the flagship scored from that checkpoint by
    ``evaluate_model`` (K1 6 times per batch, bf16 only), its outputs,
-   decode and metrics held to K1's plain route, and by ``python -m
-   petr_tpu_torch.cli.test`` in a process of its own (the same metric
-   lines, a submission entry per val token, the same scores); the
+   decode and metrics held to K1's plain route, and by ``cli.test``
+   through its entry point in this process (the same metric lines, a
+   submission entry per val token, the same scores); the
    loader's host time per batch, the eval step on CUDA events, the share
    of an eval pass the card waits on the loader, samples/s; PETRv2
-   streamed through ``cli.test --streaming`` (4 of 6 frames from the
-   feature cache; K1 6 per frame) and each frame held to the 12-view eval
-   forward and eval step of the same sample.
+   streamed through ``cli.test --streaming`` (its entry point, in this
+   process; 4 of 6 frames from the feature cache; K1 6 per frame) and each
+   frame held to the 12-view eval forward and eval step of the same sample.
 11. training from the command line: synthetic scenes at 128x320 (6 scenes
    of 4 frames, 1 held out: 20 train and 4 val samples); one synth_small
    fp32 step with bn_mode="batch", remat on and off: the same BN running
    statistics, one EMA of the step's batch moments; ``python -m
    petr_tpu_torch.cli.train`` on synth_small_r50dcn (bf16) at batch 2 with
-   ``--eval-infos`` in a process of its own, sent SIGTERM after a logged
+   ``--eval-infos`` in a process of its own (beside it, in this process,
+   the batch-BN step and the harness below), sent SIGTERM after a logged
    step of its second epoch (exit 0, a checkpoint at the step boundary),
-   then ``--resume`` (it resumes at that step and replays the epoch to its
-   end); the CLI again in this process for 3 steps: the same losses and
+   then ``--resume`` through its entry point in this process (it resumes
+   at that step and replays the epoch to its end); the CLI again in this process for 3 steps: the same losses and
    gradient norms bit for bit, K1 6, K2 3 + 3 and K4 18 launches per step
    on their bf16 variants (K4 12 at the stride-16 shape, 6 at stride 32),
    and synth_small for 6 steps on the fp32 variants only; both recipes'
    steps at their batch of 4 timed on CUDA events and the host's clock
    with the loader (busy and wait shares, one profiler pass, an eval
    pass) and their learning runs' wall time projected; the harness,
-   ``tools.synth_train_eval --config synth_small --steps 30 --bn-warmup 4
-   --eval-every 15 --floor 0`` through its entry point in this process:
+   ``tools.synth_train_eval --config synth_small --steps 16 --bn-warmup 4
+   --eval-every 8 --floor 0`` through its entry point in this process:
    its JSON line, a loss that fell, BN statistics moved by the warm-up.
 12. parallel training over torch.distributed, ranks spawned on the one
    card (Gloo stages all-reduce and broadcast of CUDA tensors through the
@@ -170,8 +171,9 @@ nothing of petr_tpu. Phases, each fatal on failure:
    on the whole batch (fp32 within phase 5's tolerances, with every
    gradient; bf16 by its mean error), K1 12 and each K2 kernel 6 launches
    per rank per step on the dtype's variants, the step's time and its
-   share in all-reduces; ``dryrun_multichip(4)`` at data 2 x model 2;
-   ``cli.train`` at world size 1 over NCCL; ``cli.train`` over 2 Gloo
+   share in all-reduces; ``cli.train`` at world size 1 over NCCL (its entry
+   point, in this process); ``dryrun_multichip(4)`` at data 2 x model 2
+   and, at the same time, ``cli.train`` over 2 Gloo
    ranks with the eval hook on an odd val split (rank 0 alone logs and
    checkpoints; the metrics equal ``evaluate_model`` of the first epoch's
    checkpoint within 1e-6), both ranks sent SIGTERM in the second epoch
@@ -197,8 +199,9 @@ nothing of petr_tpu. Phases, each fatal on failure:
    artifacts (``torch.export``, weights embedded) of the flagship in bf16
    and int8 at B=2 and of ``petr_r50_p4_1408x512`` at B=1, replayed in a
    fresh process that imports the runtime and the op library and no
-   model module: K1 6, K4 9 (r50) and K6 99 (int8) launches per call, the
-   outputs equal to ``make_serving_fn``'s; PETRv2's streaming pair over 3
+   model module (it runs beside the streaming pair below): K1 6, K4 9
+   (r50) and K6 99 (int8) launches per call, the outputs equal to
+   ``make_serving_fn``'s; PETRv2's streaming pair over 3
    frames through ``StreamingArtifactRunner``, each equal to
    ``StreamingPETRv2.step`` (K1 6 per frame).
 14. tools: ``cli.benchmark`` (its entry point, in this process) on the
@@ -213,11 +216,24 @@ nothing of petr_tpu. Phases, each fatal on failure:
    libjpeg (or a line saying the machine has no ``jpeglib.h``) and held
    to the PIL path on phase 10's val samples at 900x1600 under petr_tpu's
    limits, then the loader's time per batch and an eval pass's wait on it
-   on each branch; ``cli.convert`` of a reference-shaped ``.pth`` (the
-   flagship's random weights under legacy keys in mmcv's wrapper), the
+   on each branch (PIL's only where phase 10 did not measure it);
+   ``cli.convert`` of a reference-shaped ``.pth`` (the flagship's random
+   weights under legacy keys in mmcv's wrapper), the
    converted model's forward equal to the source model's bit for bit,
    and ``cli.publish`` of that checkpoint round-tripped through
    ``load_published``.
+15. the last modules, at petr_tpu's default widths with random weights
+   from the seed: ``Detr3DHead`` (embed 256, 900 queries, 6 layers, box
+   refinement) over 6 views and 4 levels at strides 8-64 of a 928x1600
+   padded image, the synthetic rig's lidar2img, in fp32 and bf16;
+   ``ObjDGCNN`` at its defaults (128x128 pillars, SECOND, 300 queries) on
+   35,000 points of 5 features, some padded and some outside the grid;
+   ``DGCNN3DHead`` with deformable attention and with the deformable-DETR
+   decoder on its BEV map. Each: fp32 outputs against the same model on
+   the CPU under LAST_TOL, finite outputs, two identical backward passes
+   with the same gradients bit for bit, the device time per forward and
+   the peak memory. No kernel launches in the phase (none of these
+   modules reaches one).
 Phases 10, 13 and 14 share one rendering of the scenes, and 13 and 14 one
 calibration. The seconds of each phase are printed before the card's line.
 ``--phases 3,8`` runs only the phases named (1 and 2 always run), prints no
@@ -1971,7 +1987,7 @@ def check_training(torch, ca, card):
         f"{med:.2f} ms on CUDA events ({', '.join(f'{t:.2f}' for t in times)}), host clock median "
         f"{statistics.median(host) * 1e3:.2f} ms, {B * 1e3 / med:.3f} samples/s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
-    dev_ms, per_kernel = profile(torch, one_step, card, iters=2, unit="step", inference=False)
+    dev_ms, per_kernel = profile(torch, one_step, card, iters=1, unit="step", inference=False)
     log(f"  device busy without the profiler: {100 * dev_ms / med:.1f}% of the median step "
         f"({dev_ms:.3f} ms of device time in {med:.2f} ms) [{card}]")
     k2_ms = per_kernel.get("K2 dK/dV", 0.0) + per_kernel.get("K2 dQ", 0.0)
@@ -2286,7 +2302,7 @@ def check_r50_training(torch, ca, dcn, card):
         f"{med:.2f} ms on CUDA events ({', '.join(f'{t:.2f}' for t in times)}), host clock median "
         f"{statistics.median(host) * 1e3:.2f} ms, {B * 1e3 / med:.3f} samples/s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
-    dev_ms, per_kernel = profile(torch, one_step, card, iters=2, unit="step", inference=False)
+    dev_ms, per_kernel = profile(torch, one_step, card, iters=1, unit="step", inference=False)
     log(f"  device busy without the profiler: {100 * dev_ms / med:.1f}% of the median step "
         f"({dev_ms:.3f} ms of device time in {med:.2f} ms) [{card}]")
     k2_ms = per_kernel.get("K2 dK/dV", 0.0) + per_kernel.get("K2 dQ", 0.0)
@@ -2536,7 +2552,7 @@ def check_petrv2(torch, ca, card):
     log(f"  train step at batch 1 (12 views {H}x{W}): median {med:.2f} ms on CUDA events "
         f"({', '.join(f'{t:.2f}' for t in times)}), host clock median {statistics.median(host) * 1e3:.2f} ms, "
         f"{1e3 / med:.3f} samples/s; peak memory {peak:.3f} GiB [{card}]")
-    step_dev_ms, step_kernels = profile(torch, one_step, card, iters=2, unit="step", inference=False)
+    step_dev_ms, step_kernels = profile(torch, one_step, card, iters=1, unit="step", inference=False)
     log(f"  device busy without the profiler: {100 * step_dev_ms / med:.1f}% of the median step "
         f"({step_dev_ms:.3f} ms of device time in {med:.2f} ms) [{card}]")
     del state, train_batches
@@ -2831,7 +2847,7 @@ def check_depthr(torch, ca, dcn, card):
         f"at batch 1: median {med:.2f} ms on CUDA events ({', '.join(f'{t:.2f}' for t in times)}), host clock "
         f"median {statistics.median(host) * 1e3:.2f} ms, {1e3 / med:.3f} samples/s; peak memory {peak:.3f} GiB "
         f"[{card}]")
-    step_dev_ms, step_kernels = profile(torch, one_step, card, iters=2, unit="step", inference=False)
+    step_dev_ms, step_kernels = profile(torch, one_step, card, iters=1, unit="step", inference=False)
     log(f"  device busy without the profiler: {100 * step_dev_ms / med:.1f}% of the median step "
         f"({step_dev_ms:.3f} ms of device time in {med:.2f} ms) [{card}]")
     check_reproducible(torch, cfg, step_fn, initial, train_batches[0], phase=9)
@@ -2971,23 +2987,6 @@ def synthetic_scales():
     return path, wall
 
 
-def run_cli(args, label):
-    """``python -m petr_tpu_torch.cli.test ARGS`` from this script's directory
-    in a process of its own: it must exit 0. Returns (stdout, wall s)."""
-    import os
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "petr_tpu_torch.cli.test", *args], cwd=root,
-                          capture_output=True, text=True, timeout=900)
-    wall = time.perf_counter() - t0
-    log(f"  {label}: python -m petr_tpu_torch.cli.test {' '.join(args)} -> exit {proc.returncode} in {wall:.1f} s")
-    for line in proc.stdout.splitlines():
-        log(f"    | {line}")
-    assert proc.returncode == 0, f"cli.test exited {proc.returncode}:\n{proc.stderr[-4000:]}"
-    return proc.stdout, wall
-
-
 def printed_metrics(stdout):
     """The CLI's metric lines ``name: value`` -> {name: value as printed}."""
     lines = [line.split(": ", 1) for line in stdout.splitlines() if ": " in line
@@ -3053,6 +3052,7 @@ def check_eval(torch, ca, card):
 
     import numpy as np
 
+    from petr_tpu_torch.cli import test as cli_test
     from petr_tpu_torch.cli.test import run_streaming_inference
     from petr_tpu_torch.configs import get_config
     from petr_tpu_torch.data import Loader, NuScenesDataset, collate_batch
@@ -3179,8 +3179,9 @@ def check_eval(torch, ca, card):
 
         # -- the evaluation CLI on the same checkpoint -----------------------
         sub_path = f"{tmp}/submission.json"
-        out, cli_wall = run_cli(["--config", FLAGSHIP, "--infos", val_pkl, "--ckpt", ckpt, "--classes",
-                                 EVAL_CLASSES, "--out", sub_path], "the CLI")
+        with torch_defaults(torch):  # as in a process of its own
+            out, cli_wall = run_main(cli_test, ["--config", FLAGSHIP, "--infos", val_pkl, "--ckpt", ckpt, "--classes",
+                                                EVAL_CLASSES, "--out", sub_path], "the CLI")
         printed = printed_metrics(out)
         want = {k: f"{v:.4f}" for k, v in metrics.items()}
         assert printed == want, f"the CLI printed {printed}, evaluate_model gave {want}"
@@ -3205,7 +3206,7 @@ def check_eval(torch, ca, card):
 
         # -- the host's data cost beside the card's --------------------------
         times.update(loader_cost(torch, cfg, model, ds, card))
-        log(f"  the CLI: {times['cli_samples_per_s']} samples/s, {cli_wall:.3f} s with its start [{card}]")
+        log(f"  the CLI: {times['cli_samples_per_s']} samples/s, {cli_wall:.3f} s through its entry point [{card}]")
         del model
         torch.cuda.empty_cache()
 
@@ -3214,8 +3215,9 @@ def check_eval(torch, ca, card):
         L2 = v2.model.head.num_layers
         log(f"phase 10: {PETRV2} streamed over the same val scenes (random weights, seed {SEED}, as cli.test builds "
             "without --ckpt)")
-        out, v2_wall = run_cli(["--streaming", "--config", PETRV2, "--infos", val_pkl, "--classes", EVAL_CLASSES],
-                               "the CLI, streaming")
+        with torch_defaults(torch):  # as in a process of its own
+            out, v2_wall = run_main(cli_test, ["--streaming", "--config", PETRV2, "--infos", val_pkl, "--classes",
+                                               EVAL_CLASSES], "the CLI, streaming")
         assert "streaming: 4/6 frames served from the feature cache" in out, out
         model = build_detector(v2, seed=SEED, device="cuda")
         ds2 = NuScenesDataset(val, v2.data, training=False)
@@ -3272,7 +3274,7 @@ def check_eval(torch, ca, card):
 SYNTH_SCENES = dict(n_scenes=6, frames_per_scene=4, n_objects=6, val_scenes=1, seed=SEED)
 SYNTH_HW = (128, 320)
 SYNTH_VOV, SYNTH_R50 = "synth_small", "synth_small_r50dcn"
-HARNESS_STEPS = 30  # the harness's run: its JSON line, a loss that fell, the warm-up's BN statistics
+HARNESS_STEPS = 16  # the harness's run: its JSON line, a loss that fell, the warm-up's BN statistics
 # the learning runs' steps, held-out val samples and intermediate evals
 RECIPES = {SYNTH_VOV: dict(steps=4000, val_samples=24, evals=1),
            SYNTH_R50: dict(steps=8000, val_samples=24, evals=4)}
@@ -3321,7 +3323,7 @@ def check_batch_bn_remat(torch, cfg, batch):
 
 def time_recipe(torch, name, train, val, card):
     """The harness's config of ``name`` at its batch of 4 on the rendered
-    train samples: 3 epochs of 5 steps through the loader as the harness
+    train samples: 2 epochs of 5 steps through the loader as the harness
     runs them (the first 3 steps not timed), each step between CUDA events;
     the loader's wait share; one profiler pass; an eval pass; the
     projected wall time of the learning run."""
@@ -3337,7 +3339,7 @@ def time_recipe(torch, name, train, val, card):
     step = make_train_step(cfg)
     events, waits, walls = [], [], []
     n = 0
-    for epoch in range(3):
+    for epoch in range(2):
         batches = iter(loader.epoch(epoch))
         while True:
             t0 = time.perf_counter()
@@ -3401,6 +3403,7 @@ def check_learning(torch, ca, dcn, card):
     import os
     import signal
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
@@ -3425,13 +3428,6 @@ def check_learning(torch, ca, dcn, card):
             f"train and {len(val)} val samples in {times['render_s']:.1f} s")
         assert len(train) == 20 and len(val) == 4, (len(train), len(val))
 
-        log("phase 11: batch-moments BN (bn_mode=batch), one synth_small fp32 step with remat on and off")
-        cfg = recipe_config(SYNTH_VOV, SYNTH_HW)
-        batch = next(iter(Loader(NuScenesDataset(train, cfg.data, training=True, src_hw=SYNTH_HW), 4,
-                                 seed=SEED).epoch(0)))
-        batch.pop("tokens")
-        check_batch_bn_remat(torch, cfg, batch)
-
         def train_args(work, config, *extra):
             return ["--config", config, "--infos", f"{tmp}/synth/synth_infos_train.pkl", "--work-dir", work,
                     "--batch-size", str(CLI_BATCH), "--epochs", "2", "--log-every", "1", "--seed", str(SEED),
@@ -3440,26 +3436,65 @@ def check_learning(torch, ca, dcn, card):
         work = f"{tmp}/run"
         args = train_args(work, SYNTH_R50, "--eval-infos", f"{tmp}/synth/synth_infos_val.pkl")
         log(f"phase 11: python -m petr_tpu_torch.cli.train {' '.join(args)}, SIGTERM once step {spe + 2} "
-            f"(of {2 * spe}) is logged")
-        t0 = time.perf_counter()
-        proc = subprocess.Popen([sys.executable, "-m", "petr_tpu_torch.cli.train", *args], cwd=root,
-                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        lines = []
-        try:
-            for line in proc.stdout:
-                lines.append(line)
-                if line.startswith('{"epoch"') and json.loads(line).get("step", 0) >= spe + 2:
-                    proc.send_signal(signal.SIGTERM)
-                    break
-            out, err = proc.communicate(timeout=600)
-        finally:
-            proc.kill()
-        lines.append(out)
-        times["preempted_run_s"] = time.perf_counter() - t0
+            f"(of {2 * spe}) is logged; meanwhile batch BN and the harness in this process (the three share the "
+            f"card and the host, so none of their times is kept as the CLI's)")
+
+        def preempted_run():
+            """The CLI in a process of its own, SIGTERMed once it logged step
+            spe + 2 -> (its output lines, stderr, exit code, wall s)."""
+            t0 = time.perf_counter()
+            proc = subprocess.Popen([sys.executable, "-m", "petr_tpu_torch.cli.train", *args], cwd=root,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            lines = []
+            try:
+                for line in proc.stdout:
+                    lines.append(line)
+                    if line.startswith('{"epoch"') and json.loads(line).get("step", 0) >= spe + 2:
+                        proc.send_signal(signal.SIGTERM)
+                        break
+                out, err = proc.communicate(timeout=600)
+            finally:
+                proc.kill()
+            lines.append(out)
+            return lines, err, proc.returncode, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(1) as pool:
+            preempted = pool.submit(preempted_run)
+            log("phase 11: batch-moments BN (bn_mode=batch), one synth_small fp32 step with remat on and off")
+            cfg = recipe_config(SYNTH_VOV, SYNTH_HW)
+            batch = next(iter(Loader(NuScenesDataset(train, cfg.data, training=True, src_hw=SYNTH_HW), 4,
+                                     seed=SEED).epoch(0)))
+            batch.pop("tokens")
+            check_batch_bn_remat(torch, cfg, batch)
+
+            harness_args = ["--config", SYNTH_VOV, "--steps", str(HARNESS_STEPS), "--bn-warmup", "4",
+                            "--eval-every", str(HARNESS_STEPS // 2), "--floor", "0",
+                            "--scenes", str(SYNTH_SCENES["n_scenes"]), "--val-scenes", str(SYNTH_SCENES["val_scenes"]),
+                            "--out-dir", f"{tmp}/harness", "--save-ckpt", f"{tmp}/harness_ckpt"]
+            log(f"phase 11: petr_tpu_torch.tools.synth_train_eval {' '.join(harness_args)}, in this process")
+            with torch_defaults(torch):  # as in the harness's own process
+                stdout, times["harness_s"] = run_main(synth_train_eval, harness_args, "the harness")
+            rec = json.loads([line for line in stdout.splitlines() if line.startswith('{"steps"')][-1])
+            metric_keys = {"mAP", "NDS", "mATE", "mASE", "mAOE", "mAVE", "mAAE", "AP_car", "AP_bus", "AP_pedestrian"}
+            assert set(rec) == {"steps", "train_loss_first", "train_loss_last", "wall_s"} | {
+                f"val/{k}" for k in metric_keys}, sorted(rec)
+            assert all(np.isfinite(v) for v in rec.values()), rec
+            assert rec["train_loss_last"] < rec["train_loss_first"], rec
+            assert "bn-warmup: estimated BN stats from 4 batches" in stdout
+            state = torch.load(f"{latest_checkpoint(f'{tmp}/harness_ckpt')}/state.pt", map_location="cpu",
+                               weights_only=True)["model"]
+            stats = {k: v for k, v in state.items() if k.endswith(("running_mean", "running_var"))}
+            unchanged = [k for k, v in stats.items()
+                         if torch.equal(v, torch.zeros_like(v) if k.endswith("mean") else torch.ones_like(v))]
+            log(f"  exit 0 in {times['harness_s']:.1f} s; loss {rec['train_loss_first']} -> {rec['train_loss_last']}; "
+                f"{len(stats) - len(unchanged)} of {len(stats)} BN statistics moved off 0 / 1 by the warm-up "
+                f"(frozen BN keeps them through training)")
+            assert not unchanged, unchanged[:3]
+            lines, err, returncode, times["preempted_run_s"] = preempted.result()
         for line in "".join(lines).splitlines():
             if not line.startswith('{"config"'):
                 log(f"    | {line[:240]}")
-        assert proc.returncode == 0, f"cli.train exited {proc.returncode} on SIGTERM:\n{err[-4000:]}"
+        assert returncode == 0, f"cli.train exited {returncode} on SIGTERM:\n{err[-4000:]}"
         logged = read_log(work)
         stopped = max(r["step"] for r in logged if "loss" in r)
         assert f"checkpoint saved at step {stopped}; exiting on signal {int(signal.SIGTERM)}" in "".join(lines)
@@ -3471,12 +3506,9 @@ def check_learning(torch, ca, dcn, card):
             f"first epoch's eval: mAP {val_first[0]['val/mAP']}, NDS {val_first[0]['val/NDS']}")
 
         log(f"phase 11: the same command with --resume, to the end of the interrupted epoch")
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "petr_tpu_torch.cli.train", *args, "--resume"], cwd=root,
-                              capture_output=True, text=True, timeout=600)
-        times["resumed_run_s"] = time.perf_counter() - t0
-        assert proc.returncode == 0, f"cli.train --resume exited {proc.returncode}:\n{proc.stderr[-4000:]}"
-        resumed_line = [line for line in proc.stdout.splitlines() if line.startswith("resumed from")]
+        with torch_defaults(torch):  # as in a process of its own
+            stdout, times["resumed_run_s"] = run_main(cli_train, [*args, "--resume"], "cli.train --resume")
+        resumed_line = [line for line in stdout.splitlines() if line.startswith("resumed from")]
         log(f"    | {resumed_line[0] if resumed_line else 'no resumed-from line'}")
         assert resumed_line == [f"resumed from {work}/ckpts/step_{stopped:08d} at step {stopped}"], resumed_line
         logged = read_log(work)
@@ -3492,8 +3524,6 @@ def check_learning(torch, ca, dcn, card):
         log(f"  resumed at step {stopped}, steps {resumed[0]}-{resumed[-1]} logged, checkpoint at step "
             f"{stopped + spe}, in {times['resumed_run_s']:.1f} s; loss {losses[0]:.4f} at step 1, "
             f"{losses[-1]:.4f} at step {resumed[-1]}; eval: mAP {val_last['val/mAP']}, NDS {val_last['val/NDS']}")
-        times["cli_r50_steps_per_s"] = 1.0 / statistics.median(
-            r["time_per_iter"] for r in logged if "loss" in r and 1 < r["step"] <= stopped)
 
         log("phase 11: cli.train again in this process, 3 steps: the same losses bit for bit; launches per step")
         shapes = []
@@ -3535,6 +3565,8 @@ def check_learning(torch, ca, dcn, card):
                 per_shape = {s: shapes.count(s) // n_steps for s in set(shapes)}
                 launches["K4_by_shape"] = per_shape
                 assert sorted(per_shape.values()) == [6, 12], per_shape
+                times["cli_r50_steps_per_s"] = 1.0 / statistics.median(
+                    r["time_per_iter"] for r in again if r["step"] > 1)
             else:
                 assert got == {"LAUNCHES": 0, "LAUNCHES_FP32": 6, "DKDV_LAUNCHES": 0, "DQ_LAUNCHES": 0,
                                "DKDV_LAUNCHES_FP32": 3, "DQ_LAUNCHES_FP32": 3, "K4": 0, "K4_FP32": 0}, got
@@ -3550,29 +3582,6 @@ def check_learning(torch, ca, dcn, card):
             with torch_defaults(torch):
                 times[name] = time_recipe(torch, name, train, val, card)
 
-        args = ["--config", SYNTH_VOV, "--steps", str(HARNESS_STEPS), "--bn-warmup", "4", "--eval-every",
-                str(HARNESS_STEPS // 2), "--floor", "0",
-                "--scenes", str(SYNTH_SCENES["n_scenes"]), "--val-scenes", str(SYNTH_SCENES["val_scenes"]),
-                "--out-dir", f"{tmp}/harness", "--save-ckpt", f"{tmp}/harness_ckpt"]
-        log(f"phase 11: petr_tpu_torch.tools.synth_train_eval {' '.join(args)}, in this process")
-        with torch_defaults(torch):  # as in the harness's own process
-            stdout, times["harness_s"] = run_main(synth_train_eval, args, "the harness")
-        rec = json.loads([line for line in stdout.splitlines() if line.startswith('{"steps"')][-1])
-        metric_keys = {"mAP", "NDS", "mATE", "mASE", "mAOE", "mAVE", "mAAE", "AP_car", "AP_bus", "AP_pedestrian"}
-        assert set(rec) == {"steps", "train_loss_first", "train_loss_last", "wall_s"} | {
-            f"val/{k}" for k in metric_keys}, sorted(rec)
-        assert all(np.isfinite(v) for v in rec.values()), rec
-        assert rec["train_loss_last"] < rec["train_loss_first"], rec
-        assert "bn-warmup: estimated BN stats from 4 batches" in stdout
-        state = torch.load(f"{latest_checkpoint(f'{tmp}/harness_ckpt')}/state.pt", map_location="cpu",
-                           weights_only=True)["model"]
-        stats = {k: v for k, v in state.items() if k.endswith(("running_mean", "running_var"))}
-        unchanged = [k for k, v in stats.items()
-                     if torch.equal(v, torch.zeros_like(v) if k.endswith("mean") else torch.ones_like(v))]
-        log(f"  exit 0 in {times['harness_s']:.1f} s; loss {rec['train_loss_first']} -> {rec['train_loss_last']}; "
-            f"{len(stats) - len(unchanged)} of {len(stats)} BN statistics moved off 0 / 1 by the warm-up "
-            f"(frozen BN keeps them through training)")
-        assert not unchanged, unchanged[:3]
     times["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 11: {times['phase_s']:.1f} s [{card}]")
     return launches, times
@@ -3650,6 +3659,8 @@ def par_reference(torch, path, card):
     ``path``: per dtype the forwards, the step's loss, grad_norm and
     parameters after it, and (fp32) the gradients; and the 1-rank bf16
     step's time."""
+    import os
+
     from petr_tpu_torch.train import create_train_state, make_grad_fn, make_train_step, step_generator
 
     ref = {}
@@ -3679,7 +3690,8 @@ def par_reference(torch, path, card):
         ref[dtype] = r
         del state, initial
         torch.cuda.empty_cache()
-    torch.save(ref, path)
+    torch.save(ref, path + ".part")
+    os.replace(path + ".part", path)  # whole, for the ranks that wait for it
 
 
 def _compare_out(name, got, want, dtype):
@@ -3730,6 +3742,8 @@ def par_flagship_rank(rank, world, device, ref_path):
     """One rank of the flagship's parallel steps (``chip_smoke.py`` phase
     12b, c): per dtype and layout, the step from the initial weights on
     this rank's share of the global batch, held to the 1-rank references."""
+    import os
+
     import torch
 
     from petr_tpu_torch.ops import cross_attention as ca
@@ -3743,6 +3757,11 @@ def par_flagship_rank(rank, world, device, ref_path):
     torch.distributed.all_reduce(got, op=torch.distributed.ReduceOp.MAX)
     want = torch.tensor([float(world - 1), 0.0, 1e30], device=device)
     assert torch.equal(got, want), f"rank {rank}: all-reduce MAX on {device} gave {got.tolist()}"
+    t0 = time.perf_counter()
+    while not os.path.exists(ref_path):  # the launcher computes the references while the ranks start
+        if time.perf_counter() - t0 > 900:
+            raise TimeoutError(f"rank {rank}: no references at {ref_path}")
+        time.sleep(0.2)
     ref = torch.load(ref_path, weights_only=False)
     counters = ("LAUNCHES", "DKDV_LAUNCHES", "DQ_LAUNCHES", "LAUNCHES_FP32", "DKDV_LAUNCHES_FP32",
                 "DQ_LAUNCHES_FP32")
@@ -3794,10 +3813,10 @@ def par_flagship_rank(rank, world, device, ref_path):
             diffs = [(p.detach().cpu() - r["params"][n]).abs() for n, p in state.model.named_parameters()]
             rec["param_max_lr"] = max(d.max().item() for d in diffs) / r["lr"]
             rec["param_mean_lr"] = sum(d.sum().item() for d in diffs) / sum(d.numel() for d in diffs) / r["lr"]
-            if dtype == "bfloat16":  # two more steps: the step's time and its share in collectives
+            if dtype == "bfloat16":  # one more step: the step's time and its share in collectives
                 times = []
                 with CollectiveClock(torch) as clock:
-                    for i in (1, 2):
+                    for i in (1,):
                         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                         h0 = time.perf_counter()
                         s.record()
@@ -3807,7 +3826,7 @@ def par_flagship_rank(rank, world, device, ref_path):
                         times.append(((time.perf_counter() - h0) * 1e3, s.elapsed_time(e)))
                 rec["timed_host_ms"] = [t[0] for t in times]
                 rec["timed_event_ms"] = [t[1] for t in times]
-                rec["collective_ms"], rec["collective_calls"] = clock.ms / 2, clock.calls // 2
+                rec["collective_ms"], rec["collective_calls"] = clock.ms, clock.calls
             out[(dtype, data, model)] = rec
             reset_state(state, cfg, initial)
         del state, initial
@@ -3950,6 +3969,9 @@ def check_parallel(torch, ca, sm_clock_hz, card):
 
     import numpy as np
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from petr_tpu_torch.cli import train as cli_train
     from petr_tpu_torch.data import NuScenesDataset, generate_synthetic_scenes
     from petr_tpu_torch.models import PETRDetector
     from petr_tpu_torch.parallel.distributed import free_port, spawn
@@ -3964,17 +3986,18 @@ def check_parallel(torch, ca, sm_clock_hz, card):
     k3 = check_k3_shard(torch, ca, sm_clock_hz, card)
     with tempfile.TemporaryDirectory() as tmp:
         log(f"phase 12b, c: {FLAGSHIP} at full width, global batch {PAR_GLOBAL_BATCH}, dropout {DROPOUT}, GridMask, "
-            f"remat, bf16 and fp32: the 1-rank references")
+            f"remat, bf16 and fp32: the 1-rank references, while 2 ranks start on the card (gloo), layouts "
+            f"(data, model) {LAYOUTS}; then each rank's step from the same weights on its share, every count reset "
+            f"just before the step (the ranks wait for the references before their first step)")
         ref_path = f"{tmp}/par_ref.pt"
         t0 = time.perf_counter()
-        par_reference(torch, ref_path, card)
-        ref = torch.load(ref_path, weights_only=False)
-        times["reference_s"] = time.perf_counter() - t0
-        log(f"phase 12b, c: 2 ranks on the card (gloo), layouts (data, model) {LAYOUTS}: each rank's step from "
-            f"the same weights on its share, every count reset just before the step")
-        t0 = time.perf_counter()
-        ranks = spawn(par_flagship_rank, 2, "gloo", "cuda", args=(ref_path,))
+        with ThreadPoolExecutor(1) as pool:
+            spawned = pool.submit(spawn, par_flagship_rank, 2, "gloo", "cuda", (ref_path,))
+            par_reference(torch, ref_path, card)
+            times["reference_s"] = time.perf_counter() - t0
+            ranks = spawned.result()
         times["ranks_s"] = time.perf_counter() - t0
+        ref = torch.load(ref_path, weights_only=False)
         L = flagship_cfg("bfloat16").model.head.num_layers
         want = {"bfloat16": {"LAUNCHES": 2 * L, "DKDV_LAUNCHES": L, "DQ_LAUNCHES": L, "LAUNCHES_FP32": 0,
                              "DKDV_LAUNCHES_FP32": 0, "DQ_LAUNCHES_FP32": 0},
@@ -4021,13 +4044,6 @@ def check_parallel(torch, ca, sm_clock_hz, card):
         k3["launches_note"] = "per rank per bf16 step of the token-sharded flagship (data 1 x model 2): K1 + K2 as K3"
         del ref
 
-        log("phase 12d: dryrun_multichip(4): 4 ranks on the card (gloo), data 2 x model 2, tiny shapes")
-        t0 = time.perf_counter()
-        rec = dryrun_multichip(4, device="cuda", backend="gloo", model=2)
-        times["dryrun_s"] = time.perf_counter() - t0
-        assert tuple(rec["mesh"]) == (2, 2) and np.isfinite(rec["loss"]), rec
-        log(f"  mesh {rec['mesh']}, loss {rec['loss']:.4f}, grad_norm {rec['grad_norm']:.4f} in {times['dryrun_s']:.1f} s")
-
         splits = generate_synthetic_scenes(f"{tmp}/synth", image_hw=SYNTH_HW, **PAR_SCENES)
         n_train, n_val = len(splits["train"]), len(splits["val"])
         assert n_val % 2 == 1, n_val
@@ -4040,26 +4056,37 @@ def check_parallel(torch, ca, sm_clock_hz, card):
                     "--process-id", str(rank), "--dist-backend", backend, *extra]
 
         log(f"phase 12a: cli.train over NCCL at world size 1 ({SYNTH_VOV}, {n_train} train samples at "
-            f"{SYNTH_HW[0]}x{SYNTH_HW[1]}, 2 steps)")
+            f"{SYNTH_HW[0]}x{SYNTH_HW[1]}, 2 steps), its entry point in this process (it destroys its process "
+            f"group on the way out)")
         work = f"{tmp}/nccl"
-        out = run_ranks(root, [cli_args(work, free_port(), 1, 0, "nccl", "--batch-size", "2", "--max-steps", "2")],
-                        "nccl", env)[0]
+        with torch_defaults(torch):  # as in a process of its own
+            out, _ = run_main(cli_train, cli_args(work, free_port(), 1, 0, "nccl", "--batch-size", "2",
+                                                  "--max-steps", "2"), "nccl")
+        assert not torch.distributed.is_initialized()
         envline = json.loads([x for x in out.splitlines() if x.startswith('{"env"')][0])["env"]
         assert envline["backend"] == "nccl" and envline["processes"] == 1, envline
         assert [r["step"] for r in read_log(work) if "loss" in r] == [1, 2]
         assert latest_checkpoint(f"{work}/ckpts").endswith("step_00000002")
 
         spe = n_train // 2 // 2
-        log(f"phase 12e: cli.train over 2 gloo ranks on the card, global batch 4, 3 epochs, eval hook on the "
-            f"{n_val} val samples (odd: the ranks decode 2 and 1), both ranks sent SIGTERM once rank 0 logged step "
-            f"{spe + 1}, the first of the second epoch")
+        log(f"phase 12d, e, at once (they only check: neither is timed): dryrun_multichip(4), 4 ranks on the card "
+            f"(gloo), data 2 x model 2, tiny shapes; cli.train over 2 gloo ranks on the card, global batch 4, 3 "
+            f"epochs, eval hook on the {n_val} val samples (odd: the ranks decode 2 and 1), both ranks sent SIGTERM "
+            f"once rank 0 logged step {spe + 1}, the first of the second epoch")
         work = f"{tmp}/two"
         port = free_port()
         t0 = time.perf_counter()
-        outs = run_ranks(root, [cli_args(work, port, 2, r, "gloo", "--batch-size", "4", "--epochs", "3",
-                                         "--eval-infos", val) for r in range(2)], "2 ranks", env,
-                         signal_after=spe + 1)
+        with ThreadPoolExecutor(1) as pool:
+            two = pool.submit(run_ranks, root, [cli_args(work, port, 2, r, "gloo", "--batch-size", "4", "--epochs",
+                                                         "3", "--eval-infos", val) for r in range(2)],
+                              "2 ranks", env, spe + 1)
+            rec = dryrun_multichip(4, device="cuda", backend="gloo", model=2)
+            times["dryrun_s"] = time.perf_counter() - t0
+            outs = two.result()
         times["cli_2rank_s"] = time.perf_counter() - t0
+        assert tuple(rec["mesh"]) == (2, 2) and np.isfinite(rec["loss"]), rec
+        log(f"  dryrun: mesh {rec['mesh']}, loss {rec['loss']:.4f}, grad_norm {rec['grad_norm']:.4f} in "
+            f"{times['dryrun_s']:.1f} s")
         assert "epoch 0 done; checkpoint saved" in outs[0] and "checkpoint saved" not in outs[1]
         assert '{"env"' in outs[0] and '{"env"' not in outs[1] and '{"epoch"' not in outs[1]
         logged = read_log(work)
@@ -4089,8 +4116,8 @@ def check_parallel(torch, ca, sm_clock_hz, card):
         log(f"  both ranks exit 0 at step {stopped} (of {3 * spe}); rank 0 checkpointed there")
     times["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 12: {times['phase_s']:.1f} s (the 1-rank references {times['reference_s']:.1f} s, the ranks' steps "
-        f"{times['ranks_s']:.1f} s, the dryrun {times['dryrun_s']:.1f} s, the 2-rank CLI {times['cli_2rank_s']:.1f} s) "
-        f"[{card}]")
+        f"{times['ranks_s']:.1f} s, the dryrun {times['dryrun_s']:.1f} s and the 2-rank CLI "
+        f"{times['cli_2rank_s']:.1f} s, at once) [{card}]")
     return k3, times
 
 
@@ -4122,7 +4149,7 @@ INT8_SHAPES = {  # label: ((Cin, H, W, Co, kernel, stride) of the conv's input, 
     "s5 concat2144": ((2144, 10, 25, 1024, 1, 1), 2),
 }
 INT8_PER_FORWARD = 99  # V-99: the stem's 3 convs and 6 in each of its 16 OSA blocks
-INT8_ROUNDS = 3  # interleaved timing rounds per shape (their spread)
+INT8_ROUNDS = 2  # interleaved timing rounds per shape (their spread)
 # petr_tpu's bound on the int8 model's relative L2 error against the float one
 # (tests/test_quant.py::test_detector_int8_e2e, at tiny_debug)
 INT8_REL_ERR = 0.05
@@ -4425,6 +4452,7 @@ def check_deployment(torch, ca, c8, dcn, card):
     kernels themselves; PETRv2's streaming pair over 3 frames."""
     import os
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
@@ -4571,9 +4599,44 @@ def check_deployment(torch, ca, c8, dcn, card):
         log(f"  r50: exported in {times['export_r50_s']:.1f} s, ops {meta['op_names']}")
         del r50
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        out = run_module(["-c", replay_code(paths, inputs, tmp)], "the replay")
-        times["replay_process_s"] = time.perf_counter() - t0
+        # the replay's fresh process runs beside the streaming pair below (it only checks: nothing is timed)
+        pool = ThreadPoolExecutor(1)
+        t_replay = time.perf_counter()
+        replay = pool.submit(lambda: (run_module(["-c", replay_code(paths, inputs, tmp)], "the replay"),
+                                      time.perf_counter() - t_replay))
+        try:
+            # -- PETRv2's streaming pair ------------------------------------------
+            v2 = get_config(PETRV2)
+            log(f"phase 13: {PETRV2} streaming pair (torch.export, weights embedded), 3 frames through "
+                "StreamingArtifactRunner against StreamingPETRv2.step")
+            vmodel = build_detector(v2, seed=SEED, device="cuda")
+            t0 = time.perf_counter()
+            save_streaming_artifact(f"{tmp}/v2.petrx", export_streaming(v2, vmodel, embed_params=True), v2, vmodel,
+                                    batch_size=1, embed_params=True)
+            times["export_streaming_s"] = time.perf_counter() - t0
+            runner = StreamingArtifactRunner(f"{tmp}/v2.petrx")
+            stream = StreamingPETRv2(v2, vmodel, device="cuda")
+            rng = np.random.RandomState(SEED)
+            reqs = make_requests(v2, 3)
+            for frame, req in enumerate(reqs):
+                images = req["images"][None, :6]
+                ts = frame_timestamps(rng)
+                ca.LAUNCHES = 0
+                got = runner.step(images, req["img2lidar"][None], req["img_hw"][None], ts)
+                torch.cuda.synchronize()
+                k1 = ca.LAUNCHES
+                want = stream.step(images, req["img2lidar"][None], req["img_hw"][None], ts)
+                same = {k: torch.equal(got[k], want[k]) for k in want}
+                log(f"  frame {frame}: K1 {k1} launches in the replayed step (expected {L}); equal to "
+                    f"StreamingPETRv2.step bit for bit: {same}")
+                assert k1 == L
+                for k in want:
+                    if not same[k]:
+                        assert k in ("boxes", "scores") and torch.allclose(got[k].float(), want[k].float(),
+                                                                           rtol=MODEL_RTOL, atol=MODEL_ATOL), k
+        finally:
+            pool.shutdown(wait=True)
+        out, times["replay_process_s"] = replay.result()
         counts = json.loads(out.strip().splitlines()[-1])
         for name, want in expect.items():
             got = counts[name]
@@ -4589,35 +4652,6 @@ def check_deployment(torch, ca, c8, dcn, card):
                     assert k in ("boxes", "scores") and np.allclose(replayed[k], v, rtol=MODEL_RTOL, atol=MODEL_ATOL), k
         times["replay_launches"] = counts
 
-        # -- PETRv2's streaming pair ------------------------------------------
-        v2 = get_config(PETRV2)
-        log(f"phase 13: {PETRV2} streaming pair (torch.export, weights embedded), 3 frames through "
-            "StreamingArtifactRunner against StreamingPETRv2.step")
-        vmodel = build_detector(v2, seed=SEED, device="cuda")
-        t0 = time.perf_counter()
-        save_streaming_artifact(f"{tmp}/v2.petrx", export_streaming(v2, vmodel, embed_params=True), v2, vmodel,
-                                batch_size=1, embed_params=True)
-        times["export_streaming_s"] = time.perf_counter() - t0
-        runner = StreamingArtifactRunner(f"{tmp}/v2.petrx")
-        stream = StreamingPETRv2(v2, vmodel, device="cuda")
-        rng = np.random.RandomState(SEED)
-        reqs = make_requests(v2, 3)
-        for frame, req in enumerate(reqs):
-            images = req["images"][None, :6]
-            ts = frame_timestamps(rng)
-            ca.LAUNCHES = 0
-            got = runner.step(images, req["img2lidar"][None], req["img_hw"][None], ts)
-            torch.cuda.synchronize()
-            k1 = ca.LAUNCHES
-            want = stream.step(images, req["img2lidar"][None], req["img_hw"][None], ts)
-            same = {k: torch.equal(got[k], want[k]) for k in want}
-            log(f"  frame {frame}: K1 {k1} launches in the replayed step (expected {L}); equal to "
-                f"StreamingPETRv2.step bit for bit: {same}")
-            assert k1 == L
-            for k in want:
-                if not same[k]:
-                    assert k in ("boxes", "scores") and torch.allclose(got[k].float(), want[k].float(),
-                                                                       rtol=MODEL_RTOL, atol=MODEL_ATOL), k
         del vmodel, model
         torch.cuda.empty_cache()
     times["phase_s"] = time.perf_counter() - t_phase
@@ -4636,7 +4670,7 @@ BENCH_WARMUP = 5
 NATIVE_MEDIAN_ERR, NATIVE_PIXEL_ERR, NATIVE_PIXEL_SHARE = 0.05, 0.25, 0.99
 
 
-def check_tools(torch, ca, c8, card):
+def check_tools(torch, ca, c8, card, loader_measured=False):
     """Phase 14: ``cli.benchmark`` in this process on the flagship at B=1
     (inference, ``--train`` and int8 with the scales of ``cli.quantize
     --synthetic``), each JSON line printed and its launches counted (K1 6
@@ -4647,7 +4681,8 @@ def check_tools(torch, ca, c8, card):
     memory); the native loader built from ``csrc/dataload.cpp`` (or a line saying the
     machine has no libjpeg headers) and held to the PIL path on phase 10's
     scenes at 900x1600, then the loader's time per batch and the eval pass's
-    wait on it on each branch; ``cli.convert`` of a reference-shaped
+    wait on it on each branch (PIL's only where phase 10 has not measured it
+    in this run: ``loader_measured``); ``cli.convert`` of a reference-shaped
     ``.pth`` (the model's random weights under legacy keys, wrapped as mmcv
     saves them), the converted model's forward equal bit for bit to the
     source's, and ``cli.publish`` of its checkpoint round-tripped through
@@ -4791,14 +4826,17 @@ def check_tools(torch, ca, c8, card):
                 f"{NATIVE_MEDIAN_ERR}), {100 * share:.3f}% of values within {NATIVE_PIXEL_ERR} (limit "
                 f"{100 * NATIVE_PIXEL_SHARE}%), max {err.max():.4f}")
             assert err.max() > 0 and np.median(err) < NATIVE_MEDIAN_ERR and share > NATIVE_PIXEL_SHARE
-        model = build_detector(cfg, seed=SEED, device="cuda")
-        for branch in branches:
-            native.available = available if branch == "native" else (lambda: False)
-            log(f"  the {branch} branch:")
-            out[f"loader_{branch}"] = loader_cost(torch, cfg, model, ds, card)
+        if branches == ("pil",) and loader_measured:
+            log("  the pil branch: phase 10 measured it in this run (the same loader on the same samples)")
+        else:
+            model = build_detector(cfg, seed=SEED, device="cuda")
+            for branch in branches:
+                native.available = available if branch == "native" else (lambda: False)
+                log(f"  the {branch} branch:")
+                out[f"loader_{branch}"] = loader_cost(torch, cfg, model, ds, card)
+            del model
     finally:
         native.available = available
-    del model
 
     # -- a reference checkpoint converted, served, published ----------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -4845,7 +4883,243 @@ def check_tools(torch, ca, c8, card):
     return out
 
 
-ALL_PHASES = {3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14}
+ALL_PHASES = {3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15}
+
+
+# Phase 15: the last modules of petr_tpu, at its default widths. None of
+# them reaches a TPU kernel (their attention is the plain branch, their
+# sampling and scatters plain PyTorch), so the phase checks that none of the
+# six kernels launches in it.
+DETR3D_LEVELS = ((116, 200), (58, 100), (29, 50), (15, 25))  # strides 8/16/32/64 of nuScenes' padded 928x1600
+DETR3D_IMAGE, DETR3D_PAD = (900, 1600), (928, 1600)
+LIDAR_POINTS, LIDAR_PAD = 35000, 1500  # about one nuScenes LIDAR_TOP sweep; its last points padding
+# fp32 on the card against the same model on the CPU (TF32 off): both sum in
+# fp32 in other orders through 3-6 post-norm layers; per output atol + rtol x
+# |ref| (box codes carry metric centres up to 51.2 m) and a limit on the mean,
+# each widened by NUDGE_MARGIN x what a one-ulp nudge of every parameter and
+# input (up, and down: the larger) does to the CPU's outputs of that decoder
+# layer. Each layer's references move the next layer's sampling points, so
+# the last layers are as sensitive as the features are rough: on white-noise
+# features a nudge of the inputs alone moved DETR3D's last logits by 0.33;
+# the phase's features are smooth, as a backbone's are, and there the card's
+# distance from the CPU, layer by layer, was the size of the nudge's.
+LAST_TOL = {"cls_logits": (1e-3, 1e-3), "bbox_codes": (1e-2, 1e-3)}
+LAST_MEAN = 1e-4
+DETR3D_SMOOTH = 16  # the stride-8 level's features vary over 16 cells (128 image pixels), the coarser ones alike
+
+
+def smooth_features(rng, shape, cells):
+    """(B, N, H, W, C) fp32 features varying smoothly over ``cells`` cells:
+    N(0, 1) on a coarse grid, bilinearly upsampled."""
+    import torch
+    import torch.nn.functional as F
+
+    B, N, H, W, C = shape
+    coarse = rng.standard_normal((B * N, C, -(-H // cells) + 1, -(-W // cells) + 1)).astype("float32")
+    fine = F.interpolate(torch.from_numpy(coarse), size=(H, W), mode="bilinear", align_corners=False)
+    return fine.permute(0, 2, 3, 1).reshape(B, N, H, W, C).contiguous()
+
+
+def rig_lidar2img(image_hw):
+    """lidar2img (1, 6, 4, 4) of the synthetic scenes' 6-camera rig
+    (``data.synthetic._rig``) for images of ``image_hw``."""
+    import numpy as np
+
+    from petr_tpu_torch.data.synthetic import _rig
+
+    mats = []
+    for cam in _rig(image_hw).values():
+        lidar2cam = np.eye(4)
+        lidar2cam[:3, :3] = cam["R"].T
+        lidar2cam[:3, 3] = -cam["R"].T @ cam["t"]
+        K = np.eye(4)
+        K[:3, :3] = cam["K"]
+        mats.append(K @ lidar2cam)
+    return np.stack(mats)[None].astype(np.float32)
+
+
+def lidar_sweep(rng, n=LIDAR_POINTS, pad=LIDAR_PAD):
+    """(points (1, n, 5): x, y, z, intensity, time lag; valid (1, n)) drawn
+    like a LIDAR_TOP sweep: ranges denser near the car, out to 70 m (some
+    beyond the +-51.2 m grid), the ground and objects in z, the last ``pad``
+    points padding (zeros, invalid)."""
+    import numpy as np
+
+    m = n - pad
+    r = 1.5 + 68.5 * rng.uniform(size=m) ** 2
+    az = rng.uniform(-np.pi, np.pi, m)
+    z = np.where(rng.uniform(size=m) < 0.6, rng.normal(-1.8, 0.1, m), rng.uniform(-5.5, 3.5, m))
+    pts = np.zeros((1, n, 5), np.float32)
+    pts[0, :m] = np.stack([r * np.cos(az), r * np.sin(az), z, rng.uniform(size=m), np.zeros(m)], -1)
+    valid = np.zeros((1, n), bool)
+    valid[0, :m] = True
+    return pts, valid
+
+
+def kernel_counts(*modules):
+    """Every launch counter of the kernels' wrapper modules."""
+    return {f"{m.__name__}.{k}": v for m in modules for k, v in vars(m).items()
+            if k.endswith(("LAUNCHES", "LAUNCHES_FP32")) and isinstance(v, int)}
+
+
+def check_module_on_card(torch, name, make, inputs, fwd, card, dtypes=("float32",)):
+    """``make()`` (weights drawn from the seed on the CPU) on the card in
+    each of ``dtypes``: its fp32 outputs against the same model's on the
+    CPU under LAST_TOL widened by the CPU's own distance under a one-ulp
+    nudge of every weight and input (NUDGE_MARGIN x, per decoder layer),
+    every output finite, two identical
+    backward passes
+    (eval mode, a fixed cotangent) with the same input and parameter
+    gradients bit for bit, the device time per forward (CUDA events and
+    one profiler pass) and the peak memory of a forward and backward.
+    ``fwd(model, inputs)`` -> {"cls_logits", "bbox_codes"}; ``inputs`` are
+    CPU tensors, the float ones differentiated."""
+    import numpy as np
+
+    ref = make().eval()
+    state = ref.state_dict()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = fwd(ref, inputs)
+        cpu_s = time.perf_counter() - t0
+        floor = {k: torch.zeros_like(v) for k, v in want.items()}  # the CPU's own one-ulp nudge distance
+        for end in (float("inf"), float("-inf")):
+            end = torch.tensor(end)
+            nudged = make().eval()
+            nudged.load_state_dict({k: torch.nextafter(v, end) if v.is_floating_point() else v
+                                    for k, v in state.items()})
+            out = fwd(nudged, [torch.nextafter(t, end) if t.is_floating_point() else t for t in inputs])
+            floor = {k: torch.maximum(floor[k], (want[k] - out[k]).abs()) for k in want}
+        del nudged
+    gen = np.random.RandomState(SEED + 15)
+    cots = {k: torch.from_numpy(gen.standard_normal(tuple(v.shape)).astype(np.float32)).cuda()
+            for k, v in want.items()}
+    rec = {"cpu_forward_s": cpu_s}
+    for dtype in dtypes:
+        model = make(getattr(torch, dtype))
+        model.load_state_dict(state)
+        model = model.cuda().eval()
+        x = [t.cuda() for t in inputs]
+        with torch.no_grad():
+            got = fwd(model, x)
+        for k, v in got.items():
+            assert v.dtype == torch.float32 and v.shape == want[k].shape, (name, k, v.dtype, v.shape)
+            assert torch.isfinite(v).all(), f"{name} {dtype}: {k} not finite"
+        if dtype == "float32":
+            for k in ("cls_logits", "bbox_codes"):
+                err = (got[k].cpu() - want[k]).abs()
+                atol, rtol = LAST_TOL[k]
+                per_layer = floor[k].flatten(1).amax(1)  # (L,)
+                wide = NUDGE_MARGIN * per_layer.reshape(-1, *[1] * (err.dim() - 1))
+                mean_tol = LAST_MEAN + NUDGE_MARGIN * floor[k].mean().item()
+                bad = int((err > atol + rtol * want[k].abs() + wide).sum())
+                layers = ", ".join(f"{e:.2e}" for e in err.flatten(1).amax(1).tolist())
+                log(f"  {name} fp32, {k}: the card vs the CPU: max abs err {err.max().item():.4e}, mean "
+                    f"{err.mean().item():.4e} (per layer max {layers}); "
+                    f"a one-ulp nudge of the weights and inputs on the CPU: per layer max "
+                    f"{', '.join(f'{e:.2e}' for e in per_layer.tolist())}, mean {floor[k].mean().item():.2e}; "
+                    f"max |value| {want[k].abs().max().item():.4e} (atol {atol}, rtol {rtol}, + {NUDGE_MARGIN} x the "
+                    f"layer's nudge; mean {mean_tol:.2e})")
+                assert bad == 0 and err.mean().item() <= mean_tol, f"{name} {k}: {bad} outputs out of tolerance"
+
+        def backward():
+            xs = [t.clone().requires_grad_(True) if t.is_floating_point() else t for t in x]
+            out = fwd(model, xs)
+            loss = sum((out[k] * cots[k]).sum() for k in out)
+            leaves = [t for t in xs if t.requires_grad] + [p for p in model.parameters()]
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            return [g for g in grads if g is not None]
+
+        torch.cuda.reset_peak_memory_stats()
+        first = backward()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        second = backward()
+        same = sum(torch.equal(a, b) for a, b in zip(first, second))
+        assert all(torch.isfinite(g).all() for g in first), f"{name} {dtype}: a gradient is not finite"
+        assert same == len(first), f"{name} {dtype}: {len(first) - same} of {len(first)} gradients differ between runs"
+        del first, second
+        with torch.no_grad():
+            ev_ms = cuda_time_ms(lambda: fwd(model, x), warmup=2, iters=10)
+            dev_ms = device_ms(torch, lambda: fwd(model, x), warmup=1, iters=3)
+        log(f"  {name} {dtype}: forward {ev_ms:.3f} ms on CUDA events, {dev_ms:.3f} ms of device time (profiler); "
+            f"peak memory of a forward and backward {peak:.3f} GiB; two backward passes: {same} gradients the same "
+            f"bit for bit [{card}]")
+        rec[dtype] = {"forward_ms": ev_ms, "forward_device_ms": dev_ms, "peak_gib": peak, "grads_equal": same}
+        del model, x
+        torch.cuda.empty_cache()
+    return rec
+
+
+def check_last_modules(torch, ca, dcn, conv, c8, card):
+    """Phase 15: DETR3D's head, Object-DGCNN and its two deformable BEV
+    heads at petr_tpu's default widths, random weights from the seed."""
+    import numpy as np
+
+    from petr_tpu_torch.models.detr3d import Detr3DHead
+    from petr_tpu_torch.models.dgcnn import DGCNN3DHead, ObjDGCNN
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # the SECOND convs' backward (training_phase restores it)
+    before = kernel_counts(ca, dcn, conv, c8)
+    rng = np.random.RandomState(SEED)
+    times = {}
+
+    feats = [smooth_features(rng, (1, 6, h, w, 256), max(1, DETR3D_SMOOTH >> i))
+             for i, (h, w) in enumerate(DETR3D_LEVELS)]
+    l2i = torch.from_numpy(rig_lidar2img(DETR3D_IMAGE))
+    log(f"phase 15: Detr3DHead (embed 256, 900 queries, 6 layers, 8 heads, FFN 512, box refinement) over 6 views, "
+        f"4 levels of 256 channels at {', '.join(f'{h}x{w}' for h, w in DETR3D_LEVELS)} (strides 8-64 of "
+        f"{DETR3D_PAD[0]}x{DETR3D_PAD[1]}; smooth N(0, 1) features, over {DETR3D_SMOOTH} cells of the finest level), "
+        f"lidar2img of the synthetic rig, random weights (seed {SEED}), B=1")
+
+    def make_detr3d(dtype=torch.float32):
+        torch.manual_seed(SEED)
+        return Detr3DHead(dtype=dtype)
+
+    times["detr3d"] = check_module_on_card(
+        torch, "Detr3DHead", make_detr3d, [*feats, l2i], lambda m, x: m(x[:4], x[4], DETR3D_PAD), card,
+        ("float32", "bfloat16"))
+    del feats
+
+    points, valid = (torch.from_numpy(a) for a in lidar_sweep(rng))
+    n_in = int(((points[0, :, :2].abs() < 51.2).all(-1) & valid[0]).sum())
+    log(f"phase 15: ObjDGCNN at its defaults (grid 128x128 over +-51.2 m, z -5..3, 300 queries, 3 layers, embed 128, "
+        f"SECOND 64/128/256 x 3/5/5, neck 3 x 128), {LIDAR_POINTS} points of 5 features ({LIDAR_PAD} padding, "
+        f"{int(valid.sum()) - n_in} valid ones outside the grid), random weights (seed {SEED}), fp32")
+
+    def make_obj(dtype=torch.float32):
+        torch.manual_seed(SEED)
+        return ObjDGCNN(dtype=dtype)
+
+    times["obj_dgcnn"] = check_module_on_card(torch, "ObjDGCNN", make_obj, [points, valid],
+                                              lambda m, x: m(x[0], x[1]), card)
+    obj = make_obj().cuda().eval()
+    with torch.no_grad():
+        canvas = obj.pts_voxel_encoder(points.cuda(), valid.cuda())
+        bev = obj.pts_neck(obj.pts_backbone(canvas)).permute(0, 2, 3, 1).contiguous().cpu()
+    occupied = int((canvas.abs().sum(1) > 0).sum())
+    log(f"  the BEV canvas: {occupied} of {128 * 128} pillars occupied; the neck's map {tuple(bev.shape)}")
+    assert 0 < occupied < 128 * 128 and torch.isfinite(bev).all()
+    del obj, canvas
+
+    for attn_kind, decoder_kind in (("deformable", "inline"), ("dense", "deformable_detr")):
+        label = f"DGCNN3DHead(attn_kind={attn_kind}, decoder_kind={decoder_kind})"
+        log(f"phase 15: {label} on that BEV map (embed 128, 300 queries, 3 layers, 8 heads, 4 points), fp32")
+
+        def make_head(dtype=torch.float32, a=attn_kind, d=decoder_kind):
+            torch.manual_seed(SEED + 1)
+            return DGCNN3DHead(in_channels=bev.shape[-1], embed_dim=128, num_layers=3, attn_kind=a,
+                               decoder_kind=d, dtype=dtype)
+
+        times[f"dgcnn_{attn_kind}_{decoder_kind}"] = check_module_on_card(
+            torch, label, make_head, [bev], lambda m, x: m(x[0]), card)
+
+    after = kernel_counts(ca, dcn, conv, c8)
+    assert after == before, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    times["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 15: no kernel launched (every counter unchanged); {times['phase_s']:.1f} s [{card}]")
+    return times
 
 
 def training_phase(torch, fn, *args):
@@ -5040,7 +5314,7 @@ def main() -> int:
 
     stamp(14)
     if 14 in phases:
-        tools = training_phase(torch, check_tools, torch, ca, c8, card)
+        tools = training_phase(torch, check_tools, torch, ca, c8, card, 10 in phases)
         per = tools["launches_per_iter"]
         if 3 in phases:
             k1["launches_benchmark"], k1["launches_benchmark_train"] = per["inference"]["K1"], per["train"]["K1"]
@@ -5049,6 +5323,10 @@ def main() -> int:
             k1["tools"] = tools
         if 13 in phases:
             k6["launches_benchmark_int8"], k6_quant["launches_benchmark_int8"] = per["int8"]["K6"], per["int8"]["K6 quant"]
+
+    stamp(15)
+    if 15 in phases:
+        training_phase(torch, check_last_modules, torch, ca, dcn, conv, c8, card)
     stamp(None)
 
     seconds = {n: round(stamps[i + 1][1] - t, 1) for i, (n, t) in enumerate(stamps[:-1])}

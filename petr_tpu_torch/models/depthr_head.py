@@ -35,6 +35,7 @@ from petr_tpu_torch.models.depth_encoder import DepthGTEncoder, bin_depth_indice
 from petr_tpu_torch.models.layers import FFN, LayerNorm, MultiheadAttention, dropout
 from petr_tpu_torch.models.petr_head import PETRHead
 from petr_tpu_torch.models.transformer import LayerSeeds, layer_noise
+from petr_tpu_torch.parallel.sharded_attention import KeyShard
 
 
 class DepthrDecoderLayer(nn.Module):
@@ -65,6 +66,7 @@ class DepthrDecoderLayer(nn.Module):
         key_padding_mask: Optional[torch.Tensor],  # (B, L) True = pad
         seeds: Optional[LayerSeeds],
         depth: torch.Tensor,  # (B, L, C) depth tokens
+        key_shard: Optional[KeyShard] = None,  # memory and depth are this rank's slice of the keys
     ) -> torch.Tensor:
         rate, _, gen = layer_noise(self, seeds, query.device)
 
@@ -75,11 +77,11 @@ class DepthrDecoderLayer(nn.Module):
         query = residual(0, query, self.attentions[0](q_in, q_in, query, generator=gen))
         # the depth tokens are the keys, the values and the keys' PE
         da = self.attentions[1](query + query_pos, depth + depth, depth,
-                                key_padding_mask=key_padding_mask, generator=gen)
+                                key_padding_mask=key_padding_mask, generator=gen, key_shard=key_shard)
         query = residual(1, query, da)
         kv = memory if self.attend_memory else depth
         ca = self.attentions[2](query + query_pos, kv + key_pos, kv,
-                                key_padding_mask=key_padding_mask, generator=gen)
+                                key_padding_mask=key_padding_mask, generator=gen, key_shard=key_shard)
         query = residual(2, query, ca)
         return self.norms[3](query + self.ffns[0](query, generator=gen))
 

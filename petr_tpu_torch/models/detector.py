@@ -27,7 +27,7 @@ bottlenecks, decoder layers) then recompute from their arguments alone.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -36,7 +36,7 @@ from petr_tpu_torch.configs.config import ModelConfig
 from petr_tpu_torch.models.fpn import CPFPN
 from petr_tpu_torch.models.depth_encoder import DepthGTEncoder, GroupNorm
 from petr_tpu_torch.models.depthr_head import DepthrHead
-from petr_tpu_torch.models.grid_mask import GridParams, draw_grid_params, grid_mask
+from petr_tpu_torch.models.grid_mask import FloatGridParams, GridParams, draw_grid_params, grid_mask
 from petr_tpu_torch.models.layers import (
     AttentionProjections,
     Conv2d,
@@ -57,17 +57,18 @@ from petr_tpu_torch.models.vovnet import SPECS, VoVNet
 class TrainNoise:
     """The randomness of one training forward."""
 
-    grid: Optional[GridParams]  # None: no GridMask
+    grid: Optional[Union[GridParams, FloatGridParams]]  # None: no GridMask
     layer_seeds: Tuple[LayerSeeds, ...]  # (flash seed, dropout seed) per decoder layer
 
 
-def draw_train_noise(config: ModelConfig, image_h: int, generator: torch.Generator) -> TrainNoise:
+def draw_train_noise(config: ModelConfig, image_h: int, generator: torch.Generator, batch: int = 1) -> TrainNoise:
     """Draw a training forward's randomness from ``generator`` (a CPU
     generator: nothing here touches the device). The flash seeds are int32
-    in [0, 2^31 - 1), as petr_tpu draws them."""
+    in [0, 2^31 - 1), as petr_tpu draws them. ``batch``: the global batch,
+    whose per-sample GridMask draws ``grid_mask_exact=False`` takes."""
     grid = None
     if config.use_grid_mask:
-        grid = draw_grid_params(generator, image_h, exact=config.grid_mask_exact)
+        grid = draw_grid_params(generator, image_h, exact=config.grid_mask_exact, batch=batch)
     n = config.head.num_layers
     flash = torch.randint(0, 2**31 - 1, (n,), generator=generator).tolist()
     other = torch.randint(0, 2**62, (n,), generator=generator).tolist()
@@ -78,15 +79,6 @@ def _remat_scope(cfg: ModelConfig) -> str:
     if cfg.remat_scope not in ("all", "backbone", "decoder"):
         raise ValueError(f"remat_scope must be all|backbone|decoder, got {cfg.remat_scope!r}")
     return cfg.remat_scope
-
-
-def _unsupported(cfg: ModelConfig) -> str:
-    """The ROADMAP.md item that ports what ``cfg`` needs, or '' if supported."""
-    if cfg.use_grid_mask and not cfg.grid_mask_exact:
-        return "GridMask's grid_mask_exact=False: ROADMAP.md §1, item 11"
-    if cfg.backbone.bn_mode not in ("frozen", "batch"):
-        raise ValueError(f"bn_mode must be frozen|batch, got {cfg.backbone.bn_mode!r}")
-    return ""
 
 
 def _backbone(cfg: ModelConfig) -> Tuple[nn.Module, Tuple[int, ...]]:
@@ -108,9 +100,8 @@ def _backbone(cfg: ModelConfig) -> Tuple[nn.Module, Tuple[int, ...]]:
 class PETRDetector(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
-        reason = _unsupported(config)
-        if reason:
-            raise NotImplementedError(f"not ported yet: {reason}")
+        if config.backbone.bn_mode not in ("frozen", "batch"):
+            raise ValueError(f"bn_mode must be frozen|batch, got {config.backbone.bn_mode!r}")
         self.config = config
         self.dtype = getattr(torch, config.compute_dtype)
         bb, hc = config.backbone, config.head

@@ -27,8 +27,8 @@ Conventions:
   * under a mesh in context (``parallel.mesh.use_mesh``) a rank computes
     its share of petr_tpu's global-batch step: dropout draws the global
     batch's mask and keeps this rank's rows, batch-moments BN combines its
-    moments over the data group, and the cross-attention runs on this
-    rank's slice of the keys (``key_shard``).
+    moments over the data group, and the cross-attentions run on this
+    rank's slice of the keys (``key_shard``), on either branch.
 """
 
 from __future__ import annotations
@@ -48,7 +48,8 @@ from petr_tpu_torch.ops.conv3x3 import conv3x3_bn_relu, conv_impl
 from petr_tpu_torch.ops.conv_int8 import conv_int8_bn_act_tiled, conv_plan, fold_bn, prepare_operands, tile_weight
 from petr_tpu_torch.ops.cross_attention import flash_cross_attention
 from petr_tpu_torch.parallel.mesh import current_mesh, data_mean, data_parallel
-from petr_tpu_torch.parallel.sharded_attention import flash_partial_attention, project_shard
+from petr_tpu_torch.parallel.sharded_attention import (KeyShard, flash_partial_attention, partial_softmax_attention,
+                                                      project_shard)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -73,6 +74,33 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: Optional[int] = None) -> torch.Tensor:
+    """flax's default kernel init (``lecun_normal``): a normal of variance
+    1 / fan_in truncated at 2 std, its std corrected for the truncation."""
+    fan_in = weight[0].numel() if fan_in is None else fan_in
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+def dense(in_features: int, out_features: int, bias: bool = True, kernel: str = "lecun") -> Linear:
+    """A ``Linear`` drawn as a flax ``nn.Dense``: the kernel by ``kernel``
+    ("lecun", flax's default; "xavier", uniform; "zeros"), the bias 0."""
+    layer = Linear(in_features, out_features, bias=bias)
+    with torch.no_grad():
+        if kernel == "lecun":
+            lecun_normal_(layer.weight)
+        elif kernel == "xavier":
+            nn.init.xavier_uniform_(layer.weight)
+        elif kernel == "zeros":
+            layer.weight.zero_()
+        else:
+            raise ValueError(f"kernel must be lecun|xavier|zeros, got {kernel!r}")
+        if bias:
+            layer.bias.zero_()
+    return layer
 
 
 class Conv2d(nn.Conv2d):
@@ -427,13 +455,17 @@ class MultiheadAttention(nn.Module):
     softmax, and dropout of the probabilities drawn from ``generator``.
     Dropout acts in train mode only.
 
-    ``key_shard`` (the first global key of ``key`` and ``value``) says they
-    are this rank's slice of the keys under token sharding: the attention
-    then runs through ``flash_partial_attention`` (K3 on the shard, the lse
-    combine over the model group), and the k/v projections' parameters take
-    their gradient summed over the group. Under a mesh the flash hash takes
-    this rank's first global batch row and key, so each rank drops by its
-    slice of the global mask.
+    ``key_shard`` (a ``KeyShard``: the first global key of ``key`` and
+    ``value``, and the global key count) says they are this rank's slice of
+    the keys under token sharding: the attention then runs through
+    ``flash_partial_attention`` (K3 on the shard, the lse combine over the
+    model group), or on the plain branch through
+    ``partial_softmax_attention`` (the shared max, the sums combined), and
+    the k/v projections' parameters take their gradient summed over the
+    group. Under a mesh each rank drops by its slice of the global mask:
+    the flash hash takes this rank's first global batch row and key, the
+    plain branch draws the global mask from ``generator`` and keeps its
+    slice.
     """
 
     def __init__(self, embed_dim: int, num_heads: int, use_flash: bool = False,
@@ -453,7 +485,7 @@ class MultiheadAttention(nn.Module):
         key_padding_mask: Optional[torch.Tensor] = None,  # (B, L) True = pad
         flash_seed: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
-        key_shard: Optional[int] = None,
+        key_shard: Optional[KeyShard] = None,
     ) -> torch.Tensor:
         C, H = self.embed_dim, self.num_heads
         rate = self.dropout_rate if self.training else 0.0
@@ -466,8 +498,6 @@ class MultiheadAttention(nn.Module):
             k = F.linear(key, w[C:2 * C], b[C:2 * C])
             v = F.linear(value, w[2 * C:], b[2 * C:])
         else:
-            if not self.use_flash:
-                raise NotImplementedError("token-sharded attention runs the flash route only (use_flash=True)")
             pw, pb = self.attn.in_proj_weight, self.attn.in_proj_bias
             k = project_shard(key, pw[C:2 * C], pb[C:2 * C], mesh)
             v = project_shard(value, pw[2 * C:], pb[2 * C:], mesh)
@@ -480,7 +510,7 @@ class MultiheadAttention(nn.Module):
             if rate > 0.0 and flash_seed is None:
                 raise ValueError("flash attention dropout in train mode needs a flash_seed")
             seed = flash_seed if rate > 0.0 else None
-            offsets = (0 if mesh is None else mesh.batch_rows(B)[1], key_shard or 0)
+            offsets = (0 if mesh is None else mesh.batch_rows(B)[1], 0 if key_shard is None else key_shard.start)
             if key_shard is None:
                 out, _ = flash_cross_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), key_padding_mask,
@@ -492,6 +522,11 @@ class MultiheadAttention(nn.Module):
                     rate, seed, offsets,
                 )
             out = out.transpose(1, 2)
+        elif key_shard is not None:
+            out = partial_softmax_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), key_padding_mask, mesh,
+                rate, generator, key_shard,
+            ).transpose(1, 2)
         else:
             scale = 1.0 / math.sqrt(D)
             logits = torch.einsum("bqhd,blhd->bhql", q, k).float() * scale
@@ -504,3 +539,25 @@ class MultiheadAttention(nn.Module):
                 attn = dropout(attn, rate, generator)
             out = torch.einsum("bhql,blhd->bqhd", attn.to(q.dtype), v)
         return self.attn.out_proj(out.reshape(B, Q, C))
+
+
+def xavier_attention(embed_dim: int, num_heads: int, dropout_rate: float = 0.0) -> MultiheadAttention:
+    """A plain-branch ``MultiheadAttention`` drawn as petr_tpu's
+    (`layers.py:320-330,365-368`): in_proj packed-Xavier, its bias 0, out_proj
+    Xavier-uniform with a zero bias."""
+    attn = MultiheadAttention(embed_dim, num_heads, dropout_rate=dropout_rate)
+    with torch.no_grad():
+        nn.init.xavier_uniform_(attn.attn.out_proj.weight)
+        attn.attn.out_proj.bias.zero_()
+    return attn
+
+
+def xavier_ffn(embed_dim: int, hidden_dim: int, dropout_rate: float = 0.0) -> FFN:
+    """An ``FFN`` drawn as petr_tpu's with ``torch_bias=True`` (the
+    per-parameter Xavier pass of DETR3D's and deformable DETR's decoders):
+    Xavier-uniform weights, torch's default biases."""
+    ffn = FFN(embed_dim, hidden_dim, dropout_rate)
+    with torch.no_grad():
+        nn.init.xavier_uniform_(ffn.layers[0][0].weight)
+        nn.init.xavier_uniform_(ffn.layers[1].weight)
+    return ffn

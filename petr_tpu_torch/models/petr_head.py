@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from petr_tpu_torch.models.layers import MLP, LayerNorm, Linear, PointwiseConv2d
@@ -43,16 +44,41 @@ class PositionEncoder(MLP):
         super().__init__(in_channels, (embed_dim * 4, embed_dim), pointwise=True)
 
 
+class NormedLinear(Linear):
+    """mmdet's NormedLinear (petr_tpu `petr_head.py:56-81`), a cosine-style
+    classifier: each output's weight row divided by its norm^power + eps,
+    the features by theirs, (xn * tempearture) @ w + bias, all in fp32, the
+    result in the input's dtype. The attribute keeps mmdet's spelling."""
+
+    def __init__(self, in_features: int, out_features: int, tempearture: float = 20.0,
+                 power: float = 1.0, eps: float = 1e-6):
+        super().__init__(in_features, out_features)
+        self.tempearture = tempearture
+        self.power = power
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight / (self.weight.norm(dim=1, keepdim=True) ** self.power + self.eps)
+        xf = x.float()
+        xn = xf / (xf.norm(dim=-1, keepdim=True) ** self.power + self.eps)
+        return F.linear(xn * self.tempearture, w, self.bias).to(x.dtype)
+
+
 class ClsBranch(nn.Sequential):
     """(Linear+LN+ReLU) x num_reg_fcs + Linear(num_classes); children indexed
-    as the reference's nn.Sequential (0, 1, 3, 4, 6 for two fcs)."""
+    as the reference's nn.Sequential (0, 1, 3, 4, 6 for two fcs). The last
+    bias starts at the focal prior. ``normed`` makes the last layer a
+    ``NormedLinear`` (the reference's ``normedlinear``), its bias at the
+    focal prior too (`petr_head.py:282-284`)."""
 
-    def __init__(self, embed_dim: int, num_reg_fcs: int, out: int):
+    def __init__(self, embed_dim: int, num_reg_fcs: int, out: int, normed: bool = False):
         layers = []
         for _ in range(num_reg_fcs):
             layers += [Linear(embed_dim, embed_dim), LayerNorm(embed_dim), nn.ReLU()]
-        layers.append(Linear(embed_dim, out))
+        layers.append((NormedLinear if normed else Linear)(embed_dim, out))
         super().__init__(*layers)
+        with torch.no_grad():
+            self[-1].bias.fill_(FOCAL_PRIOR_BIAS)
 
 
 class RegBranch(nn.Sequential):

@@ -17,11 +17,12 @@ that draws the others in a fixed order. With ``remat`` each layer is a
 and its recompute draws the same masks again from the same seeds.
 
 Under token sharding (a mesh in context with a model axis above 1) the
-transformer cuts the N*H*W memory tokens, their positional embeddings and
-their padding mask to this rank's contiguous slice (`petr_tpu/models/
-transformer.py:209-215`), a short last shard padded and masked, and each
-layer's cross-attention attends over that slice (``key_shard``); the
-queries stay replicated.
+transformer cuts the N*H*W memory tokens, their positional embeddings,
+their padding mask and any depth tokens to this rank's contiguous slice
+(`petr_tpu/models/transformer.py:209-215`), a short last shard padded and
+masked, and each layer's cross-attentions attend over that slice
+(``key_shard``), on the flash or the plain branch, in PETR's layers and in
+custom ones (Depthr's); the queries stay replicated.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from petr_tpu_torch.models.layers import FFN, LayerNorm, MultiheadAttention, dropout
 from petr_tpu_torch.parallel.mesh import token_parallel
-from petr_tpu_torch.parallel.sharded_attention import scatter_mask_to_model, scatter_to_model
+from petr_tpu_torch.parallel.sharded_attention import KeyShard, scatter_mask_to_model, scatter_to_model
 
 # (flash seed, dropout seed) of one decoder layer's training forward
 LayerSeeds = Tuple[int, int]
@@ -77,7 +78,7 @@ class PETRDecoderLayer(nn.Module):
         key_pos: torch.Tensor,  # (B, L, C)
         key_padding_mask: Optional[torch.Tensor],  # (B, L) True = pad
         seeds: Optional[LayerSeeds] = None,
-        key_shard: Optional[int] = None,  # memory is this rank's keys from this global key on
+        key_shard: Optional[KeyShard] = None,  # memory is this rank's slice of the keys
     ) -> torch.Tensor:
         rate, flash_seed, gen = layer_noise(self, seeds, query.device)
         q_in = query + query_pos
@@ -114,7 +115,7 @@ class PETRTransformerDecoder(nn.Module):
 
     def forward(self, query, memory, query_pos, key_pos, key_padding_mask=None,
                 layer_seeds: Optional[Sequence[LayerSeeds]] = None, depth: Optional[torch.Tensor] = None,
-                key_shard: Optional[int] = None):
+                key_shard: Optional[KeyShard] = None):
         remat = self.remat and self.training and torch.is_grad_enabled()
         outs = []
         kwargs = {} if key_shard is None else {"key_shard": key_shard}
@@ -141,7 +142,6 @@ class PETRTransformer(nn.Module):
                  remat: bool = False, make_layer: Optional[Callable[[], nn.Module]] = None):
         super().__init__()
         self.dtype = dtype
-        self.custom_layers = make_layer is not None
         self.decoder = PETRTransformerDecoder(
             num_layers, embed_dim, num_heads, ffn_dim, use_flash, dropout_rate, remat, make_layer
         )
@@ -166,10 +166,11 @@ class PETRTransformer(nn.Module):
             depth = depth.reshape(B, N * H * W, C).to(self.dtype)
         mesh, key_shard = token_parallel(), None
         if mesh is not None:
-            if self.custom_layers:
-                raise NotImplementedError("token sharding runs PETRDecoderLayer only")
             L = N * H * W
-            memory, key_shard = scatter_to_model(memory, mesh)
+            memory, start = scatter_to_model(memory, mesh)
+            key_shard = KeyShard(start, L)
             key_pos, _ = scatter_to_model(key_pos, mesh)
+            if depth is not None:
+                depth, _ = scatter_to_model(depth, mesh)
             key_padding_mask = scatter_mask_to_model(key_padding_mask, L, mesh, B, feats.device)
         return self.decoder(target, memory, query_pos, key_pos, key_padding_mask, layer_seeds, depth, key_shard)

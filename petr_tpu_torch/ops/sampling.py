@@ -32,6 +32,18 @@ def sum_into_rows_sorted(out: torch.Tensor, idx: torch.Tensor, grad: torch.Tenso
     return out
 
 
+def sum_rows(vals: torch.Tensor, idx: torch.Tensor, rows: int) -> torch.Tensor:
+    """vals (B, P, C) summed into ``rows`` rows by idx (B, P) -> (B, rows, C),
+    differentiably and in a fixed order: on CUDA ``sum_into_rows_sorted``
+    (no atomics), on the CPU ``scatter_add``, which sums serially in the
+    points' order."""
+    B, P, C = vals.shape
+    out = vals.new_zeros(B, rows, C)
+    if vals.device.type == "cuda":
+        return sum_into_rows_sorted(out, idx, vals)
+    return out.scatter_add(1, idx[..., None].expand(B, P, C), vals)
+
+
 class _GatherRows(torch.autograd.Function):
     """flat (B, R, C), idx (B, P) -> flat[b, idx[b, p]] as (B, P, C).
 
@@ -103,10 +115,10 @@ def bilinear_sample(feat: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return bilinear_sample_batched(feat[None], xy[None])[0]
 
 
-def grid_sample_normalized(feat: torch.Tensor, grid: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
-    """torch-style grid_sample with coords in [-1, 1]: feat (H, W, C), grid
-    (..., 2) normalized (x, y)."""
-    H, W, _ = feat.shape
+def grid_sample_normalized_batched(feat: torch.Tensor, grid: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
+    """torch-style grid_sample with coords in [-1, 1]: feat (B, H, W, C),
+    grid (B, ..., 2) normalized (x, y) -> (B, ..., C)."""
+    H, W = feat.shape[1:3]
     gx = grid[..., 0]
     gy = grid[..., 1]
     if align_corners:
@@ -115,4 +127,10 @@ def grid_sample_normalized(feat: torch.Tensor, grid: torch.Tensor, align_corners
     else:
         x = ((gx + 1.0) * W - 1.0) * 0.5
         y = ((gy + 1.0) * H - 1.0) * 0.5
-    return bilinear_sample(feat, torch.stack([x, y], dim=-1))
+    return bilinear_sample_batched(feat, torch.stack([x, y], dim=-1))
+
+
+def grid_sample_normalized(feat: torch.Tensor, grid: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
+    """torch-style grid_sample with coords in [-1, 1]: feat (H, W, C), grid
+    (..., 2) normalized (x, y)."""
+    return grid_sample_normalized_batched(feat[None], grid[None], align_corners)[0]

@@ -4,7 +4,8 @@ Counterpart of `petr_tpu/parallel/sharded_attention.py`: K/V tokens are split
 over the model group, the queries are replicated, each rank attends over its
 own keys, and the partials combine exactly with one all-reduce pair.
 ``partial_softmax_attention`` is the plain form (a shared max, then the
-denominator and numerator summed); ``flash_partial_attention`` runs K3
+denominator and numerator summed; dropout from the global mask's slice);
+``flash_partial_attention`` runs K3
 (``flash_cross_attention_with_lse``: the flash kernels with the lse
 differentiable) on each shard and combines the shards by their lse
 (`sharded_attention.py:76-104`). On the CPU K3 is its plain version through
@@ -30,7 +31,7 @@ share one card.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -132,16 +133,45 @@ def _max_over_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return out
 
 
+class KeyShard(NamedTuple):
+    """This rank's slice of the decoder's keys under token sharding."""
+
+    start: int  # its first global key
+    total: int  # the global key count
+
+
+def shard_keep_mask(shape: Tuple[int, int, int, int], rate: float, generator: torch.Generator, mesh: Mesh,
+                    key_shard: KeyShard, device) -> torch.Tensor:
+    """This rank's slice (B, H, Q, Ls) of the plain attention's dropout keep
+    mask: the mask of the global batch and all the keys drawn as the
+    unsharded attention draws it (``models.layers.dropout``), this rank's
+    rows and keys kept, a padded tail of keys dropped."""
+    B, H, Q, Ls = shape
+    Bg, b0 = mesh.batch_rows(B) if mesh.data > 1 else (B, 0)
+    start, stop = key_shard.start, min(key_shard.start + Ls, key_shard.total)
+    u = torch.rand((Bg, H, Q, key_shard.total), generator=generator, device=device)
+    keep = torch.zeros(shape, dtype=torch.bool, device=device)
+    keep[..., :stop - start] = u[b0:b0 + B, ..., start:stop] >= rate
+    return keep
+
+
 def partial_softmax_attention(
     q: torch.Tensor,  # (B, H, Q, D) replicated
     k_shard: torch.Tensor,  # (B, H, Ls, D) this rank's keys
     v_shard: torch.Tensor,  # (B, H, Ls, D)
     mask_shard: Optional[torch.Tensor],  # (B, Ls) True = pad
     mesh: Mesh,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    key_shard: Optional[KeyShard] = None,
 ) -> torch.Tensor:
     """Exact masked softmax attention with K/V split over the model group:
     fp32 logits, a shared (detached) max, the denominator and numerator
-    summed over the group (`sharded_attention.py:25-48`)."""
+    summed over the group (`sharded_attention.py:25-48`). With dropout the
+    numerator takes the probabilities dropped by this rank's slice of the
+    global keep mask (``shard_keep_mask``, from ``generator``; ``key_shard``
+    places the slice) and the denominator the undropped ones, so the
+    combine is the unsharded plain attention's dropout of its softmax."""
     D = q.shape[-1]
     q = to_model_region(q, mesh)
     s = torch.einsum("bhqd,bhld->bhql", q.float(), k_shard.float()) * (1.0 / math.sqrt(D))
@@ -149,7 +179,13 @@ def partial_softmax_attention(
         s = s.masked_fill(mask_shard[:, None, None, :].to(torch.bool), NEG)
     m = _max_over_model(s.amax(-1, keepdim=True), mesh)
     p = torch.exp(s - m)
-    local = torch.cat([torch.einsum("bhql,bhld->bhqd", p, v_shard.float()), p.sum(-1, keepdim=True)], -1)
+    pv = p
+    if dropout_rate > 0.0:
+        if generator is None or key_shard is None:
+            raise ValueError("sharded plain attention with dropout needs its generator and key_shard")
+        keep = shard_keep_mask(tuple(p.shape), dropout_rate, generator, mesh, key_shard, p.device)
+        pv = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+    local = torch.cat([torch.einsum("bhql,bhld->bhqd", pv, v_shard.float()), p.sum(-1, keepdim=True)], -1)
     both = reduce_from_model(local, mesh)
     num, denom = both[..., :D], both[..., D:]
     return (num / denom.clamp(min=1e-20)).to(q.dtype)

@@ -96,7 +96,8 @@ def main(argv=None):
             print("loss components:", {k: float(v) for k, v in losses.items()}, flush=True)
             # 2. forward dissection (training mode: dropout and GridMask as the step drew them)
             b = _to_device(batch, batch_keys(cfg), device)
-            noise = draw_train_noise(cfg.model, b["images"].shape[2], step_generator(seed + 1, pre_step))
+            noise = draw_train_noise(cfg.model, b["images"].shape[2], step_generator(seed + 1, pre_step),
+                                     b["images"].shape[0])
             oracle = {}
             if cfg.model.head.kind == "depthr":
                 oracle = dict(gt_boxes=b["gt_boxes"], gt_valid=b["gt_valid"], lidar2img=b["lidar2img"])

@@ -177,7 +177,9 @@ def make_grad_fn(cfg: ExperimentConfig, mesh: Optional[Mesh] = None):
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Grads, np.ndarray, BNStats]:
         device = next(model.parameters()).device
         b = _to_device(batch, keys, device)
-        noise = draw_train_noise(cfg.model, b["images"].shape[2], generator)
+        B = b["images"].shape[0]
+        noise = draw_train_noise(cfg.model, b["images"].shape[2], generator,
+                                 B if mesh is None else mesh.batch_rows(B)[0])
         with use_mesh(mesh):
             outputs, bn_stats = _forward_collecting(model, b, noise)
             total, losses, indices = petr_set_loss(

@@ -33,6 +33,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from petr_tpu_torch.models.dgcnn import ConvTranspose2d
+from petr_tpu_torch.models.layers import FFN, MultiheadAttention
+from petr_tpu_torch.models.petr_head import ClsBranch, RegBranch
+
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 _LN = {"scale": "weight", "bias": "bias"}
 _CLS_INDEX = {"fc0": 0, "ln0": 1, "fc1": 3, "ln1": 4, "out": 6}
@@ -203,17 +207,98 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
+def _leaves(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """Dotted leaf paths of a param tree, as they are."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_leaves(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v, dtype=np.float32)
+    return out
+
+
+def _child(module: nn.Module, name: str) -> Tuple[nn.Module, str]:
+    """The port submodule of ``module`` that petr_tpu's submodule ``name``
+    is, and its path: the same name, except inside the port's
+    ``MultiheadAttention`` (``out_proj`` -> ``attn.out_proj``), ``FFN``
+    (``fc1``/``fc2`` -> ``layers.0.0``/``layers.1``) and the cls/reg
+    branches (``fc{i}``, ``ln{i}``, ``out`` -> the nn.Sequential's index)."""
+    path = name
+    if isinstance(module, MultiheadAttention) and name == "out_proj":
+        path = "attn.out_proj"
+    elif isinstance(module, FFN):
+        path = {"fc1": "layers.0.0", "fc2": "layers.1"}.get(name, name)
+    elif isinstance(module, (ClsBranch, RegBranch)):
+        per_fc = 3 if isinstance(module, ClsBranch) else 2
+        m = re.fullmatch(r"(fc|ln)(\d+)", name)
+        if m:
+            path = str(per_fc * int(m.group(2)) + (m.group(1) == "ln"))
+        elif name == "out":
+            path = str(len(module) - 1)
+    try:
+        return module.get_submodule(path), path
+    except AttributeError:
+        raise KeyError(f"{type(module).__name__} has no submodule for petr_tpu's {name!r}") from None
+
+
+def _module_state_dict(params: Mapping[str, Any], model: nn.Module) -> Dict[str, np.ndarray]:
+    """A param tree of one of petr_tpu's standalone modules (the DETR3D and
+    Object-DGCNN families, ``MSDeformableAttention``,
+    ``LearnedPositionalEncoding3D``, ``ClsBranch``) -> the ``state_dict`` of
+    its port ``model``, whose submodules carry petr_tpu's names. Each leaf
+    is placed by walking ``model`` along its path (``_child``): Dense
+    kernels (in, out) -> (out, in); conv kernels HWIO -> OIHW; a
+    ``ConvTranspose`` kernel (kh, kw, in, out) -> (in, out, kh, kw) flipped
+    in space (flax's does not flip it, torch's does); LayerNorm ``scale`` ->
+    ``weight``; a raw param keeps its name; q/k/v projections packed into
+    ``attn.in_proj_weight`` / ``attn.in_proj_bias``."""
+    sd: Dict[str, np.ndarray] = {}
+    qkv: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, val in _leaves(params).items():
+        *names, leaf = key.split(".")
+        module, path = model, []
+        for i, name in enumerate(names):
+            if isinstance(module, MultiheadAttention) and name in ("q_proj", "k_proj", "v_proj") and i == len(names) - 1:
+                qkv.setdefault(".".join(path), {})[f"{name[0]}.{leaf}"] = val
+                break
+            module, sub = _child(module, name)
+            path.append(sub)
+        else:
+            if leaf == "kernel":
+                if isinstance(module, ConvTranspose2d):
+                    val = np.transpose(val[::-1, ::-1], (2, 3, 0, 1))
+                else:
+                    val = _conv(val) if val.ndim == 4 else _lin(val)
+                leaf = "weight"
+            elif leaf == "scale":
+                leaf = "weight"
+            sd[".".join(path + [leaf])] = val
+    for pre, parts in qkv.items():
+        missing = [f"{w}.{leaf}" for leaf in ("kernel", "bias") for w in "qkv" if f"{w}.{leaf}" not in parts]
+        if missing:
+            raise KeyError(f"{pre}: missing {missing}")
+        pre = f"{pre}." if pre else ""
+        sd[pre + "attn.in_proj_weight"] = np.concatenate([_lin(parts[f"{w}.kernel"]) for w in "qkv"], 0)
+        sd[pre + "attn.in_proj_bias"] = np.concatenate([parts[f"{w}.bias"] for w in "qkv"], 0)
+    return sd
+
+
 def state_dict_from_jax(
     params: Mapping[str, Any],
     reference: Optional[Union[nn.Module, Mapping[str, torch.Tensor]]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Turn a petr_tpu ``PETRDetector`` param tree (``backbone``/``neck``/
-    ``head`` subtrees, any subset) into the port's ``state_dict``.
+    ``head`` subtrees, any subset) into the port's ``state_dict``; or, with
+    a port module as ``reference`` and a tree of anything else, the tree of
+    the petr_tpu module it ports (``_module_state_dict``).
 
     Raises on a leaf no rule maps. With ``reference`` (a port module or its
     ``state_dict``), also raises on a key of the reference that nothing
     filled, on a key the reference lacks, and on a shape that differs.
     """
+    if isinstance(reference, nn.Module) and not set(params) <= {"backbone", "neck", "head"}:
+        return _checked(_module_state_dict(params, reference), reference)
     flat = _flatten(params)
     sd: Dict[str, np.ndarray] = {}
     qkv: Dict[Tuple[str, str], Dict[str, np.ndarray]] = {}
@@ -264,6 +349,10 @@ def state_dict_from_jax(
         for lvl in sorted(layers):
             sd["pts_bbox_head." + template.format(lvl)] = val
 
+    return _checked(sd, reference)
+
+
+def _checked(sd: Dict[str, np.ndarray], reference) -> Dict[str, torch.Tensor]:
     out = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
     if reference is not None:
         ref = reference.state_dict() if isinstance(reference, nn.Module) else reference

@@ -49,7 +49,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "petr_tpu_torch.utils.publish, petr_tpu_torch.utils.torch_convert, petr_tpu_torch.data.native, "
         "petr_tpu_torch.cli.benchmark, petr_tpu_torch.cli.flops, petr_tpu_torch.cli.convert, "
         "petr_tpu_torch.cli.publish, petr_tpu_torch.cli.print_config, petr_tpu_torch.cli.create_data, "
-        "petr_tpu_torch.cli.analyze_logs, petr_tpu_torch.cli.browse_dataset, petr_tpu_torch.cli.visualize\n"
+        "petr_tpu_torch.cli.analyze_logs, petr_tpu_torch.cli.browse_dataset, petr_tpu_torch.cli.visualize, "
+        "petr_tpu_torch.ops.iou3d, petr_tpu_torch.ops.deformable, petr_tpu_torch.models.detr3d, "
+        "petr_tpu_torch.models.dgcnn, petr_tpu_torch.models.positional\n"
         "from petr_tpu_torch.data import native\n"
         "assert not native._TRIED, 'the native loader was looked for on import'\n"
         "from petr_tpu_torch.ops import build\n"

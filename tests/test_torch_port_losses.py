@@ -29,7 +29,8 @@ from petr_tpu.train.optim import build_optimizer as jax_build_optimizer
 from petr_tpu.train.optim import make_lr_schedule as jax_schedule
 from petr_tpu_torch.configs import get_config
 from petr_tpu_torch.configs.config import OptimConfig
-from petr_tpu_torch.models.grid_mask import GridParams, draw_grid_params, exact_mask, grid_mask
+from petr_tpu_torch.models.grid_mask import (FloatGridParams, GridParams, draw_grid_params, exact_mask,
+                                             float_masks, grid_mask)
 from petr_tpu_torch.models.layers import FrozenBatchNorm, Linear
 from petr_tpu_torch.ops import losses as tl
 from petr_tpu_torch.ops.matcher import hungarian_match, lap_solve
@@ -202,8 +203,16 @@ def test_grid_mask_draws_and_applies_one_mask():
     mask = exact_mask(32, 80, 9, 4, 2)
     assert torch.equal(out, images * mask[None, None, :, :, None])
     assert torch.equal(grid_mask(images, GridParams(False, 9, 4, 2)), images)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        draw_grid_params(gen, 32, exact=False)
+    # the float mode: one gate, period, band, offset pair and angle per sample, from the same generator
+    fp = draw_grid_params(gen, 32, exact=False, batch=300)
+    assert (fp.d >= 2.0).all() and (fp.d < 32).all() and (fp.off >= 0).all() and (fp.off < fp.d[:, None]).all()
+    assert torch.equal(fp.keep, torch.clamp(torch.minimum(torch.round(fp.d * 0.5), fp.d - 1.0), min=1.0))
+    assert (fp.ang == 0.0).all() and 0.6 < fp.apply.float().mean() < 0.8  # Bernoulli(0.7)
+    out = grid_mask(images, FloatGridParams(torch.tensor([True, False]), fp.d[:2], fp.keep[:2], fp.off[:2],
+                                            fp.ang[:2]))
+    mask = float_masks(32, 80, fp.d[:1], fp.keep[:1], fp.off[:1], fp.ang[:1])[0]
+    assert torch.equal(out[1], images[1]) and torch.equal(out[0], images[0] * mask[None, :, :, None])
+    assert 0.0 < mask.mean() < 1.0
 
 
 # --------------------------------------------------------------- optimizer

@@ -21,15 +21,19 @@ from petr_tpu.models import CPFPN as JCPFPN
 from petr_tpu.models import PETRDetector as JDetector
 from petr_tpu.models import PETRHead as JHead
 from petr_tpu.models import VoVNet as JVoVNet
+from petr_tpu.models.grid_mask import grid_mask as jax_grid_mask
 from petr_tpu.models.layers import MultiheadAttention as JMHA
 from petr_tpu.train.train_step import make_eval_step
 from petr_tpu.utils.torch_convert import convert_state_dict
 from petr_tpu_torch.configs import get_config
-from petr_tpu_torch.models import PETRDetector, init_weights
+from petr_tpu_torch.models import PETRDetector, TrainNoise, draw_train_noise, init_weights
+from petr_tpu_torch.models.grid_mask import FloatGridParams
 from petr_tpu_torch.models.layers import FrozenBatchNorm
 from petr_tpu_torch.serve import InferenceServer, build_detector, make_serving_fn
+from petr_tpu_torch.train import create_train_state, make_train_step
 from petr_tpu_torch.utils import state_dict_from_jax
 from tests.test_heads import make_cams
+from tests.test_torch_port_misc_models import jax_float_draws
 
 KEYS = ("images", "img2lidar", "img_hw")
 
@@ -215,11 +219,9 @@ def test_tiny_debug_detector_matches(tiny, bf16_model, dtype):
 @pytest.mark.parametrize(
     "name,overrides",
     [
-        # PETRv2, unshared branches, Depthr, bn_mode="batch" and the int8 PTQ
-        # backbone are ported (tests/test_torch_port_petrv2.py,
-        # tests/test_torch_port_depthr.py, tests/test_torch_port_bn.py,
-        # tests/test_torch_port_quant.py); GridMask's grid_mask_exact=False
-        # is not, in any family or mode
+        # GridMask's grid_mask_exact=False (per-sample float masks) in every
+        # family and mode; each of these configs was refused before the
+        # float mode was ported
         ("petrv2_vov_p4_800x320", ("model.grid_mask_exact=False",)),
         ("tiny_debug_v2", ("model.use_grid_mask=True", "model.grid_mask_exact=False")),
         ("depthr_r50_c5_512x1408_gtdepth", ("model.use_grid_mask=True", "model.grid_mask_exact=False")),
@@ -228,9 +230,46 @@ def test_tiny_debug_detector_matches(tiny, bf16_model, dtype):
         ("petr_vov_p4_800x320", ("model.grid_mask_exact=False", "model.backbone.bn_mode=batch")),
     ],
 )
-def test_detector_refuses_unported_configs(name, overrides):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PETRDetector(get_config(name, overrides).model)
+def test_detector_builds_float_grid_mask_configs(name, overrides):
+    cfg = get_config(name, overrides)
+    assert cfg.model.use_grid_mask and not cfg.model.grid_mask_exact
+    model = PETRDetector(cfg.model)
+    assert model.config is cfg.model
+    noise = draw_train_noise(cfg.model, cfg.data.image_size[0], torch.Generator().manual_seed(0), batch=2)
+    assert isinstance(noise.grid, FloatGridParams) and noise.grid.d.shape == (2,)
+    assert (noise.grid.d >= 2.0).all() and (noise.grid.d < cfg.data.image_size[0]).all()
+
+
+def test_tiny_debug_float_grid_mask_train_forward_and_step(tiny):
+    """A train-mode forward masks the images the backbone sees by petr_tpu's
+    float masks for the same parameters, bit for bit; a train step runs."""
+    cfg = get_config("tiny_debug", ["model.use_grid_mask=True", "model.grid_mask_exact=False"])
+    images = tiny.batch["images"][:2]
+    B, N, H, W, _ = images.shape
+    rng = jax.random.PRNGKey(3)
+    want = np.asarray(jax_grid_mask(rng, jnp.asarray(images), exact=False))
+    grid = jax_float_draws(rng, B, H)
+    model = PETRDetector(cfg.model)
+    model.load_state_dict(tiny.model.state_dict())
+    model.train()
+    seen = []
+    model.img_backbone.register_forward_pre_hook(lambda m, args: seen.append(args[0].detach().clone()))
+    noise = TrainNoise(grid, draw_train_noise(cfg.model, H, torch.Generator().manual_seed(0), B).layer_seeds)
+    with torch.no_grad():
+        out = model(*[torch.from_numpy(tiny.batch[k][:2]) for k in KEYS], noise=noise)
+    assert np.isfinite(out["bbox_codes"].numpy()).all()
+    # the backbone folds the views into the batch, channels first
+    got = seen[0].reshape(B, N, *seen[0].shape[1:]).permute(0, 1, 3, 4, 2).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got == 0).any() and not (got == 0).all()
+
+    state = create_train_state(cfg, 0, 10, "cpu")
+    batch = dict(tiny.batch, gt_boxes=np.zeros((3, cfg.data.max_gt, 9), np.float32),
+                 gt_labels=np.zeros((3, cfg.data.max_gt), np.int32), gt_valid=np.zeros((3, cfg.data.max_gt), bool))
+    batch["gt_boxes"][:, 0] = [1.0, 2.0, 0.0, 2.0, 4.0, 1.5, 0.3, 0.0, 0.0]
+    batch["gt_valid"][:, 0] = True
+    state, metrics = make_train_step(cfg)(state, batch, torch.Generator().manual_seed(1))
+    assert np.isfinite(float(metrics["loss"])) and not metrics["skipped"]
 
 
 # ------------------------------------------------------------------ serving

@@ -17,6 +17,12 @@ interpret mode. The same numpy inputs go to both.
 * The hash offsets: a shard's keep mask is the slice of the whole mask bit
   for bit, and equals petr_tpu's ``_dropout_keep`` at the global
   coordinates.
+* Token-sharded decoders on the plain attention branch, PETR's layers
+  and Depthr's, at dropout 0 and 0.1, on 2 ranks against the one-process
+  decoder with the same weights and seeds: the output within atol 1e-5,
+  the inputs' and every parameter's gradient within rtol 1e-4 of its
+  largest entry (or 1e-3 of the model's largest, for gradients near 0).
+  The ranks must draw the global dropout mask and keep their key slice.
 * ``make_mesh`` / ``make_pod_mesh`` factorisations, ``shard_batch`` rows,
   the single-process no-ops, and the card as the dryrun's default.
 """
@@ -37,7 +43,8 @@ from petr_tpu_torch.parallel import Mesh, current_mesh, make_mesh, shard_batch, 
 from petr_tpu_torch.parallel.distributed import init_distributed, make_pod_mesh, spawn
 from petr_tpu_torch.parallel.dryrun import dryrun_multichip
 from petr_tpu_torch.parallel.dryrun import main as dryrun_main
-from tests.test_torch_port_parallel_workers import attention_case, attention_inputs
+from tests.test_torch_port_parallel_workers import (attention_case, attention_inputs, build_decoder, decoder_case,
+                                                    decoder_inputs, decoder_run)
 
 OUT_ATOL = 1e-5
 GRAD_RTOL = 1e-4
@@ -230,3 +237,34 @@ def test_single_process_is_a_no_op(monkeypatch):
     with use_mesh(Mesh(2, 1, rank=1)):
         assert current_mesh().batch_rows(3) == (6, 3)
     assert current_mesh() is None
+
+
+DECODER_CASES = [(kind, rate) for kind in ("petr", "depthr") for rate in (0.0, RATE)]
+
+
+@pytest.fixture(scope="module")
+def decoders():
+    torch.manual_seed(0)
+    weights = {kind: {k: v.numpy().copy() for k, v in build_decoder(kind, 0.0).state_dict().items()}
+               for kind in ("petr", "depthr")}
+    cases = [(kind, rate, weights[kind], decoder_inputs(kind, seed=i)) for i, (kind, rate) in enumerate(DECODER_CASES)]
+    torch.set_num_threads(2)
+    sharded = spawn(decoder_case, 2, "gloo", "cpu", args=(cases,))
+    return cases, sharded
+
+
+@pytest.mark.parametrize("i", range(len(DECODER_CASES)), ids=[f"{k}_rate{r}" for k, r in DECODER_CASES])
+def test_token_sharded_plain_decoders_match_one_process(decoders, i):
+    cases, sharded = decoders
+    want = decoder_run(*cases[i])
+    top = max(np.abs(g).max() for g in want["grads"].values())
+    for rank, res in enumerate(sharded):
+        got = res[i]
+        what = f"{'/'.join(map(str, DECODER_CASES[i]))} rank {rank}"
+        np.testing.assert_allclose(got["out"], want["out"], rtol=0, atol=OUT_ATOL, err_msg=what)
+        for k, w in want.items():
+            if k.startswith("d"):
+                np.testing.assert_allclose(got[k], w, rtol=0, atol=GRAD_RTOL * np.abs(w).max(), err_msg=f"{what} {k}")
+        for n, w in want["grads"].items():
+            err = np.abs(got["grads"][n] - w).max()
+            assert err <= GRAD_RTOL * max(np.abs(w).max(), 1e-3 * top), f"{what} {n}: {err:.3e}"

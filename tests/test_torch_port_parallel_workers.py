@@ -163,3 +163,61 @@ def resume_case(rank: int, world: int, device: torch.device, cfg, ckpt: str) -> 
     return {"step": state.step, "model": {k: v.cpu().numpy() for k, v in state.model.state_dict().items()},
             "adam": {f"{i}.{k}": v.cpu().numpy() for i, s in opt["state"].items() for k, v in s.items()},
             "groups": opt["param_groups"]}
+
+
+def decoder_inputs(kind: str, seed: int = 0, B: int = 2, N: int = 2, H: int = 3, W: int = 5, C: int = 32,
+                   Q: int = 8) -> Dict[str, np.ndarray]:
+    """A tiny decoder's inputs: features, padding masks (True = pad), the
+    query embedding, the keys' PE, a cotangent of its (2, B, Q, C) output,
+    and Depthr's depth tokens."""
+    rng = np.random.RandomState(seed)
+    out = {"feats": rng.standard_normal((B, N, H, W, C)).astype(np.float32),
+           "masks": rng.uniform(size=(B, N, H, W)) < 0.2,
+           "query_embed": rng.standard_normal((Q, C)).astype(np.float32),
+           "pos": rng.standard_normal((B, N, H, W, C)).astype(np.float32),
+           "t": rng.standard_normal((2, B, Q, C)).astype(np.float32)}
+    if kind == "depthr":
+        out["depth"] = rng.standard_normal((B, N, H, W, C)).astype(np.float32)
+    return out
+
+
+def build_decoder(kind: str, rate: float) -> torch.nn.Module:
+    """A 2-layer transformer of width 32 on the plain attention branch:
+    PETR's layers (``petr``) or Depthr's (``depthr``)."""
+    from petr_tpu_torch.models.depthr_head import DepthrDecoderLayer
+    from petr_tpu_torch.models.transformer import PETRTransformer
+
+    make_layer = (lambda: DepthrDecoderLayer(32, 4, 64, rate)) if kind == "depthr" else None
+    return PETRTransformer(2, 32, 4, 64, use_flash=False, dropout_rate=rate, make_layer=make_layer)
+
+
+def decoder_run(kind: str, rate: float, state_dict: Dict[str, np.ndarray], inputs: Dict[str, np.ndarray],
+                mesh=None, device: torch.device = torch.device("cpu")) -> Dict:
+    """One train-mode forward and backward of ``build_decoder`` with the
+    weights ``state_dict`` (under ``mesh`` if given) -> the output, every
+    parameter's gradient and the inputs' gradients, as numpy."""
+    from petr_tpu_torch.parallel.mesh import use_mesh
+
+    model = build_decoder(kind, rate)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
+    model = model.to(device).train()
+    x = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
+    leaves = [k for k in ("feats", "pos", "depth") if k in x]
+    for k in leaves:
+        x[k].requires_grad_(True)
+    with use_mesh(mesh):
+        out = model(x["feats"], x["masks"], x["query_embed"], x["pos"], layer_seeds=[(11, 101), (22, 202)],
+                    depth=x.get("depth"))
+        (out * x["t"]).sum().backward()
+    return {"out": out.detach().cpu().numpy(),
+            "grads": {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu().numpy()
+                      for n, p in model.named_parameters()},
+            **{f"d{k}": (torch.zeros_like(x[k]) if x[k].grad is None else x[k].grad).cpu().numpy() for k in leaves}}
+
+
+def decoder_case(rank: int, world: int, device: torch.device, cases) -> list:
+    """``decoder_run`` of each case (kind, rate, weights, inputs) on a
+    (1, world) mesh: the decoder's keys split over the ranks."""
+    _threads(device)
+    mesh = make_mesh(world, model=world)
+    return [decoder_run(kind, rate, sd, inputs, mesh, device) for kind, rate, sd, inputs in cases]
