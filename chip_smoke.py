@@ -20,11 +20,14 @@ nothing of petr_tpu. Phases, each fatal on failure:
    tensor cores and fp32 on the CUDA cores, each launch counted on its
    variant's counter. K1 without and with dropout, at the flagship's L, the
    r50dcn decoder's L = 16,896 and PETRv2's L = 12,000 (also at batch 2,
-   where the 64-row plan runs; a fully masked batch row must give exact
+   which fills the card unsplit; a fully masked batch row must give exact
    zeros and lse 1e30): the bf16 variant against its rounding floor (the
-   plain version rounding p to bf16 where the kernel does) under
-   KERNEL_TOL, on inputs whose logits are exact in fp32, and against the
-   unrounded plain version; timed beside SDPA; K2 (its dK/dV and dQ
+   plain version rounding the same p to bf16 where the kernel does) under
+   KERNEL_TOL, on inputs whose logits are exact in fp32, also at batch 1,
+   2 and 4 with 1, 37 and 900 queries, and against the unrounded plain
+   version; twice on the same inputs for the same bits; timed beside SDPA
+   with its share of the bound and the device time of the mma.sync kernel
+   it replaced; K2 (its dK/dV and dQ
    kernels) at dropout 0 and 0.1, the bf16 variant checked and
    timed also at L = 16,896 and 12,000, with the distance that rounding P and dS to
    bf16 alone puts between the plain backward and itself; K3's lse
@@ -307,6 +310,25 @@ KERNEL_TOL = {"fp32": (2e-5, 0.0), "bf16": (2e-5, 2.0 ** -7)}
 # less (the floor's distance is printed beside).
 K1_FP32_TOL = (1e-4, 0.0)
 K1_BF16_TOL = (2e-3, 1e-2)
+# The design of the bf16 K1 and K2 (wgmma), and the device times of the
+# mma.sync kernels they replaced (PERF.md section 6, NVIDIA H100 80GB HBM3,
+# 700 W), printed in the log beside this run's and kept out of the kernels
+# record, whose numbers are this run's: (rate 0, dropout 0.1), None where
+# not measured.
+K1_DESIGN = ("wgmma.mma_async, one pass: a producer warp's TMA ring of K/V tiles on mbarriers, two consumer "
+             "warpgroups on alternate tiles, P from registers, integer running maxima (exact rescales), key "
+             "splits merged in split order")
+K2_DESIGN = ("wgmma.mma_async: a producer warp's TMA ring (Q/dO or K/V tiles; lse, delta by cp.async) on "
+             "mbarriers, two consumer warpgroups on the halves of every tile, P^T, dS^T and dS from registers, "
+             "their partials added in a fixed order; dQ's keys split as K1's, merged in split order")
+K1_PREVIOUS_MS = (0.0857, 0.1098)  # L = 6,000
+K1_PREVIOUS_MS_R50 = (0.2356, None)  # L = 16,896
+K1_PREVIOUS_MS_V2 = (0.1683, 0.2183)  # L = 12,000
+K2_PREVIOUS_MS = {"dkdv": (0.0605, 0.0960), "dq": (0.0707, 0.0926)}  # L = 6,000
+K2_PREVIOUS_MS_V2 = {"dkdv": (0.1215, 0.1875), "dq": (0.1426, 0.1861)}  # L = 12,000
+K3_PREVIOUS_MS = {2: 0.3021, 1: 0.1954}  # the shard shape, forward + backward, by batch
+SYNTH_PREVIOUS_MS = {"flash_cross_attention_fwd_synth": 0.0156, "flash_cross_attention_bwd_dkdv_synth": 0.0066,
+                     "flash_cross_attention_bwd_dq_synth": 0.0139}  # dropout 0.1
 # The bf16 K4 against the unrounded plain version, as KERNEL_TOL (atol x
 # max|ref| + rtol x |ref|): it rounds the samples and the weight to bf16
 # before their products, as petr_tpu's Pallas kernel does, which moves a sum
@@ -550,9 +572,9 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
     qv, kv, vv, mv = attention_inputs(torch, gen, B, torch.bfloat16, H, Q, LV2, D)
     v2_err = compare(f"bf16, PETRv2 L {LV2}", qv, kv, vv, mv, K1_BF16_TOL)
     qv2, kv2, vv2, mv2 = attention_inputs(torch, gen, 2, torch.bfloat16, H, Q, LV2, D)
-    v2_plan = ca.attention_plan(2 * H, Q, sms)
-    assert v2_plan == 4, f"batch 2 at L {LV2} should take the 64-row plan, took {v2_plan} query warps"
-    v2_b2_err = compare(f"bf16, PETRv2 L {LV2}, batch 2 (64-row plan)", qv2, kv2, vv2, mv2, K1_BF16_TOL)
+    v2_splits = ca.forward_splits(2 * H, Q, LV2, sms)
+    assert v2_splits == 1, f"batch 2 at L {LV2} fills the card unsplit, took {v2_splits} key splits"
+    v2_b2_err = compare(f"bf16, PETRv2 L {LV2}, batch 2 (unsplit)", qv2, kv2, vv2, mv2, K1_BF16_TOL)
 
     log(f"phase 3: K1 with dropout {DROPOUT} (seed {DROP_SEED}) against its plain versions")
     kept = ca.dropout_keep_mask(DROP_SEED, 2, H, Q, L, DROPOUT, "cuda").float().mean().item()
@@ -564,7 +586,7 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
     compare("fp32, dropout, batch row 1 fully masked", qmf, kmf, vmf, mmf, K1_FP32_TOL, (1,), DROPOUT)
     compare(f"bf16, dropout, r50dcn L {Lr}", qr, kr, vr, mr, K1_BF16_TOL, rate=DROPOUT)
     v2_drop_err = compare(f"bf16, dropout, PETRv2 L {LV2}", qv, kv, vv, mv, K1_BF16_TOL, rate=DROPOUT)
-    compare(f"bf16, dropout, PETRv2 L {LV2}, batch 2 (64-row plan)", qv2, kv2, vv2, mv2, K1_BF16_TOL,
+    compare(f"bf16, dropout, PETRv2 L {LV2}, batch 2 (unsplit)", qv2, kv2, vv2, mv2, K1_BF16_TOL,
             rate=DROPOUT)
     del qv2, kv2, vv2, mv2
 
@@ -582,6 +604,28 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
                 name = f"floor, L {Lc}, rate {rate}" + (", batch row 1 fully masked" if rows else "")
                 (v2_floor_errs if Lc == LV2 else floor_errs).append(compare_floor(name, qg, kg, vg, mg, rows, rate))
                 del qg, kg, vg, mg
+    # every batch the path gives K1 (serving B = 1, 2 and 4) and query counts
+    # off the 64-row tiles, on the forward's own splits: a merge wherever B H
+    # leaves the card's slots unfilled
+    for batch in (1, 2, 4):
+        for Qc in (1, 37, Q):
+            qg, kg, vg, mg = attention_inputs(torch, gen, batch, torch.bfloat16, H, Qc, L, D, grid=True)
+            rows = ()
+            if batch > 1:
+                mg[-1] = True
+                rows = (batch - 1,)
+            splits = ca.forward_splits(batch * H, Qc, L, sms)
+            floor_errs.append(compare_floor(f"floor, B {batch}, Q {Qc}, L {L}, rate {DROPOUT}, {splits} key "
+                                            f"split(s)", qg, kg, vg, mg, rows, DROPOUT))
+            del qg, kg, vg, mg
+
+    # the same inputs twice: the same bits (fixed order everywhere, no atomics)
+    first = ca.flash_cross_attention(q16, k16, v16, m16, DROPOUT, DROP_SEED)
+    second = ca.flash_cross_attention(q16, k16, v16, m16, DROPOUT, DROP_SEED)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second)), "two identical K1 calls differ"
+    log(f"  K1 twice on the same inputs (B={B}, L={L}, dropout {DROPOUT}, "
+        f"{ca.forward_splits(B * H, Q, L, sms)} key splits): the same bits")
 
     def timed(q, k, v, m, Lc, peak):
         """One call between CUDA events and the device time, of K1 (rate 0 and
@@ -610,20 +654,25 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
         lambda: ca.flash_cross_attention_reference(q32, k32, v32, m32, DROPOUT, DROP_SEED), warmup=2, iters=10)
     drop_plain_ms = cuda_time_ms(lambda: ca.flash_cross_attention_reference(q16, k16, v16, m16, DROPOUT, DROP_SEED),
                                  warmup=2, iters=10)
-    plan = ca.attention_plan(B * H, Q, sms)
-    plans = {qw: device_ms(torch, lambda: ca._forward_cuda(q16, k16, v16, m16, 0.0, None, query_warps=qw))
-             for qw in (2, 4)}
+    plan = ca.forward_splits(B * H, Q, L, sms)
+    plans = {sp: device_ms(torch, lambda: ca._forward_cuda(q16, k16, v16, m16, 0.0, None, splits=sp))
+             for sp in sorted({1, plan})}
     masks = {L: m16, Lr: mr, LV2: mv}
+    previous = {("bf16", L): K1_PREVIOUS_MS, ("bf16", Lr): K1_PREVIOUS_MS_R50, ("bf16", LV2): K1_PREVIOUS_MS_V2}
     for tag, Lc, t in (("bf16", L, t16), ("bf16", Lr, tr), ("bf16", LV2, tv), ("fp32", L, t32)):
+        before = previous.get((tag, Lc))
         log(f"  timing {tag} B={B} H={H} Q={Q} L={Lc} ({int((~masks[Lc]).sum())} unmasked) D={D}: "
             f"kernel_ms {t['ms']:.4f} ({t['dropout_ms']:.4f} with dropout {DROPOUT}), plain_ms {t['plain_ms']:.4f}, "
             f"library_ms (SDPA, boolean mask) {t['library_ms']:.4f} (one call between CUDA events); device time: "
             f"kernel {t['device_ms']:.4f} ({t['dropout_device_ms']:.4f} with dropout), SDPA "
             f"{t['library_device_ms']:.4f}, kernel / SDPA {t['device_ms'] / t['library_device_ms']:.3f}; bound_ms "
             f"{t['bound_ms']:.4f} ({t['bound_by']}; {json.dumps({k: round(v, 5) for k, v in t['bound_parts'].items()})}"
-            f") [{card}]")
-    log(f"  bf16 plan at the flagship: {plan} query warps per block (attention_plan); device time with 2: "
-        f"{plans[2]:.4f} ms, with 4: {plans[4]:.4f} ms [{card}]")
+            f"), share of the bound {t['bound_ms'] / t['device_ms']:.3f} ({t['bound_ms'] / t['dropout_device_ms']:.3f}"
+            f" with dropout)" + ("" if before is None else f"; the mma.sync kernel's device time (PERF.md) "
+                                  f"{before[0]}" + ("" if before[1] is None else f" ({before[1]} with dropout)"))
+            + f" [{card}]")
+    log(f"  bf16 key splits at the flagship: {plan} (forward_splits); device time "
+        + ", ".join(f"with {sp}: {ms:.4f} ms" for sp, ms in plans.items()) + f" [{card}]")
     bf16_rec = {
         "name": "flash_cross_attention_fwd",
         "route": "cuda",
@@ -641,8 +690,10 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
         "device_ms": t16["device_ms"],
         "library_device_ms": t16["library_device_ms"],
         "device_ms_over_sdpa": t16["device_ms"] / t16["library_device_ms"],
-        "query_warps": plan,
-        "device_ms_by_query_warps": plans,
+        "bound_share": t16["bound_ms"] / t16["device_ms"],
+        "design": K1_DESIGN,
+        "key_splits": plan,
+        "device_ms_by_key_splits": plans,
         "dropout_kernel_ms": t16["dropout_ms"],
         "dropout_device_ms": t16["dropout_device_ms"],
         "dropout_plain_ms": drop_plain_ms,
@@ -685,7 +736,7 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
         "shape": {"B": B, "H": H, "Q": Q, "L": LV2, "D": D, "unmasked": int((~mv).sum())},
         "max_abs_err": v2_err,
         "batch2_max_abs_err": v2_b2_err,
-        "batch2_query_warps": v2_plan,
+        "batch2_key_splits": v2_splits,
         "floor_max_abs_err": max(v2_floor_errs),
         "ms": tv["ms"],
         "plain_ms": tv["plain_ms"],
@@ -696,6 +747,8 @@ def check_flash_attention(torch, ca, sm_clock_hz, card):
         "device_ms": tv["device_ms"],
         "library_device_ms": tv["library_device_ms"],
         "device_ms_over_sdpa": tv["device_ms"] / tv["library_device_ms"],
+        "bound_share": tv["bound_ms"] / tv["device_ms"],
+        "design": K1_DESIGN,
         "dropout_kernel_ms": tv["dropout_ms"],
         "dropout_device_ms": tv["dropout_device_ms"],
         "dropout_max_abs_err": v2_drop_err,
@@ -798,6 +851,18 @@ def check_flash_backward(torch, ca, sm_clock_hz, card):
                     f"(kernel {((g - w).abs() / (atol * scale + rtol * w.abs())).max().item():.3f})")
         del q, k, v, m, gout, out, lse, delta, got, want
 
+    # the same inputs twice: the same bits (no atomics; the warpgroups' partials added in a fixed order)
+    q, k, v, m = attention_inputs(torch, gen, 1, torch.bfloat16, H, Q, L, D)
+    gout = cotangent(1, torch.bfloat16)
+    out, lse = ca.flash_cross_attention_reference(q, k, v, m, DROPOUT, DROP_SEED)
+    delta = ca._delta(gout, out, None)
+    first = ca._backward_cuda(q, k, v, m, gout, lse, delta, DROPOUT, DROP_SEED)
+    second = ca._backward_cuda(q, k, v, m, gout, lse, delta, DROPOUT, DROP_SEED)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second)), "two identical K2 calls differ"
+    log(f"  K2 (dK/dV and dQ) twice on the same inputs (B=1, L={L}, dropout {DROPOUT}): the same bits")
+    del q, k, v, m, gout, out, lse, delta, first, second
+
     log("phase 3: K3 (lse differentiable) through the autograd Function against its plain route")
     q, k, v, m = attention_inputs(torch, gen, 2, torch.float32, H, Q, L, D)
     m[1] = True
@@ -830,6 +895,14 @@ def check_flash_backward(torch, ca, sm_clock_hz, card):
                     ca._backward_cuda(*args, rate, DROP_SEED, kernels=(which,))
                 t[(which, rate)] = cuda_time_ms(call)
                 t[(which, rate, "device")] = device_ms(torch, call)
+        if tag == "bf16":  # the dQ kernel's key splits: its plan's and none
+            plan = ca.forward_splits(B * H, Q, Lt, sms)
+            t["dq_by_splits"] = {sp: {r: device_ms(torch, lambda: ca._backward_cuda(
+                *args, r, DROP_SEED, kernels=("dq",), dq_splits=sp)) for r in (DROPOUT, 0.0)}
+                for sp in sorted({1, plan})}
+            log(f"  dQ at L={Lt} by key splits (forward_splits: {plan}), device ms at dropout {DROPOUT} / rate 0: "
+                + ", ".join(f"{sp}: {v[DROPOUT]:.4f} / {v[0.0]:.4f}" for sp, v in t["dq_by_splits"].items())
+                + f" [{card}]")
         t["plain"] = cuda_time_ms(lambda: ca.flash_cross_attention_backward_reference(
             q, k, v, m, out, lse, gout, None, DROPOUT, DROP_SEED), warmup=2, iters=10)
         qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
@@ -856,11 +929,21 @@ def check_flash_backward(torch, ca, sm_clock_hz, card):
             lib = t["library" if not key else "library_device"]
             dkdv = {r: t[("dkdv", r, *key)] for r in (DROPOUT, 0.0)}
             dq = {r: t[("dq", r, *key)] for r in (DROPOUT, 0.0)}
+            extra = ""
+            if key:
+                bounds = {w: t["bounds"][w][0] for w in ("dkdv", "dq", "both")}
+                extra = (f"; share of the bound: dK/dV {bounds['dkdv'] / dkdv[0.0]:.3f}, dQ {bounds['dq'] / dq[0.0]:.3f}"
+                         f", both {bounds['both'] / (dkdv[0.0] + dq[0.0]):.3f} at rate 0; both against SDPA's backward "
+                         f"{(dkdv[0.0] + dq[0.0]) / lib:.3f} at rate 0")
+                before = {L: K2_PREVIOUS_MS, LV2: K2_PREVIOUS_MS_V2}.get(Lt) if tag == "bf16" else None
+                if before:
+                    extra += (f"; the mma.sync kernels' device time (PERF.md): dK/dV {before['dkdv'][1]}, dQ "
+                              f"{before['dq'][1]} at dropout, {before['dkdv'][0]}, {before['dq'][0]} at rate 0")
             log(f"  timing {tag} B={B} H={H} Q={Q} L={Lt} ({pairs // (H * Q)} unmasked) D={D}, {unit}: dropout "
                 f"{DROPOUT}: dK/dV {dkdv[DROPOUT]:.4f}, dQ {dq[DROPOUT]:.4f} (sum {dkdv[DROPOUT] + dq[DROPOUT]:.4f}); "
                 f"rate 0: dK/dV {dkdv[0.0]:.4f}, dQ {dq[0.0]:.4f} (sum {dkdv[0.0] + dq[0.0]:.4f}); library_ms (SDPA "
                 f"backward, boolean mask, rate 0) {lib:.4f}" + ("" if key else f"; plain backward {t['plain']:.4f}")
-                + f" [{card}]")
+                + extra + f" [{card}]")
     records = []
     for tag, suffix in (("bf16", ""), ("fp32", "_fp32")):
         t = timing[(tag, L)]
@@ -884,8 +967,10 @@ def check_flash_backward(torch, ca, sm_clock_hz, card):
                 "device_ms": t[(which, DROPOUT, "device")],
                 "rate0_device_ms": t[(which, 0.0, "device")],
                 "library_device_ms": t["library_device"],
+                "bound_share": b_ms / t[(which, DROPOUT, "device")],
             }
             if tag == "bf16":
+                rec["design"] = K2_DESIGN
                 tr = timing[("bf16", Lr)]
                 rec.update({"r50_L": Lr, "r50_ms": tr[(which, DROPOUT)], "r50_rate0_ms": tr[(which, 0.0)],
                             "r50_device_ms": tr[(which, DROPOUT, "device")],
@@ -917,6 +1002,8 @@ def check_flash_backward(torch, ca, sm_clock_hz, card):
             "device_ms": t[(which, DROPOUT, "device")],
             "rate0_device_ms": t[(which, 0.0, "device")],
             "library_device_ms": t["library_device"],
+            "bound_share": b_ms / t[(which, DROPOUT, "device")],
+            "design": K2_DESIGN,
         })
     return records
 
@@ -1312,7 +1399,12 @@ def check_synth_shapes(torch, ca, dcn, sm_clock_hz, card):
             + (f" (device {rec['library_device_ms']:.4f})" if "library_device_ms" in rec else "")
             + (f", dense conv {rec['dense_conv_ms']:.4f} (device {rec['dense_conv_device_ms']:.4f})"
                if "dense_conv_ms" in rec else "")
-            + f", bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']}) [{card}]")
+            + f", bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']}), share of the bound "
+            f"{rec['bound_ms'] / rec['device_ms']:.3f}"
+            + (f"; the mma.sync kernel's device time (PERF.md) {SYNTH_PREVIOUS_MS[rec['name']]}"
+               if rec['name'] in SYNTH_PREVIOUS_MS else "") + f" [{card}]")
+        if rec["name"] in SYNTH_PREVIOUS_MS:
+            rec["design"] = K1_DESIGN if "fwd" in rec["name"] else K2_DESIGN
     return records
 
 
@@ -3838,8 +3930,8 @@ def check_k3_shard(torch, ca, sm_clock_hz, card):
     """K3 at the token-sharded flagship's shard shapes: H=8, Q=900, the
     second of two shards of L = 6,000 (L = 3,000 with its key offset and a
     padded tail), dropout 0.1 and a non-zero lse cotangent; B=2, the rows
-    each rank holds in phase 12c (the bf16 forward on the 64-row plan where
-    the card has at most 15 * 16 SMs), and B=1 (the 32-row plan). The
+    each rank holds in phase 12c (the bf16 forward unsplit), and B=1 (its
+    keys in two splits, merged). The
     kernels against the plain route through the same Function, fp32 and
     bf16; the bf16 forward and backward timed beside the plain route and
     SDPA. The record's numbers are B=2's, the shape whose launches it
@@ -3852,11 +3944,11 @@ def check_k3_shard(torch, ca, sm_clock_hz, card):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     shapes = {}
     for B in (PAR_GLOBAL_BATCH, 1):
-        plan = ca.attention_plan(B * H, Q, sms)
+        plan = ca.forward_splits(B * H, Q, Ls, sms)
         log(f"phase 12: K3 (flash_cross_attention_with_lse) at the shard shape B={B} H={H} Q={Q} L={Ls} D={D}, "
-            f"key offset {Ls}, dropout {DROPOUT}, lse cotangent N(0, 1); bf16 forward on the {16 * plan}-row "
-            f"plan (query_warps {plan}, {sms} SMs)")
-        errs, fn_ms = {}, {"query_warps": plan}
+            f"key offset {Ls}, dropout {DROPOUT}, lse cotangent N(0, 1); bf16 forward in {plan} key split(s) "
+            f"({sms} SMs)")
+        errs, fn_ms = {}, {"key_splits": plan}
         for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
             q, k, v, m = attention_inputs(torch, gen, B, dtype, H, Q, L, D)
             k, v, m = k[:, :, Ls:], v[:, :, Ls:], m[:, Ls:]
@@ -3909,11 +4001,38 @@ def check_k3_shard(torch, ca, sm_clock_hz, card):
                           + e * B * H * D * (3 * Q + 4 * Ls) + 8 * B * H * Q + B * Ls)  # backward
                 # 14 D flops per pair (q.k and p.v forward; s, dp, dv, dq, dk backward), 2 exps per pair
                 fn_ms["bound_ms"], fn_ms["bound_by"], parts = bound_ms(2 * pairs, 7.0 * D, nbytes, sms, sm_clock_hz)
+                fn_ms["bound_share"] = fn_ms["bound_ms"] / fn_ms["device_ms"]
+
+                # the Function alone, as SDPA is timed: its forward and its
+                # backward from the two cotangents, without the loss's ops;
+                # then where that time goes, kernel by kernel
+                def k3_function():
+                    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+                    out, lse = ca.flash_cross_attention_with_lse(qs, ks, vs, m, DROPOUT, DROP_SEED, (0, Ls))
+                    torch.autograd.grad((out, lse), (qs, ks, vs), (gout, glse))
+                fn_ms["function_device_ms"] = device_ms(torch, k3_function)
+
+                def k3_function_rate0():  # as SDPA runs: no dropout
+                    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+                    out, lse = ca.flash_cross_attention_with_lse(qs, ks, vs, m, 0.0, None, (0, Ls))
+                    torch.autograd.grad((out, lse), (qs, ks, vs), (gout, glse))
+                fn_ms["function_rate0_device_ms"] = device_ms(torch, k3_function_rate0)
+                rows, _ = profiled_kernels(torch, k3_function, 10)
+                fn_ms["function_kernels"] = [[name[:80], round(ms, 5), count] for ms, count, name in rows]
+                log(f"  the Function alone (forward, backward from out's and lse's cotangents): "
+                    f"{fn_ms['function_device_ms']:.4f} ms of device time, against SDPA "
+                    f"{fn_ms['function_device_ms'] / fn_ms['library_device_ms']:.3f}; at rate 0, as SDPA runs, "
+                    f"{fn_ms['function_rate0_device_ms']:.4f} ms, against SDPA "
+                    f"{fn_ms['function_rate0_device_ms'] / fn_ms['library_device_ms']:.3f}; by kernel (ms per call, "
+                    f"launches): " + "; ".join(f"{n} {ms:.4f} x{c}" for n, ms, c in fn_ms["function_kernels"][:8])
+                    + f" [{card}]")
                 log(f"  bf16 forward + backward: {fn_ms['ms']:.4f} ms on CUDA events, {fn_ms['device_ms']:.4f} ms "
-                    f"of device time; plain route {fn_ms['plain_ms']:.4f}; SDPA forward + backward (no lse: no "
-                    f"public PyTorch call returns a differentiable lse) {fn_ms['library_ms']:.4f} "
-                    f"({fn_ms['library_device_ms']:.4f} device); bound_ms {fn_ms['bound_ms']:.4f} "
-                    f"({fn_ms['bound_by']}, {json.dumps({k: round(v, 5) for k, v in parts.items()})}) [{card}]")
+                    f"of device time (the mma.sync kernels': {K3_PREVIOUS_MS[B]}, PERF.md); plain route "
+                    f"{fn_ms['plain_ms']:.4f}; SDPA forward + backward (no lse: no public PyTorch call returns a "
+                    f"differentiable lse) {fn_ms['library_ms']:.4f} ({fn_ms['library_device_ms']:.4f} device), "
+                    f"K3 / SDPA {fn_ms['device_ms'] / fn_ms['library_device_ms']:.3f}; bound_ms "
+                    f"{fn_ms['bound_ms']:.4f} ({fn_ms['bound_by']}, {json.dumps({k: round(v, 5) for k, v in parts.items()})}"
+                    f"), share of the bound {fn_ms['bound_share']:.3f} [{card}]")
         shapes[B] = {"shape": {"B": B, "H": H, "Q": Q, "L": Ls, "D": D, "key_offset": Ls},
                      "max_abs_err": max(errs["bf16"].values()), "fp32_max_abs_err": max(errs["fp32"].values()),
                      **fn_ms}
@@ -3926,6 +4045,7 @@ def check_k3_shard(torch, ca, sm_clock_hz, card):
         **shapes[PAR_GLOBAL_BATCH],
         "b1": shapes[1],
         "library_note": "SDPA forward and backward without the lse (no public PyTorch call returns it differentiably)",
+        "design": K1_DESIGN + "; " + K2_DESIGN,
     }
 
 
@@ -5331,6 +5451,9 @@ def main() -> int:
 
     seconds = {n: round(stamps[i + 1][1] - t, 1) for i, (n, t) in enumerate(stamps[:-1])}
     log(f"seconds per phase: {json.dumps(seconds)}; the script {time.perf_counter() - t_start:.1f} s")
+    if 3 in seconds:
+        log(f"  phase 3 (every kernel checked and timed) {seconds[3]} s; before the wgmma K1 and K2 it took 27.3 s "
+            "(PERF.md)")
     if phases != ALL_PHASES:
         log(f"only phases {sorted(phases)} ran: no kernels record and no result line")
         return 1

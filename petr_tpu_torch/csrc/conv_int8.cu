@@ -80,6 +80,8 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"  // mbarriers, TMA and bulk copies, wgmma fences, the tensor-map encoder
+
 namespace {
 
 namespace k6 {
@@ -123,9 +125,6 @@ __device__ __forceinline__ long long row_offset(const QuantPlan& q, long long gr
                    : 16 * (group * q.plane_stride + row * q.row_stride);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -219,62 +218,7 @@ __global__ void __launch_bounds__(256) quantize_act_kernel(const T* __restrict__
   }
 }
 
-// ------------------------------------------------------ Hopper primitives
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// returns once the phase of parity `parity` has completed; a wait that never
-// ends (a plan the kernel does not match) traps instead of holding the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (tries == (1u << 28)) __trap();
-  }
-}
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
-                                            int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
-      "[%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-// `bytes` contiguous bytes global -> shared (16-byte aligned, a multiple of 16),
-// completed on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-// global[i] += shared[i] for `bytes` / 4 32-bit integers, in L2 (integer
-// sums: any order gives the same result); waited for before returning
-__device__ __forceinline__ void bulk_reduce_add(void* dst, const void* src, int bytes) {
-  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.u32 [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(smem_u32(src)), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
+// ------------------------------------------------------ K6's products
 __device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
 
 // D (64 x N, s32) += A (64 x 32 s8, K-major) B (N x 32 s8, K-major), A and B
@@ -689,28 +633,6 @@ __global__ void __launch_bounds__(k6::THREADS, min_blocks<BN>())
     store_tile<int32_t, BN>(S, pix, vec_ok, p, sc_add, static_cast<int32_t*>(out), n0);
   }
 }
-
-// cuTensorMapEncodeTiled, looked up at run time (no link against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-constexpr int ENCODE_FAILED = 10000;  // + the CUresult (petr_cuda_error_string says so)
 
 // m = [rank, dims[5], strides[4] (bytes, dims 1..), box[5], element strides[5]] (tensor_map_args)
 int encode(CUtensorMap* map, const void* base, const long long* m) {

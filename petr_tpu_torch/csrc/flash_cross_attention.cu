@@ -1,8 +1,8 @@
-// Flash cross-attention forward for Hopper (sm_90a), with a plain C interface
-// loaded through ctypes (petr_tpu_torch/ops/cross_attention.py).
+// Flash cross-attention forward for Hopper (sm_90a), K1, with a plain C
+// interface loaded through ctypes (petr_tpu_torch/ops/cross_attention.py).
 //
-// Replaces petr_tpu/ops/pallas/cross_attention.py::_kernel, driven there by
-// _flash_forward: masked multi-head attention of q (B,H,Q,D) over k, v
+// Replaces petr_tpu/ops/pallas/cross_attention.py::_kernel (:62), driven there
+// by _flash_forward: masked multi-head attention of q (B,H,Q,D) over k, v
 // (B,H,L,D), scaled by 1/sqrt(D), with a (B,L) key-padding mask (nonzero =
 // padded). Returns out (B,H,Q,D) in the input type and the per-row fp32
 // logsumexp (B,H,Q). A row whose keys are all masked gets out = 0 and
@@ -16,37 +16,45 @@
 // unmasked, D=32) one call needs 4.7 GFLOP of products over the unmasked
 // pairs (4.8 us at 989 TFLOP/s bf16), 36.7 M exponentials (about 9 us at 16
 // per SM per clock on 132 SMs at 1.98 GHz) and about 7 MB of traffic (2 us
-// at 3.35 TB/s): the exponentials bound it.
+// at 3.35 TB/s): the exponentials bound it, and with them the per-pair chain
+// of scale, mask, maximum, exponent and rounding that feeds the tensor cores.
 //
 // Two kernels, chosen by the caller by dtype:
 //
-// * flash_fwd_tc_kernel, bf16, on the tensor cores (mma.sync.m16n8k16, bf16
-//   in, fp32 sums; tensor_core.cuh): the model's kernel. A block of 8 warps
-//   owns QW x 16 query rows of one (b, h) (QW = 2 or 4, the caller's choice
-//   from the grid: 29 tiles of 32 rows x 8 heads = 232 blocks at the
-//   flagship, two resident per SM, where 64-row tiles would give 120 blocks
-//   for 132 SMs) and splits every staged K/V tile KS = 8 / QW ways across its
-//   warps: warp (wq, wk) takes rows wq * 16 .. + 15 and keys wk * 64 .. + 63
-//   of each tile of KS * 64 keys. The warp holds its rows of q as A
-//   fragments, computes S = Q K^T with K through ldmatrix, and O += P V with
-//   V through ldmatrix.trans; P goes from two n8 C tiles into one k16 A
-//   fragment by pack_bf16 and never touches shared memory. K and V tiles
-//   arrive by 16-byte cp.async into a two-stage ring; keys past L are
-//   zero-filled and masked, so no padded copies are made.
-//   Two passes over the keys. The first computes S alone and takes each
-//   row's exact maximum (merged across the key splits through shared
-//   memory); the second computes S again and accumulates p = exp2(s * scale
-//   * log2e - max) without any rescaling. So every p is rounded to bf16 once,
-//   against the row's final maximum: the rounding the plain version makes
-//   with round_p=True, at the same point, which an online softmax (p against
-//   a running maximum, rescaled later) would not give. The second pass's
-//   partial sums (l, O) of the key splits are added in split order through
-//   shared memory at the end: no atomics, the result is deterministic.
-//   The scale is applied to the fp32 S (q is not pre-scaled in bf16), and
-//   exp2 is one MUFU.EX2, so rounding P is the only rounding the fp32 kernel
-//   does not make. The dropout hash is evaluated per C-fragment element from
-//   its global (query, key). A lane reads the mask byte of its keys one tile
-//   ahead, and a warp skips its 64 keys of a tile when all are masked.
+// * flash_fwd_wgmma_kernel, bf16: the model's kernel. One pass over the keys
+//   with an online softmax on wgmma.mma_async (bf16 in, fp32 sums). A block
+//   holds 64 query rows of one (b, h) and one split of the keys; a producer
+//   warp brings Q once and the split's live key tiles (64 keys of K and of V)
+//   by TMA into a ring of 4 stages on mbarriers, skipping tiles whose keys
+//   are all masked; two consumer warpgroups take alternate tiles, so one
+//   warpgroup's exponentials and hashes run while the other's products do.
+//   S = Q K^T is one m64n64 product per k16 step from shared memory (both
+//   K-major); O += P V takes P from registers (the S accumulator rounded to
+//   bf16 in pairs is the A fragment) and V from shared memory as an MN-major
+//   operand, so P never touches shared memory and no copy of V is
+//   transposed. The tiles land in the no-swizzle core-matrix layout, D / 8
+//   boxes of 8 columns a tile (hopper.cuh), from strided (B, H, ., D) views.
+//   Rounding: every p is rounded to bf16 for its product with v. A one-pass
+//   kernel cannot round p against the row's final maximum, so p is taken
+//   against a reference the order of the keys cannot move: y = s * scale *
+//   log2 e - t_ref, t_ref the logit of the row's first unmasked key, and p =
+//   2^(y - rint y) * 2^(rint y - K), K the running maximum of rint y. The
+//   fraction's exponential is one MUFU.EX2 of an exact argument, the integer
+//   part is added to its exponent field, and every rescale of the running
+//   sums is an exact power of two built from exponent bits. So each rounded
+//   p, rescaled, is bf16(2^(y - rint y)) 2^(rint y - K_final) whatever the
+//   tiling, the splits or the order: the plain version's floor
+//   (flash_cross_attention_reference with round_p=True) computes the same
+//   values, and the kernel differs from it only in the order of its fp32
+//   sums. The scale is applied to the fp32 S (q is not pre-scaled in bf16).
+//   The dropout hash is evaluated per accumulator element from its global
+//   (query, key).
+//   Filling the card: at the flagship 15 row tiles x 8 heads are 120 blocks
+//   for 132 SMs; the caller splits the keys (forward_splits in
+//   ops/cross_attention.py: 2 at the flagship, 240 blocks, two resident per
+//   SM), each split writes its rows' partial (K, l, O) to a workspace, and
+//   flash_fwd_merge_kernel adds the partials in split order. No float
+//   atomics anywhere: the result is deterministic.
 // * flash_fwd_kernel, fp32, on the CUDA cores: for fp32 callers (the tests
 //   and the fp32 train-step checks). One block per (b*h, 32 queries); the
 //   block's threads split each 128-key tile 8 ways (thread t: row t % 32,
@@ -54,15 +62,15 @@
 //   in fp32 registers, the 8 partial states of a row merged at the end.
 //
 // K/V of one head (768 KB in bf16 at the flagship, 2.1 MB at the r50dcn
-// decoder's L = 16,896) stay in the 50 MB L2 while the query tiles of that
-// head, which run together (blockIdx.x is the query tile), read them again.
+// decoder's L = 16,896) stay in the 50 MB L2 while the blocks of that head,
+// which run together (blockIdx.x is the query tile), read them again.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
-#include "tensor_core.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -73,6 +81,8 @@ constexpr float LN2 = 0.6931471805599453f;
 struct Strides {
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
 };
+
+using bf16 = __nv_bfloat16;
 
 // ------------------------------------------------------- fp32, CUDA cores
 namespace fp32 {
@@ -239,268 +249,361 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (split == 0) lse[(long long)bh * Q + qi] = (mmax + log2f(lsum)) * LN2;
 }
 
-// ------------------------------------------------------ bf16, tensor cores
-namespace tc {
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int KW = 64;  // keys per warp per staged tile
+// ------------------------------------------------- bf16, wgmma (Hopper)
+namespace k1 {
+constexpr int BM = 64;                   // query rows per block, shared by both consumer warpgroups
+constexpr int BN = 64;                   // keys per tile
+constexpr int STAGES = 4;                // the ring of K/V tiles
+constexpr int CONSUMERS = 256;           // two warpgroups
+constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
+constexpr int MAX_TILES = 512;           // key tiles of one block's range (the plan splits longer ones)
+constexpr int NONE = -(1 << 30);         // the integer maximum of a row that has seen no key
+constexpr float MAGIC = 12582912.0f;     // 1.5 * 2^23: y + MAGIC holds rint(y) in its low bits
 
-// dynamic shared memory: two stages of K and V tiles (rows D + 8 bf16 apart,
-// so that ldmatrix rows fall in distinct banks); the key splits' partial
-// sums reuse it at the end
-template <int D, int QW>
-constexpr size_t smem_bytes() {
-  return 2 * 2 * (WARPS / QW) * KW * (D + 8) * sizeof(__nv_bfloat16);
-}
-}  // namespace tc
+// the dynamic shared memory, from a 1024-byte aligned base
+template <int D>
+struct Smem {
+  static constexpr int Q = 0;                          // bf16 [D / 8][BM][8]
+  static constexpr int TILE = BN * D * 2;              // K or V: bf16 [D / 8][BN][8]
+  static constexpr int RING = Q + BM * D * 2;          // STAGES x (K, V)
+  static constexpr int MERGE = RING + STAGES * 2 * TILE;  // the second warpgroup's O (fragment order), l, K
+  static constexpr int LIVE = MERGE + BM * D * 4 + BM * 8;  // uint64 per key tile: bit j = key 64 t + j live
+  static constexpr int LIST = LIVE + MAX_TILES * 8;    // int: the live tiles, in order
+  static constexpr int BARS = LIST + MAX_TILES * 4;    // full[STAGES], empty[STAGES], q, then ints
+  static constexpr int BYTES = BARS + 8 * (2 * STAGES + 1) + 16;
+  static constexpr int ALLOC = BYTES + 1024;
+};
 
-using bf16 = __nv_bfloat16;
+// 2^e for an integer e <= 0; 0 below 2^-126
+__device__ __forceinline__ float pow2i(int e) { return e < -126 ? 0.f : __int_as_float((127 + e) << 23); }
+}  // namespace k1
 
-__device__ __forceinline__ uint32_t load_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// One block: 64 query rows of one (b, h) over one split of the keys. The
+// producer warp streams the split's live key tiles (K and V by TMA) through a
+// ring of 4 stages on mbarriers; the two consumer warpgroups take alternate
+// tiles (stage n to warpgroup n % 2), each keeping its own online softmax
+// over the block's 64 rows, and are merged at the end, warpgroup 0's first.
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(k1::THREADS, 2)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, const MapOrder qo, const MapOrder ko,
+                       const MapOrder vo, const bf16* __restrict__ k, const uint8_t* __restrict__ mask,
+                       bf16* __restrict__ out, float* __restrict__ lse, float* __restrict__ ws, int H, int Q, int L,
+                       int splits, Strides st, float scale, uint32_t seed, uint32_t thresh, float keep_prob,
+                       uint32_t bh_offset, uint32_t key_offset) {
+  using namespace k1;
+  using S = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* qs = reinterpret_cast<bf16*>(smem + S::Q);
+  float* merge_o = reinterpret_cast<float*>(smem + S::MERGE);
+  float* merge_l = merge_o + BM * D;
+  int* merge_k = reinterpret_cast<int*>(merge_l + BM);
+  uint64_t* live = reinterpret_cast<uint64_t*>(smem + S::LIVE);
+  int* list = reinterpret_cast<int*>(smem + S::LIST);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+  int* counts = reinterpret_cast<int*>(qbar + 1);  // [0] live tiles, [1] the row's first unmasked key
 
-template <int D, int QW, bool DROPOUT>
-__global__ void __launch_bounds__(tc::THREADS, D <= 32 ? 2 : 1)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                    bf16* __restrict__ out, float* __restrict__ lse,
-                    int H, int Q, int L, Strides st, float scale,
-                    uint32_t seed, uint32_t thresh, float keep_prob,
-                    uint32_t bh_offset, uint32_t key_offset) {
-  constexpr int KS = tc::WARPS / QW;  // key splits
-  constexpr int KT = KS * tc::KW;     // keys per staged tile
-  constexpr int RS = D + 8;           // shared-memory row stride
-  constexpr int KD = D / 16;          // k16 steps over the head dim
-  constexpr int NT = D / 8;           // n8 tiles over the head dim
-  constexpr int BR = QW * 16;         // query rows per block
-  constexpr int PS = D + 4;           // row stride of the partial sums, in floats
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16(*ksm)[KT][RS] = reinterpret_cast<bf16(*)[KT][RS]>(smem_raw);
-  bf16(*vsm)[KT][RS] = reinterpret_cast<bf16(*)[KT][RS]>(smem_raw + 2 * KT * RS * sizeof(bf16));
-  float* partial = reinterpret_cast<float*>(smem_raw);  // [KS - 1][BR][PS], at the end
-  __shared__ float red[KS][BR];  // per key split: row maxima, then row sums
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wq = warp % QW, wk = warp / QW;  // query warp, key split
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int ra = wq * 16 + g, rb = ra + 8;   // this thread's rows in the block
-  const int qa = blockIdx.x * BR + ra, qb = qa + 8;
-  const bf16* qg = q + b * st.q_b + h * st.q_h;
-  const bf16* kg = k + b * st.k_b + h * st.k_h;
-  const bf16* vg = v + b * st.v_b + h * st.v_h;
+  const int q0 = blockIdx.x * BM, split = blockIdx.z;
+  const int tiles = (L + BN - 1) / BN;
+  const int t_begin = (int)((long long)split * tiles / splits), t_end = (int)((long long)(split + 1) * tiles / splits);
   const uint8_t* mb = mask ? mask + (long long)b * L : nullptr;
 
-  // the warp's 16 query rows of q as A fragments
-  uint32_t qf[KD][4];
-#pragma unroll
-  for (int s = 0; s < KD; ++s)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = (r & 1) ? qb : qa;
-      const int col = s * 16 + (r >> 1) * 8 + 2 * t4;
-      qf[s][r] = row < Q ? load_pair(qg + row * st.q_s + col) : 0u;
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);  // lane 0 of each warp of the consuming warpgroup
     }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+    counts[1] = mb ? L : 0;
+  }
+  // the row's first unmasked key, j0: p is taken against its logit
+  for (int base = 0;; base += THREADS) {
+    __syncthreads();
+    const int found = counts[1];
+    __syncthreads();  // read by every thread before the atomics below
+    if (found < L || base >= L) break;
+    const int key = base + tid;
+    if (key < L && mb[key] == 0) atomicMin(&counts[1], key);
+  }
+  // the live keys of each tile of the split, then the live tiles in order
+  for (int t = t_begin + warp; t < t_end; t += THREADS / 32) {
+    const int key = t * BN + lane;
+    const bool lo = key < L && (mb == nullptr || mb[key] == 0);
+    const bool hi = key + 32 < L && (mb == nullptr || mb[key + 32] == 0);
+    const uint32_t blo = __ballot_sync(0xffffffffu, lo), bhi = __ballot_sync(0xffffffffu, hi);
+    if (lane == 0) live[t - t_begin] = blo | (uint64_t)bhi << 32;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < t_end - t_begin; base += 32) {
+      const int i = base + lane;
+      const bool on = i < t_end - t_begin && live[i] != 0;
+      const uint32_t m = __ballot_sync(0xffffffffu, on);
+      if (on) list[n + __popc(m & ((1u << lane) - 1))] = i;
+      n += __popc(m);
+    }
+    if (lane == 0) counts[0] = n;
+  }
+  __syncthreads();
+  const int n_live = counts[0], j0 = counts[1];
 
+  if (warp == CONSUMERS / 32) {  // the producer warp
+    if (lane == 0) mbar_expect_tx(qbar, BM * D * 2);
+    __syncwarp();
+    if (lane < D / 8) tma_rows(qs + lane * BM * 8, &qmap, qo, qbar, lane * 8, q0, h, b);
+    for (int n = 0; n < n_live; ++n) {
+      const int stage = n % STAGES, t = t_begin + list[n];
+      mbar_wait(&empty[stage], ((n / STAGES) & 1) ^ 1);
+      if (lane == 0) mbar_expect_tx(&full[stage], 2 * S::TILE);
+      __syncwarp();
+      if (lane < D / 4) {  // lanes 0 .. D/8 - 1: K's column blocks, then V's
+        const int which = lane / (D / 8), j = lane % (D / 8);
+        uint8_t* dst = smem + S::RING + (stage * 2 + which) * S::TILE + j * BN * 16;
+        tma_rows(dst, which ? &vmap : &kmap, which ? vo : ko, &full[stage], j * 8, t * BN, h, b);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg takes stages wg, wg + 2, ..; this thread holds
+  // rows r0 = 16 (warp % 4) + lane / 4 and r1 = r0 + 8 of the block's 64, and of
+  // each tile's keys the columns 8j + 2 (lane % 4) + {0, 1}, j = 0..7
+  const int wg = warp >> 2, t = tid & 127, t4 = lane & 3;
+  const int r0 = 16 * (warp & 3) + (lane >> 2), r1 = r0 + 8;
+  const int qa = q0 + r0, qb = q0 + r1;
   const uint32_t mix = dropout_mix(seed, (uint32_t)bh + bh_offset, key_offset);
   const float sl2 = scale * LOG2E;  // logits in log2 units: exp(x) == exp2(x log2 e)
+  mbar_wait(qbar, 0);
 
-  // key tile kt's rows of k (and of v) by cp.async, into stage s
-  auto load_tile = [&](int kt, int s, bool with_v) {
-    const int k0 = kt * KT;
-    const int n = (with_v ? 2 : 1) * KT * (D / 8);
-    for (int i = tid; i < n; i += tc::THREADS) {
-      const int which = i / (KT * (D / 8)), rem = i % (KT * (D / 8));
-      const int r = rem / (D / 8), piece = rem % (D / 8);
-      const int key = k0 + r;
-      const bool ok = key < L;
-      const bf16* src = which ? vg + (ok ? key * st.v_s : 0) : kg + (ok ? key * st.k_s : 0);
-      cp_async16(which ? &vsm[s][r][piece * 8] : &ksm[s][r][piece * 8], src + piece * 8, ok ? 16 : 0);
+  // t_ref, the logit of key j0, for both rows (0 for a row with no unmasked key)
+  float tr0 = 0.f, tr1 = 0.f;
+  if (j0 < L) {
+    const bf16* kr = k + b * st.k_b + h * st.k_h + (long long)j0 * st.k_s;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float kd = __bfloat162float(kr[d]);
+      s0 = __fmaf_rn(__bfloat162float(qs[(d >> 3) * BM * 8 + r0 * 8 + (d & 7)]), kd, s0);
+      s1 = __fmaf_rn(__bfloat162float(qs[(d >> 3) * BM * 8 + r1 * 8 + (d & 7)]), kd, s1);
     }
-  };
+    tr0 = __fmul_rn(s0, sl2);
+    tr1 = __fmul_rn(s1, sl2);
+  }
 
-  const int nkt = (L + KT - 1) / KT;
-  const int kb0 = wk * tc::KW;  // this warp's keys of each tile
-  // lane j's keys kb0 + j and kb0 + 32 + j of tile kt are masked or past L
-  auto key_dead = [&](int kt, int half) {
-    const int key = kt * KT + kb0 + half * 32 + lane;
-    return key >= L || (mb != nullptr && mb[key] != 0);
-  };
-  // S = Q K^T over the warp's 64 keys of stage s: eight n8 tiles; element e
-  // of tile n is row (e < 2 ? qa : qb), key kb0 + 8 n + 2 t4 + e % 2
-  auto scores = [&](int s, float (&sacc)[8][4]) {
+  int kr0 = NONE, kr1 = NONE;  // the rows' running maxima, integers
+  float l0 = 0.f, l1 = 0.f;    // this thread's share of the rows' sums against 2^kr
+  float o[D / 2];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KD; ++ks)
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        const int row = kb0 + np * 16 + (lane >> 4) * 8 + (lane & 7);
-        const int col = ks * 16 + ((lane >> 3) & 1) * 8;
-        uint32_t bfr[4];
-        ldmatrix_x4(bfr, &ksm[s][row][col]);
-        mma_bf16(sacc[2 * np], qf[ks], bfr[0], bfr[1]);
-        mma_bf16(sacc[2 * np + 1], qf[ks], bfr[2], bfr[3]);
-      }
-  };
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 
-  // pass 1: each row's maximum of s * scale * log2e over its unmasked keys
-  float ma = NEG, mbx = NEG;
-  {
-    bool d0 = key_dead(0, 0), d1 = key_dead(0, 1);
-    if (nkt > 0) load_tile(0, 0, false);
-    cp_async_commit();
-    for (int kt = 0; kt < nkt; ++kt) {
-      const int s = kt & 1;
-      cp_async_wait<0>();
-      __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
-      if (kt + 1 < nkt) load_tile(kt + 1, s ^ 1, false);
-      cp_async_commit();
-      const unsigned dead_lo = __ballot_sync(0xffffffffu, d0), dead_hi = __ballot_sync(0xffffffffu, d1);
-      if (kt + 1 < nkt) d0 = key_dead(kt + 1, 0), d1 = key_dead(kt + 1, 1);
-      if ((dead_lo & dead_hi) == 0xffffffffu) continue;  // the warp's 64 keys are all masked
-      float sacc[8][4];
-      scores(s, sacc);
+  for (int n = wg; n < n_live; n += 2) {
+    const int stage = n % STAGES, key0 = (t_begin + list[n]) * BN;
+    mbar_wait(&full[stage], (n / STAGES) & 1);
+    const uint64_t bits = live[list[n]];
+    const bf16* kt = reinterpret_cast<const bf16*>(smem + S::RING + stage * 2 * S::TILE);
+    const bf16* vt = kt + BN * D;
+    // S = Q K^T: 64 x 64, fp32
+    float s[32];
+    wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss(s, wgmma_desc(qs + ks * 2 * BM * 8, BM * 16, 128), wgmma_desc(kt + ks * 2 * BN * 8, BN * 16, 128),
+               ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(s);
+    // y = s * scale * log2 e - t_ref on the live keys, the rows' maxima (most
+    // tiles have every key live: they skip the test, the same for the warp)
+    float m0 = -INFINITY, m1 = -INFINITY;
+    if (bits == ~0ull) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = (n & 3) * 8 + 2 * t4 + (e & 1);
-          if (((n < 4 ? dead_lo : dead_hi) >> c) & 1u) continue;
-          const float t = __fmul_rn(sacc[n][e], sl2);
-          if (e < 2) ma = fmaxf(ma, t);
-          else mbx = fmaxf(mbx, t);
+          const float y = __fsub_rn(__fmul_rn(s[4 * j + e], sl2), e < 2 ? tr0 : tr1);
+          s[4 * j + e] = y;
+          if (e < 2) m0 = fmaxf(m0, y);
+          else m1 = fmaxf(m1, y);
         }
-    }
-  }
+    } else {
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, off));
-    mbx = fmaxf(mbx, __shfl_xor_sync(0xffffffffu, mbx, off));
-  }
-  if (t4 == 0) {
-    red[wk][ra] = ma;
-    red[wk][rb] = mbx;
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-#pragma unroll
-  for (int w = 0; w < KS; ++w) {
-    ma = fmaxf(ma, red[w][ra]);
-    mbx = fmaxf(mbx, red[w][rb]);
-  }
-  __syncthreads();  // red is written again below
-
-  // pass 2: p = exp2(s * scale * log2e - max), l += p, O += keep(p) V
-  float la = 0.f, lb = 0.f;
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  {
-    bool d0 = key_dead(0, 0), d1 = key_dead(0, 1);
-    if (nkt > 0) load_tile(0, 0, true);
-    cp_async_commit();
-    for (int kt = 0; kt < nkt; ++kt) {
-      const int s = kt & 1, k0 = kt * KT;
-      cp_async_wait<0>();
-      __syncthreads();
-      if (kt + 1 < nkt) load_tile(kt + 1, s ^ 1, true);
-      cp_async_commit();
-      const unsigned dead_lo = __ballot_sync(0xffffffffu, d0), dead_hi = __ballot_sync(0xffffffffu, d1);
-      if (kt + 1 < nkt) d0 = key_dead(kt + 1, 0), d1 = key_dead(kt + 1, 1);
-      if ((dead_lo & dead_hi) == 0xffffffffu) continue;
-      float sacc[8][4];
-      scores(s, sacc);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = (n & 3) * 8 + 2 * t4 + (e & 1);
-          const bool dead = ((n < 4 ? dead_lo : dead_hi) >> c) & 1u;
-          float p = dead ? 0.f : exp2_ftz(__fsub_rn(__fmul_rn(sacc[n][e], sl2), e < 2 ? ma : mbx));
-          if (e < 2) la += p;  // the denominator is taken before dropout
-          else lb += p;
-          if (DROPOUT) {
-            const int qrow = e < 2 ? qa : qb, key = k0 + kb0 + n * 8 + 2 * t4 + (e & 1);
-            p = dropout_keep(mix, qrow, key, thresh) ? p : 0.f;
-          }
-          sacc[n][e] = p;
+          const int c = 8 * j + 2 * t4 + (e & 1);
+          const float y = (bits >> c) & 1 ? __fsub_rn(__fmul_rn(s[4 * j + e], sl2), e < 2 ? tr0 : tr1) : -INFINITY;
+          s[4 * j + e] = y;
+          if (e < 2) m0 = fmaxf(m0, y);
+          else m1 = fmaxf(m1, y);
         }
-      // O += P V over the warp's 64 keys: four k16 steps
+    }
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t ap[4] = {pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
-                                pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
-                                pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
-                                pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
+    for (int off = 1; off < 4; off <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    // the running maxima stay integers, so a rescale is an exact power of two
+    {
+      const int n0 = max(kr0, m0 == -INFINITY ? NONE : __float2int_rn(m0));
+      const int n1 = max(kr1, m1 == -INFINITY ? NONE : __float2int_rn(m1));
+      const float a0 = pow2i(kr0 - n0), a1 = pow2i(kr1 - n1);
+      kr0 = n0;
+      kr1 = n1;
+      l0 *= a0;
+      l1 *= a1;
 #pragma unroll
-        for (int dn = 0; dn < NT / 2; ++dn) {
-          const int row = kb0 + kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-          const int col = dn * 16 + (lane >> 4) * 8;
-          uint32_t bfr[4];
-          ldmatrix_x4_trans(bfr, &vsm[s][row][col]);
-          mma_bf16(acc[2 * dn], ap, bfr[0], bfr[1]);
-          mma_bf16(acc[2 * dn + 1], ap, bfr[2], bfr[3]);
-        }
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= a0;
+        o[4 * j + 1] *= a0;
+        o[4 * j + 2] *= a1;
+        o[4 * j + 3] *= a1;
       }
     }
+    // p = 2^(y - rint y) 2^(rint y - kr): the exponential of the fraction, its
+    // exponent field raised by the integer part (exact while p is normal)
+    const float c0 = (float)(kr0 - 125), c1 = (float)(kr1 - 125);
+    const uint32_t ksh0 = (uint32_t)kr0 << 23, ksh1 = (uint32_t)kr1 << 23;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float y = s[4 * j + e];
+        const float rp = __fadd_rn(y, MAGIC);
+        const float x = __fsub_rn(y, __fsub_rn(rp, MAGIC));
+        const uint32_t pb = __float_as_uint(exp2_ftz(x)) + (__float_as_uint(rp) << 23) - (e < 2 ? ksh0 : ksh1);
+        float p = y > (e < 2 ? c0 : c1) ? __uint_as_float(pb) : 0.f;
+        if (e < 2) l0 += p;  // the denominator is taken before dropout
+        else l1 += p;
+        if (DROPOUT) {
+          const int qrow = e < 2 ? qa : qb, key = key0 + 8 * j + 2 * t4 + (e & 1);
+          p = dropout_keep(mix, qrow, key, thresh) ? p : 0.f;
+        }
+        s[4 * j + e] = p;
+      }
+    // O += P V: P from registers, four k16 steps over the tile's keys
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(o, a[kk], wgmma_desc(vt + kk * 16 * 8, 128, BN * 16));
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
   }
 
-  // the row sums of the quad, then of the key splits, and the key splits'
-  // partial O, added in split order by split 0
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
-    la += __shfl_xor_sync(0xffffffffu, la, off);
-    lb += __shfl_xor_sync(0xffffffffu, lb, off);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free
-  if (t4 == 0) {
-    red[wk][ra] = la;
-    red[wk][rb] = lb;
+  // warpgroup 1 hands its partial to warpgroup 0, which adds it second
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) merge_o[i * 128 + t] = o[i];
+    if (t4 == 0) {
+      merge_l[r0] = l0;
+      merge_l[r1] = l1;
+      merge_k[r0] = kr0;
+      merge_k[r1] = kr1;
+    }
   }
-  if (wk > 0) {
+  named_sync(1, CONSUMERS);
+  if (wg == 1) return;
+  {
+    const int n0 = max(kr0, merge_k[r0]), n1 = max(kr1, merge_k[r1]);
+    const float a00 = pow2i(kr0 - n0), a01 = pow2i(merge_k[r0] - n0);
+    const float a10 = pow2i(kr1 - n1), a11 = pow2i(merge_k[r1] - n1);
+    l0 = __fadd_rn(__fmul_rn(l0, a00), __fmul_rn(merge_l[r0], a01));
+    l1 = __fadd_rn(__fmul_rn(l1, a10), __fmul_rn(merge_l[r1], a11));
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        partial[((wk - 1) * BR + (e < 2 ? ra : rb)) * PS + n * 8 + 2 * t4 + (e & 1)] = acc[n][e];
+    for (int i = 0; i < D / 2; ++i) {
+      const bool row1 = i & 2;
+      o[i] = __fadd_rn(__fmul_rn(o[i], row1 ? a10 : a00), __fmul_rn(merge_o[i * 128 + t], row1 ? a11 : a01));
+    }
+    kr0 = n0;
+    kr1 = n1;
   }
-  __syncthreads();
-  if (wk > 0) return;
-  la = red[0][ra];
-  lb = red[0][rb];
+  if (splits == 1) {  // the rows' outputs and lse; a row with no unmasked key gives 0 and +1e30
+    const float inv0 = 1.f / (keep_prob * fmaxf(l0, 1e-20f)), inv1 = 1.f / (keep_prob * fmaxf(l1, 1e-20f));
+    bf16* ob = out + b * st.o_b + h * st.o_h;
 #pragma unroll
-  for (int w = 1; w < KS; ++w) {
-    la += red[w][ra];
-    lb += red[w][rb];
+    for (int j = 0; j < D / 8; ++j) {
+      const int d = 8 * j + 2 * t4;
+      if (qa < Q)
+        *reinterpret_cast<uint32_t*>(ob + qa * st.o_s + d) = pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      if (qb < Q)
+        *reinterpret_cast<uint32_t*>(ob + qb * st.o_s + d) = pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
+    if (t4 == 0) {
+      if (qa < Q) lse[(long long)bh * Q + qa] = kr0 == NONE ? -NEG : (__fadd_rn(tr0, (float)kr0) + log2f(l0)) * LN2;
+      if (qb < Q) lse[(long long)bh * Q + qb] = kr1 == NONE ? -NEG : (__fadd_rn(tr1, (float)kr1) + log2f(l1)) * LN2;
+    }
+  } else {  // the split's partial: O against 2^kr, then (kr, l, t_ref) per row
+    const long long BHQ = (long long)gridDim.y * Q;
+    float* wo = ws + ((long long)split * BHQ + (long long)bh * Q) * D;
+    float* wst = ws + (long long)splits * BHQ * D + ((long long)split * BHQ + (long long)bh * Q) * 4;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[n][e] += partial[((w - 1) * BR + (e < 2 ? ra : rb)) * PS + n * 8 + 2 * t4 + (e & 1)];
+    for (int j = 0; j < D / 8; ++j) {
+      const int d = 8 * j + 2 * t4;
+      if (qa < Q) *reinterpret_cast<float2*>(wo + (long long)qa * D + d) = make_float2(o[4 * j], o[4 * j + 1]);
+      if (qb < Q) *reinterpret_cast<float2*>(wo + (long long)qb * D + d) = make_float2(o[4 * j + 2], o[4 * j + 3]);
+    }
+    if (t4 == 0) {
+      if (qa < Q) *reinterpret_cast<float4*>(wst + (long long)qa * 4) = make_float4((float)kr0, l0, tr0, 0.f);
+      if (qb < Q) *reinterpret_cast<float4*>(wst + (long long)qb * 4) = make_float4((float)kr1, l1, tr1, 0.f);
+    }
   }
-  // a fully masked row has acc = 0 and gives 0
-  const float inv_a = 1.f / (keep_prob * fmaxf(la, 1e-20f));
-  const float inv_b = 1.f / (keep_prob * fmaxf(lb, 1e-20f));
-  bf16* ob = out + b * st.o_b + h * st.o_h;
+}
+
+// The splits' partials of each row added in split order: one thread per
+// (row, 8 columns). The rescales are exact powers of two, as in the block.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_fwd_merge_kernel(const float* __restrict__ ws, bf16* __restrict__ out, float* __restrict__ lse, int BH, int H,
+                       int Q, int splits, Strides st, float keep_prob) {
+  using namespace k1;
+  constexpr int CH = D / 8;
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  const long long BHQ = (long long)BH * Q;
+  if (i >= BHQ * CH) return;
+  const int c = (int)(i % CH);
+  const long long row = i / CH;
+  const float* wst = ws + (long long)splits * BHQ * D;
+  int km = NONE;
+  for (int s = 0; s < splits; ++s) km = max(km, (int)wst[(s * BHQ + row) * 4]);
+  float l = 0.f, o[8];
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int d = n * 8 + 2 * t4;
-    if (qa < Q)
-      *reinterpret_cast<uint32_t*>(ob + qa * st.o_s + d) = pack_bf16(acc[n][0] * inv_a, acc[n][1] * inv_a);
-    if (qb < Q)
-      *reinterpret_cast<uint32_t*>(ob + qb * st.o_s + d) = pack_bf16(acc[n][2] * inv_b, acc[n][3] * inv_b);
+  for (int j = 0; j < 8; ++j) o[j] = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float a = pow2i((int)wst[(s * BHQ + row) * 4] - km);
+    l = __fadd_rn(l, __fmul_rn(wst[(s * BHQ + row) * 4 + 1], a));
+    const float4* src = reinterpret_cast<const float4*>(ws + (s * BHQ + row) * D + 8 * c);
+    const float4 u = src[0], v = src[1];
+    const float w[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = __fadd_rn(o[j], __fmul_rn(w[j], a));
   }
-  if (t4 == 0) {
-    if (qa < Q) lse[(long long)bh * Q + qa] = ma <= NEG * 0.5f ? -NEG : (ma + log2f(la)) * LN2;
-    if (qb < Q) lse[(long long)bh * Q + qb] = mbx <= NEG * 0.5f ? -NEG : (mbx + log2f(lb)) * LN2;
-  }
+  const int bh = (int)(row / Q), q = (int)(row % Q), b = bh / H, h = bh % H;
+  const float inv = 1.f / (keep_prob * fmaxf(l, 1e-20f));
+  bf16* orow = out + b * st.o_b + h * st.o_h + (long long)q * st.o_s + 8 * c;
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) *reinterpret_cast<uint32_t*>(orow + j) = pack_bf16(o[j] * inv, o[j + 1] * inv);
+  if (c == 0) lse[row] = km == NONE ? -NEG : (__fadd_rn(wst[row * 4 + 2], (float)km) + log2f(l)) * LN2;
 }
 
 // ------------------------------------------------------------- launches
@@ -538,41 +641,57 @@ int launch_fp32(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <int D, int QW, bool DROPOUT>
-int launch_tc(const Args& a) {
-  constexpr size_t smem = tc::smem_bytes<D, QW>();
-  static_assert((tc::WARPS / QW - 1) * QW * 16 * (D + 4) * sizeof(float) <= smem, "partial sums must fit");
-  // always: with the static shared memory, 48 KB of dynamic (D = 16) is past the default limit
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<D, QW, DROPOUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.Q + QW * 16 - 1) / (QW * 16), a.B * a.H);
-  flash_fwd_tc_kernel<D, QW, DROPOUT><<<grid, tc::THREADS, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<const uint8_t*>(a.mask), static_cast<bf16*>(a.out), static_cast<float*>(a.lse),
-      a.H, a.Q, a.L, a.st, a.scale, a.dr.seed, a.dr.thresh, a.dr.keep_prob, a.dr.bh_offset, a.dr.key_offset);
+template <int D, bool DROPOUT>
+int launch_wgmma(const Args& a, int splits, float* ws) {
+  using S = k1::Smem<D>;
+  CUtensorMap qm, km, vm;
+  MapOrder qo, ko, vo;
+  const long long qst[3] = {a.st.q_b, a.st.q_h, a.st.q_s}, kst[3] = {a.st.k_b, a.st.k_h, a.st.k_s},
+                  vst[3] = {a.st.v_b, a.st.v_h, a.st.v_s};
+  int err = encode_rows(&qm, &qo, a.q, a.B, a.H, a.Q, D, qst, k1::BM);
+  if (err == 0) err = encode_rows(&km, &ko, a.k, a.B, a.H, a.L, D, kst, k1::BN);
+  if (err == 0) err = encode_rows(&vm, &vo, a.v, a.B, a.H, a.L, D, vst, k1::BN);
+  if (err != 0) return err;
+  static bool sized = false;  // the dynamic shared memory above 48 KB, once per instantiation
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, DROPOUT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, S::ALLOC);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  const dim3 grid((a.Q + k1::BM - 1) / k1::BM, a.B * a.H, splits);
+  flash_fwd_wgmma_kernel<D, DROPOUT><<<grid, k1::THREADS, S::ALLOC, a.stream>>>(
+      qm, km, vm, qo, ko, vo, static_cast<const bf16*>(a.k), static_cast<const uint8_t*>(a.mask),
+      static_cast<bf16*>(a.out), static_cast<float*>(a.lse), ws, a.H, a.Q, a.L, splits, a.st, a.scale, a.dr.seed,
+      a.dr.thresh, a.dr.keep_prob, a.dr.bh_offset, a.dr.key_offset);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  const long long threads = (long long)a.B * a.H * a.Q * (D / 8);
+  flash_fwd_merge_kernel<D><<<(unsigned)((threads + 255) / 256), 256, 0, a.stream>>>(
+      ws, static_cast<bf16*>(a.out), static_cast<float*>(a.lse), a.B * a.H, a.H, a.Q, splits, a.st, a.dr.keep_prob);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int dispatch(bool tc_route, int query_warps, const Args& a) {
+int dispatch(bool bf16_route, int splits, float* ws, const Args& a) {
   const bool d = a.dr.on;
-  if (!tc_route) return d ? launch_fp32<D, true>(a) : launch_fp32<D, false>(a);
-  if (query_warps == 2) return d ? launch_tc<D, 2, true>(a) : launch_tc<D, 2, false>(a);
-  if (query_warps == 4) return d ? launch_tc<D, 4, true>(a) : launch_tc<D, 4, false>(a);
-  return (int)cudaErrorInvalidValue;
+  if (!bf16_route) return d ? launch_fp32<D, true>(a) : launch_fp32<D, false>(a);
+  return d ? launch_wgmma<D, true>(a, splits, ws) : launch_wgmma<D, false>(a, splits, ws);
 }
 
-// the bf16 kernel loads k and v rows in 16-byte pieces and q and out in
-// pairs: k and v 16-byte aligned with strides in multiples of 8 elements,
-// q and out 4-byte aligned with even strides
-bool tc_layout_ok(const Args& a) {
-  const long long kv[6] = {a.st.k_b, a.st.k_h, a.st.k_s, a.st.v_b, a.st.v_h, a.st.v_s};
-  const long long qo[6] = {a.st.q_b, a.st.q_h, a.st.q_s, a.st.o_b, a.st.o_h, a.st.o_s};
-  if ((reinterpret_cast<uintptr_t>(a.k) | reinterpret_cast<uintptr_t>(a.v)) & 15) return false;
-  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.out)) & 3) return false;
-  for (int i = 0; i < 6; ++i)
-    if (kv[i] % 8 || qo[i] % 2) return false;
+// the bf16 kernel reads q, k and v by TMA (16-byte aligned, strides in
+// multiples of 8 elements) and stores out in pairs (4-byte aligned, even
+// strides)
+bool wgmma_layout_ok(const Args& a) {
+  const long long in[9] = {a.st.q_b, a.st.q_h, a.st.q_s, a.st.k_b, a.st.k_h, a.st.k_s, a.st.v_b, a.st.v_h, a.st.v_s};
+  const long long o[3] = {a.st.o_b, a.st.o_h, a.st.o_s};
+  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) | reinterpret_cast<uintptr_t>(a.v)) & 15)
+    return false;
+  if (reinterpret_cast<uintptr_t>(a.out) & 3) return false;
+  for (int i = 0; i < 9; ++i)
+    if (in[i] % 8) return false;
+  for (int i = 0; i < 3; ++i)
+    if (o[i] % 2) return false;
   return true;
 }
 
@@ -580,24 +699,25 @@ bool tc_layout_ok(const Args& a) {
 
 extern "C" {
 
-// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
-// kernel; k and v 16-byte aligned with strides in multiples of 8, q and out
-// with even strides), for q, k, v and out. strides: 12 element strides, for
-// q, k, v and out in turn, each (batch, head, row); the last axis is
-// contiguous. mask: (B, L) bytes or NULL. dropout: 0 = off; else seed (the
-// int32 seed's bits), thresh and keep_prob = 1 - rate drop the probabilities
-// as dropout_hash.cuh says, at the global coordinates of a shard whose
-// first b*H + h is bh_offset and whose first key is key_offset (0 and 0 for
-// a whole problem). query_warps: the bf16 kernel's query rows per block over
-// 16 (2 or 4; its key splits are 8 / query_warps). Returns
-// cudaGetLastError() after the launch.
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the wgmma kernel;
+// q, k and v 16-byte aligned with strides in multiples of 8, out with even
+// strides), for q, k, v and out. strides: 12 element strides, for q, k, v and
+// out in turn, each (batch, head, row); the last axis is contiguous. mask:
+// (B, L) bytes or NULL. dropout: 0 = off; else seed (the int32 seed's bits),
+// thresh and keep_prob = 1 - rate drop the probabilities as dropout_hash.cuh
+// says, at the global coordinates of a shard whose first b*H + h is bh_offset
+// and whose first key is key_offset (0 and 0 for a whole problem). splits
+// (bf16): the key splits, each at most 512 tiles of 64 keys; above 1, ws
+// holds splits x B x H x Q x (D + 4) floats of workspace and a merge kernel
+// follows. Returns cudaGetLastError() after the launches, or 10000 + the
+// CUresult where a tensor map is refused.
 int petr_flash_cross_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* mask, void* out, void* lse,
                                    int B, int H, int Q, int L, int D, int dtype,
                                    const long long* strides, float scale,
                                    int dropout, uint32_t seed, uint32_t thresh,
                                    float keep_prob, uint32_t bh_offset, uint32_t key_offset,
-                                   int query_warps, void* stream) {
+                                   int splits, void* ws, void* stream) {
   Args a{q, k, v, mask, out, lse, B, H, Q, L, {}, scale,
          {dropout != 0, seed, thresh, keep_prob, bh_offset, key_offset},
          static_cast<cudaStream_t>(stream)};
@@ -606,17 +726,24 @@ int petr_flash_cross_attention_fwd(const void* q, const void* k, const void* v,
   a.st.v_b = strides[6]; a.st.v_h = strides[7]; a.st.v_s = strides[8];
   a.st.o_b = strides[9]; a.st.o_h = strides[10]; a.st.o_s = strides[11];
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  const bool tc_route = dtype == 1;
-  if (tc_route && !tc_layout_ok(a)) return (int)cudaErrorMisalignedAddress;
+  const bool bf16_route = dtype == 1;
+  if (bf16_route) {
+    const int tiles = (L + k1::BN - 1) / k1::BN;
+    if (!wgmma_layout_ok(a)) return (int)cudaErrorMisalignedAddress;
+    if (splits < 1 || splits > 65535 || (splits > 1 && ws == nullptr) ||
+        (tiles + splits - 1) / splits > k1::MAX_TILES)
+      return (int)cudaErrorInvalidValue;
+  }
   switch (D) {
-    case 16: return dispatch<16>(tc_route, query_warps, a);
-    case 32: return dispatch<32>(tc_route, query_warps, a);
-    case 64: return dispatch<64>(tc_route, query_warps, a);
+    case 16: return dispatch<16>(bf16_route, splits, static_cast<float*>(ws), a);
+    case 32: return dispatch<32>(bf16_route, splits, static_cast<float*>(ws), a);
+    case 64: return dispatch<64>(bf16_route, splits, static_cast<float*>(ws), a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 const char* petr_cuda_error_string(int err) {
+  if (err >= ENCODE_FAILED) return "cuTensorMapEncodeTiled refused a tensor map (CUresult = code - 10000)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -1,0 +1,276 @@
+// Hopper building blocks of the wgmma kernels (conv_int8.cu, K6;
+// flash_cross_attention.cu, K1; flash_cross_attention_bwd.cu, K2): mbarriers,
+// the tensor memory accelerator (cp.async.bulk.tensor) and bulk copies, the
+// warpgroup products wgmma.mma_async with their descriptors, fences and
+// waits, and the host's lookup of cuTensorMapEncodeTiled. sm_90a only.
+//
+// wgmma's shared-memory operands here are in the no-swizzle layout: 8 x 16-byte
+// core matrices of 128 contiguous bytes. A tile of R rows by D bf16 loaded by
+// the TMA as D / 8 boxes of (8 elements, R rows) sits as [D / 8][R][8]: read
+// K-major (rows = M or N, D = K) its descriptor takes leading byte offset
+// R * 16 (the next 8 elements of K) and stride byte offset 128 (the next 8
+// rows); read MN-major (rows = K, D = N) leading 128 (the next 8 rows of K)
+// and stride R * 16 (the next 8 elements of N).
+//
+// The accumulator of an m64nN product: thread t of the warpgroup holds, for
+// each n8 block j, d[4j + r] = (row 16 (t / 32) + (t % 32) / 4 + 8 (r / 2),
+// column 8j + 2 (t % 4) + r % 2). Two neighbouring n8 blocks rounded to bf16
+// in pairs are the A fragment of one k16 step of a product whose A comes from
+// registers (pack_bf16): the accumulator of S becomes the A operand of P V.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up in libcuda at run time
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tensor_core.cuh"  // smem_u32, pack_bf16, exp2_ftz
+
+// ------------------------------------------------------------- mbarriers
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+// after the initialisations, before any thread uses the barriers
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// returns once the phase of parity `parity` has completed; a wait that never
+// ends (a plan the kernel does not match) traps instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (tries == (1u << 28)) __trap();
+  }
+}
+
+// ------------------------------------------------ asynchronous copies
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// `bytes` contiguous bytes global -> shared (16-byte aligned, a multiple of 16),
+// completed on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// global[i] += shared[i] for `bytes` / 4 32-bit integers, in L2 (integer
+// sums: any order gives the same result); waited for before returning
+__device__ __forceinline__ void bulk_reduce_add(void* dst, const void* src, int bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.u32 [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// an arrival on `bar` once every cp.async this thread issued before has
+// landed; the barrier's count includes it (.noinc)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// --------------------------------------------------------------- wgmma
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads of an accumulator across the wait
+template <int N>
+__device__ __forceinline__ void wgmma_hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// a no-swizzle descriptor: the shared address / 16 in bits 0-13, the leading
+// and stride byte offsets / 16 in bits 16-29 and 32-45, layout 0
+__device__ __forceinline__ uint64_t wgmma_desc(const void* smem, uint32_t lead_bytes, uint32_t stride_bytes) {
+  return (uint64_t)((smem_u32(smem) & 0x3FFFF) >> 4) | ((uint64_t)(lead_bytes >> 4) << 16) |
+         ((uint64_t)(stride_bytes >> 4) << 32);
+}
+// bar.sync on named barrier `id` (1..15) among `threads` threads
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// D (64 x 32 fp32) (+)= A (64 x 16 bf16) B (32 x 16 bf16), both K-major in shared
+// memory through their descriptors; D is overwritten where `accumulate` is 0
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 64 fp32) (+)= A (64 x 16 bf16) B (64 x 16 bf16), both K-major in shared
+// memory through their descriptors; D is overwritten where `accumulate` is 0
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 16 fp32) += A (64 x 16 bf16, registers) B (16 x 16 bf16, MN-major in shared
+// memory through its descriptor)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 32 fp32) += A (64 x 16 bf16, registers) B (16 x 32 bf16, MN-major in shared
+// memory through its descriptor)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 64 fp32) += A (64 x 16 bf16, registers) B (16 x 64 bf16, MN-major in shared
+// memory through its descriptor)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ------------------------------------ tiles of a strided (B, H, rows, D) view
+// Where a view's row, head and batch coordinates sit among a tensor map's
+// coordinates 1..3 (coordinate 0 is the column): encode_rows orders the
+// three by stride.
+struct MapOrder {
+  int row, h, b;
+};
+// columns d .. d + 7 of rows row .. row + box_rows - 1 of head (b, h), as
+// [box_rows][8] at dst; rows past the view's end arrive as zeros
+__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, MapOrder o, uint64_t* bar, int d, int row,
+                                         int h, int b) {
+  const int c1 = o.row == 1 ? row : (o.h == 1 ? h : b);
+  const int c2 = o.row == 2 ? row : (o.h == 2 ? h : b);
+  const int c3 = o.row == 3 ? row : (o.h == 3 ? h : b);
+  tma_load_4d(dst, map, bar, d, c1, c2, c3);
+}
+
+// ---------------------------------------------------------------- host
+// cuTensorMapEncodeTiled, looked up at run time (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+constexpr int ENCODE_FAILED = 10000;  // + the CUresult (petr_cuda_error_string says so)
+
+// encode_rows' maps, kept per host thread. A map is a function of its
+// arguments alone, so a map encoded before from the same base, sizes, strides
+// and box is this one. A model's attention calls repeat a few dozen maps (the
+// caching allocator hands the same buffers back every forward and step), and
+// cuTensorMapEncodeTiled costs host time on every call that misses.
+struct RowsMapKey {
+  const void* base;
+  long long st[3];
+  int B, H, rows, D, box_rows;
+  bool operator==(const RowsMapKey& o) const {
+    return base == o.base && st[0] == o.st[0] && st[1] == o.st[1] && st[2] == o.st[2] && B == o.B && H == o.H &&
+           rows == o.rows && D == o.D && box_rows == o.box_rows;
+  }
+};
+struct RowsMapEntry {
+  CUtensorMap map;
+  RowsMapKey key;
+  MapOrder order;
+  bool used;
+};
+constexpr int ROWS_MAP_CACHE = 256;  // entries, replaced in turn
+
+// The tensor map of a bf16 (B, H, rows, D) view with element strides st =
+// (batch, head, row) and a contiguous last axis, for boxes of 8 columns by
+// box_rows rows (tma_rows): its dimensions in order of stride (a dimension of
+// size 1 last), each stride a multiple of 16 bytes. Returns 0 or
+// ENCODE_FAILED + the CUresult.
+static inline int encode_rows(CUtensorMap* map, MapOrder* order, const void* base, int B, int H, int rows, int D,
+                              const long long* st, int box_rows) {
+  static thread_local RowsMapEntry cache[ROWS_MAP_CACHE];
+  static thread_local int next = 0;
+  const RowsMapKey args{base, {st[0], st[1], st[2]}, B, H, rows, D, box_rows};
+  for (int i = 0; i < ROWS_MAP_CACHE && cache[i].used; ++i)
+    if (cache[i].key == args) {
+      *map = cache[i].map;
+      *order = cache[i].order;
+      return 0;
+    }
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return ENCODE_FAILED + CUDA_ERROR_NOT_FOUND;
+  struct Dim {
+    long long size, stride;
+    int box, role;  // role 0 row, 1 head, 2 batch
+  } dims[3] = {{rows > 0 ? rows : 1, st[2], box_rows, 0}, {H, st[1], 1, 1}, {B, st[0], 1, 2}};
+  auto key = [](const Dim& x) { return x.size == 1 ? (1LL << 62) : x.stride; };
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && key(dims[j]) < key(dims[j - 1]); --j) {
+      const Dim t = dims[j];
+      dims[j] = dims[j - 1];
+      dims[j - 1] = t;
+    }
+  cuuint64_t gdim[4] = {(cuuint64_t)D, 0, 0, 0}, gstride[3];
+  cuuint32_t box[4] = {8, 0, 0, 0}, es[4] = {1, 1, 1, 1};
+  long long prev = 2LL * D, prev_size = 1;
+  int* pos[3] = {&order->row, &order->h, &order->b};
+  for (int i = 0; i < 3; ++i) {
+    // a dimension of size 1 is never stepped over: any stride past the last one does
+    const long long bytes = dims[i].size == 1 ? prev * prev_size : 2 * dims[i].stride;
+    gdim[i + 1] = (cuuint64_t)dims[i].size;
+    gstride[i] = (cuuint64_t)bytes;
+    box[i + 1] = (cuuint32_t)dims[i].box;
+    *pos[dims[i].role] = i + 1;
+    prev = bytes;
+    prev_size = dims[i].size;
+  }
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gdim, gstride, box, es,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return ENCODE_FAILED + static_cast<int>(r);
+  cache[next] = RowsMapEntry{*map, args, *order, true};
+  next = (next + 1) % ROWS_MAP_CACHE;
+  return 0;
+}

@@ -1,7 +1,8 @@
-// Building blocks of the bf16 tensor-core kernels (conv3x3_bn_relu.cu and
-// flash_cross_attention_bwd.cu): asynchronous copies global -> shared
-// (cp.async), 8x8 matrix loads from shared memory (ldmatrix) and the warp-wide
-// bf16 product mma.sync.m16n8k16 with fp32 sums.
+// Building blocks of the mma.sync bf16 kernels (conv3x3_bn_relu.cu and
+// deform_conv.cu): asynchronous copies global -> shared (cp.async), 8x8
+// matrix loads from shared memory (ldmatrix) and the warp-wide bf16 product
+// mma.sync.m16n8k16 with fp32 sums; hopper.cuh takes smem_u32, pack_bf16 and
+// exp2_ftz from here.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major), 4 registers of 2 bf16: (g, 2t..2t+1), (g + 8, 2t..),

@@ -8,6 +8,9 @@ there. A build writes to a temporary name and
 renames it into place, so two processes building at once cannot leave a
 half-written library behind. Nothing is built when the package is imported:
 the first call of a kernel's wrapper on a CUDA tensor builds it.
+``library`` binds a library's C functions (each returns its launch's error
+code) and ``check`` raises on a code that is not 0, with the library's
+``petr_cuda_error_string`` for it.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -74,3 +77,22 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """``load(name)`` with each C function of ``signatures`` given its
+    argument types and an int result (the launch's error code), and the
+    library's ``petr_cuda_error_string``."""
+    lib = load(name)
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.petr_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.petr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a code that is not 0."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed ({err}): " + lib.petr_cuda_error_string(err).decode())

@@ -235,32 +235,22 @@ def _forward_cuda(x, weight, mul, add, relu):
         err = lib.petr_conv3x3_bn_relu_tc_fwd(
             x.data_ptr(), wr.data_ptr(), *ptrs, out.data_ptr(), None if part is None else part.data_ptr(),
             B, C, wr.shape[3], H, W, Co, th, tw, ksplit, int(relu), stream)
-        _raise_on(lib, err, "bf16")
+        build.check(lib, err, "conv3x3_bn_relu bf16")
         LAUNCHES += 1
         SPLITK_LAUNCHES += ksplit > 1
     else:
         weight = weight.to(torch.float32).contiguous()
         err = lib.petr_conv3x3_bn_relu_fp32_fwd(
             x.data_ptr(), weight.data_ptr(), *ptrs, out.data_ptr(), B, C, H, W, Co, int(relu), stream)
-        _raise_on(lib, err, "fp32")
+        build.check(lib, err, "conv3x3_bn_relu fp32")
         LAUNCHES_FP32 += 1
     return out
 
 
-def _raise_on(lib, err: int, variant: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"conv3x3_bn_relu {variant} kernel launch failed: "
-                           + lib.petr_cuda_error_string(err).decode())
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = build.load("conv3x3_bn_relu")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.petr_conv3x3_bn_relu_fp32_fwd.argtypes = [P] * 5 + [I] * 6 + [P]
-    lib.petr_conv3x3_bn_relu_fp32_fwd.restype = I
-    lib.petr_conv3x3_bn_relu_tc_fwd.argtypes = [P] * 6 + [I] * 10 + [P]
-    lib.petr_conv3x3_bn_relu_tc_fwd.restype = I
-    lib.petr_cuda_error_string.argtypes = [I]
-    lib.petr_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.library("conv3x3_bn_relu", {
+        "petr_conv3x3_bn_relu_fp32_fwd": [P] * 5 + [I] * 6 + [P],
+        "petr_conv3x3_bn_relu_tc_fwd": [P] * 6 + [I] * 10 + [P],
+    })

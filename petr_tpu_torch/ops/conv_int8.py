@@ -566,7 +566,7 @@ def quantize_rows(x: torch.Tensor, sa: torch.Tensor, plan: ConvPlan, stream: Opt
     xq = torch.empty(plan.rows_bytes, dtype=torch.int8, device=x.device)
     err = lib.petr_quantize_act(x.data_ptr(), _DTYPE_CODES[x.dtype], sa.data_ptr(), xq.data_ptr(), plan.c_quant_args,
                                 _stream(x) if stream is None else stream)
-    _raise_on(lib, err, "activation quantisation")
+    build.check(lib, err, "conv_int8 activation quantisation")
     QUANT_LAUNCHES += 1
     return xq
 
@@ -612,7 +612,7 @@ def conv_rows(xq: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor, add: torc
         xq.data_ptr(), wt.data_ptr(), scale.data_ptr(), add.data_ptr(), out.data_ptr(),
         plan.c_kernel_args(OUT_KINDS[out_dtype], relu), plan.bn, plan.c_map_args,
         None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr(), stream)
-    _raise_on(lib, err, "conv")
+    build.check(lib, err, "conv_int8 conv")
     LAUNCHES += 1
     return out
 
@@ -641,20 +641,10 @@ def conv_int8_accumulate(x: torch.Tensor, wi: torch.Tensor, sa: torch.Tensor, st
     return _forward_cuda(x, wt, sa, zeros, zeros, stride, False, torch.int32)
 
 
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"conv_int8 {what} kernel launch failed ({err}): "
-                           + lib.petr_cuda_error_string(err).decode())
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = build.load("conv_int8")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.petr_quantize_act.argtypes = [P, I, P, P, P, P]
-    lib.petr_quantize_act.restype = I
-    lib.petr_conv_int8_fwd.argtypes = [P] * 6 + [I] + [P] * 4
-    lib.petr_conv_int8_fwd.restype = I
-    lib.petr_cuda_error_string.argtypes = [I]
-    lib.petr_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.library("conv_int8", {
+        "petr_quantize_act": [P, I, P, P, P, P],
+        "petr_conv_int8_fwd": [P] * 6 + [I] + [P] * 4,
+    })

@@ -6,14 +6,15 @@ it both ways. On CUDA tensors its forward launches K1, a hand-written
 kernel of ``petr_tpu_torch/csrc/flash_cross_attention.cu`` (replacing
 `petr_tpu/ops/pallas/cross_attention.py::_kernel`), and its backward
 launches K2, the two kernels of ``csrc/flash_cross_attention_bwd.cu``
-(replacing `_bwd_kernel`): each on the tensor cores for bf16, on the CUDA
-cores for fp32, chosen by dtype. On CPU tensors it runs the plain versions,
+(replacing `_bwd_kernel`): each on wgmma for bf16, on the CUDA cores for
+fp32, chosen by dtype. On CPU tensors it runs the plain versions,
 ``flash_cross_attention_reference`` and
 ``flash_cross_attention_backward_reference``: dense fp32 PyTorch with the
 same semantics, which the tests and ``chip_smoke.py`` hold the kernels to.
-The bf16 forward rounds the probabilities to bf16 for their product with v;
-``flash_cross_attention_reference(..., round_p=True)`` makes that rounding
-at the same point (its rounding floor).
+The bf16 forward rounds the probabilities to bf16 for their product with v,
+in one pass over the keys; ``flash_cross_attention_reference(...,
+round_p=True)`` rounds the same values at the same point (its rounding
+floor, ``rounded_probabilities``).
 
 Semantics: scale 1/sqrt(D), masked keys (True = padded) take no weight, fp32
 softmax, output in the input dtype plus the per-row fp32 logsumexp. A row
@@ -125,11 +126,11 @@ def flash_cross_attention_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense fp32 attention with K1's exact semantics -> (out, lse).
 
-    ``round_p=True`` is the bf16 kernel's rounding floor: the logits in log2
-    units (q.k times fp32(scale * log2 e)), p = exp2(t - max) against each
-    row's final maximum, and p rounded to bf16 before its product with v,
-    where the kernel rounds it; the denominator and lse come from the
-    unrounded p, and the dropout scale is applied after the product."""
+    ``round_p=True`` is the bf16 kernel's rounding floor: p as
+    ``rounded_probabilities`` takes it (against the row's first unmasked
+    logit, in integer powers of two), rounded to bf16 before its product
+    with v, where the kernel rounds it; the denominator and lse come from
+    the unrounded p, and the dropout scale is applied after the product."""
     B, H, Q, D = q.shape
     L = k.shape[2]
     if L == 0:
@@ -166,24 +167,48 @@ def _fp32(x: float) -> float:
     return struct.unpack("f", struct.pack("f", x))[0]
 
 
+def rounded_probabilities(q: torch.Tensor, k: torch.Tensor, masked: Optional[torch.Tensor]):
+    """The bf16 kernel's probabilities before their rounding to bf16 ->
+    (p (B, H, Q, L) fp32, K (B, H, Q, 1), t_ref (B, H, Q, 1), has (B, 1, 1, 1)).
+
+    The logits in log2 units, t = q.k times fp32(scale * log2 e), are taken
+    against t_ref, the logit of the row's first unmasked key (0 where a
+    batch row has none: ``has`` False): y = t - t_ref. K = rint(max y), an
+    integer, and p = 2^(y - rint y) * 2^(rint y - K) on the unmasked keys
+    where rint y - K >= -125 (y > K - 125), else 0. y - rint y is exact, so
+    bf16(p) = bf16(2^(y - rint y)) 2^(rint y - K): a one-pass kernel that
+    keeps K as a running maximum and rescales by exact powers of two rounds
+    every p to these values, whatever its tiles and their order. ``masked``
+    is (B, 1, 1, L), True = padded, or None."""
+    B, H, Q, D = q.shape
+    L = k.shape[2]
+    t = torch.matmul(q.float(), k.float().transpose(-1, -2)) * logit_scale_log2(D)
+    live = torch.ones((B, 1, 1, L), dtype=torch.bool, device=q.device) if masked is None else ~masked
+    has = live.any(-1, keepdim=True)
+    j0 = live.int().argmax(-1, keepdim=True).expand(B, H, Q, 1)
+    t_ref = torch.where(has, t.gather(-1, j0), 0.0)
+    y = torch.where(live, t - t_ref, -math.inf)
+    K = torch.round(y.amax(-1, keepdim=True))
+    n = torch.round(y)
+    ok = live & (y > K - 125)
+    expo = torch.where(ok, n - K, 0.0).to(torch.int32)
+    pow2 = ((expo + 127) << 23).view(torch.float32)  # 2^(rint y - K), exact
+    p = torch.where(ok, torch.exp2(y - n) * pow2, 0.0)
+    return p, K, t_ref, has
+
+
 def _reference_rounded(q, k, v, masked, dropout_rate, dropout_seed, dropout_offsets=(0, 0)):
     """``flash_cross_attention_reference(..., round_p=True)``."""
     B, H, Q, D = q.shape
     L = k.shape[2]
-    t = torch.matmul(q.float(), k.float().transpose(-1, -2)) * logit_scale_log2(D)
-    if masked is not None:
-        t = t.masked_fill(masked, NEG)
-    m = t.amax(-1, keepdim=True)
-    p = torch.exp2(t - m)
-    if masked is not None:
-        p = p.masked_fill(masked, 0.0)
+    p, K, t_ref, has = rounded_probabilities(q, k, masked)
     l = p.sum(-1, keepdim=True)
     p = p.bfloat16().float()
     if dropout_rate > 0.0:
         keep = dropout_keep_mask(dropout_seed or 0, B, H, Q, L, dropout_rate, q.device, dropout_offsets)
         p = torch.where(keep, p, 0.0)
     out = torch.matmul(p, v.float()) / (1.0 - dropout_rate) / l.clamp(min=1e-20)
-    lse = torch.where(m <= NEG * 0.5, torch.full_like(m, -NEG), (m + torch.log2(l)) * math.log(2.0))
+    lse = torch.where(has, ((t_ref + K) + torch.log2(l)) * math.log(2.0), -NEG)
     return out.to(q.dtype), lse[..., 0]
 
 
@@ -412,9 +437,9 @@ def _last_contiguous(*ts):
 
 def _rows_aligned(*ts):
     """Each tensor as it is when its rows start on 16-byte boundaries (the
-    bf16 kernels copy them in 16-byte pieces), else a contiguous
-    copy in a new allocation: the (B, H, ., D) views of projections already
-    are."""
+    bf16 kernels read them by TMA, whose base and strides are multiples of
+    16 bytes), else a contiguous copy in a new allocation: the (B, H, ., D)
+    views of projections already are."""
     return tuple(t if t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
                  else t.clone(memory_format=torch.contiguous_format) for t in ts)
 
@@ -441,45 +466,54 @@ def _dropout_args(dropout_rate: float, dropout_seed: Optional[int], H: int = 1,
             (b0 * H) & _M32, k0 & _M32)
 
 
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: " + lib.petr_cuda_error_string(err).decode())
+# the bf16 forward's blocks: 64 query rows by one split of the keys, in
+# tiles of 64 keys, two blocks resident per SM
+BLOCK_ROWS = 64
+KEY_TILE = 64
+MAX_SPLIT_TILES = 512  # key tiles of one split (the kernel's shared-memory lists)
 
 
-def attention_plan(batch_heads: int, Q: int, sms: int) -> int:
-    """Query warps per block of the bf16 forward (``query_warps``, 2 or 4):
-    its 8 warps hold 16 query rows each in 8 / query_warps key splits. 64-row
-    blocks (4 query warps, 2 key splits) where they reach one block per SM;
-    else 32-row blocks (4 key splits), twice as many. At the flagship (B=1, 8
-    heads, Q = 900) on 132 SMs: 120 blocks of 64 rows, so 232 of 32."""
-    return 4 if -(-Q // 64) * batch_heads >= sms else 2
+def forward_splits(batch_heads: int, Q: int, L: int, sms: int) -> int:
+    """Key splits of the bf16 forward and of K2's dQ kernel, whose blocks
+    are cut alike. The blocks of 64 query rows alone (one per (b, h) and row
+    tile) fill the card's 2 x ``sms`` block slots where they are many; else
+    the keys are split so that the blocks fill them once (at the flagship,
+    8 heads x 15 row tiles: 2 splits, 240 blocks on 132 SMs), each split at
+    least two tiles (one for each consumer warpgroup), and none more than
+    MAX_SPLIT_TILES."""
+    tiles = -(-L // KEY_TILE)
+    blocks = -(-Q // BLOCK_ROWS) * batch_heads
+    splits = min(max(1, 2 * sms // max(blocks, 1)), max(1, tiles // 2))
+    return max(splits, -(-tiles // MAX_SPLIT_TILES))
 
 
-def key_split_plan(L: int, query_warps: int):
-    """The keys each key split of the bf16 forward covers, in the order the
-    kernel adds their partial sums: split w takes keys w*64 .. w*64 + 63 of
-    every staged tile of (8 / query_warps) * 64 keys -> one list of key
-    ranges per split."""
-    splits = 8 // query_warps
-    tile = splits * 64
-    return [[(t + 64 * w, min(t + 64 * w + 64, L)) for t in range(0, L, tile) if t + 64 * w < L]
-            for w in range(splits)]
+def split_tiles(L: int, splits: int, tile: int = KEY_TILE):
+    """The key tiles of each split, as the bf16 forward and K2's dQ kernel
+    cut them: split s takes tiles s T // splits .. (s + 1) T // splits - 1 of
+    the T = ceil(L / tile) -> one (first, past the last) pair per split."""
+    tiles = -(-L // tile)
+    return [(s * tiles // splits, (s + 1) * tiles // splits) for s in range(splits)]
 
 
-def _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed, query_warps=None, offsets=(0, 0)):
-    """K1: (out, lse), the tensor-core kernel for bf16 and the CUDA-core one
-    for fp32. ``query_warps`` overrides ``attention_plan`` (bf16 only);
-    ``offsets`` are the hash's (first batch row, first key)."""
+def _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed, splits=None, offsets=(0, 0)):
+    """K1: (out, lse), the wgmma kernel for bf16 and the CUDA-core one for
+    fp32. ``splits`` overrides ``forward_splits`` (bf16 only); ``offsets``
+    are the hash's (first batch row, first key)."""
     global LAUNCHES, LAUNCHES_FP32
     B, H, Q, L, D = _check_inputs(q, k, v)
     q, k, v = _last_contiguous(q, k, v)
     bf16 = q.dtype == torch.bfloat16
+    ws = None
     if bf16:
         q, k, v = _rows_aligned(q, k, v)
-        if query_warps is None:
-            query_warps = attention_plan(B * H, Q, _sm_count(q.device))
-        if query_warps not in (2, 4):
-            raise ValueError(f"query_warps must be 2 or 4, got {query_warps}")
+        if splits is None:
+            splits = forward_splits(B * H, Q, L, _sm_count(q.device))
+        if not 1 <= splits <= 65535 or max(hi - lo for lo, hi in split_tiles(L, splits)) > MAX_SPLIT_TILES:
+            raise ValueError(f"splits {splits} out of range for L = {L}")
+        if splits > 1:  # each split's partial O, then (K, l, t_ref, unused) per row
+            ws = torch.empty(splits * B * H * Q * (D + 4), dtype=torch.float32, device=q.device)
+    else:
+        splits = 1
     _, mask_ptr = _mask_ptr(key_padding_mask, B, L, q.device)
     drop = _dropout_args(dropout_rate, dropout_seed, H, offsets)
     out = torch.empty((B, Q, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -493,9 +527,10 @@ def _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed, query_w
     err = lib.petr_flash_cross_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
         lse.data_ptr(), B, H, Q, L, D, _DTYPE_CODES[q.dtype], strides,
-        1.0 / math.sqrt(D), *drop, query_warps or 0, torch.cuda.current_stream(q.device).cuda_stream,
+        1.0 / math.sqrt(D), *drop, splits, None if ws is None else ws.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(lib, err, "flash_cross_attention " + ("bf16" if bf16 else "fp32"))
+    build.check(lib, err, "flash_cross_attention " + ("bf16" if bf16 else "fp32"))
     if bf16:
         LAUNCHES += 1
     else:
@@ -504,11 +539,14 @@ def _forward_cuda(q, k, v, key_padding_mask, dropout_rate, dropout_seed, query_w
 
 
 def _backward_cuda(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, dropout_seed,
-                   kernels=("dkdv", "dq"), offsets=(0, 0)):
+                   kernels=("dkdv", "dq"), offsets=(0, 0), dq_splits=None):
     """K2: (dq, dk, dv) in q's dtype, from the dK/dV kernel and the dQ kernel,
-    the tensor-core variants for bf16 and the CUDA-core ones for fp32.
+    the wgmma variants for bf16 and the CUDA-core ones for fp32; the bf16 dQ
+    kernel splits the keys as ``forward_splits`` says (a merge kernel adds
+    the splits' partial sums in order, within the same launch count).
     ``kernels`` names the kernels to launch (a timing can take one alone;
-    the outputs of the other are then left unwritten)."""
+    the outputs of the other are then left unwritten); ``dq_splits``
+    overrides the dQ kernel's splits."""
     global DKDV_LAUNCHES, DQ_LAUNCHES, DKDV_LAUNCHES_FP32, DQ_LAUNCHES_FP32
     B, H, Q, L, D = _check_inputs(q, k, v)
     if gout.shape != q.shape or lse.shape != (B, H, Q) or delta.shape != (B, H, Q):
@@ -535,14 +573,20 @@ def _backward_cuda(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, dr
     tail = (_DTYPE_CODES[q.dtype], strides, 1.0 / math.sqrt(D), *drop, stream)
     if "dkdv" in kernels:
         err = lib.petr_flash_cross_attention_bwd_dkdv(*common, dk.data_ptr(), dv.data_ptr(), B, H, Q, L, D, *tail)
-        _raise_on(lib, err, "flash_cross_attention dK/dV")
+        build.check(lib, err, "flash_cross_attention dK/dV")
         if q.dtype == torch.bfloat16:
             DKDV_LAUNCHES += 1
         else:
             DKDV_LAUNCHES_FP32 += 1
     if "dq" in kernels:
-        err = lib.petr_flash_cross_attention_bwd_dq(*common, dq.data_ptr(), B, H, Q, L, D, *tail)
-        _raise_on(lib, err, "flash_cross_attention dQ")
+        splits, ws = 1, None
+        if q.dtype == torch.bfloat16:  # the dQ kernel splits the keys as the forward does
+            splits = forward_splits(B * H, Q, L, _sm_count(q.device)) if dq_splits is None else dq_splits
+            if splits > 1:
+                ws = torch.empty(splits * B * H * Q * D, dtype=torch.float32, device=q.device)
+        err = lib.petr_flash_cross_attention_bwd_dq(*common, dq.data_ptr(), B, H, Q, L, D, *tail[:-1], splits,
+                                                    None if ws is None else ws.data_ptr(), stream)
+        build.check(lib, err, "flash_cross_attention dQ")
         if q.dtype == torch.bfloat16:
             DQ_LAUNCHES += 1
         else:
@@ -552,30 +596,20 @@ def _backward_cuda(q, k, v, key_padding_mask, gout, lse, delta, dropout_rate, dr
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _DROP = [_I, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32]
-
-
-def _bind(lib: ctypes.CDLL, fn: str, argtypes) -> None:
-    getattr(lib, fn).argtypes = argtypes
-    getattr(lib, fn).restype = ctypes.c_int
-    lib.petr_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.petr_cuda_error_string.restype = ctypes.c_char_p
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
 
 
 @functools.lru_cache(maxsize=None)
 def _forward_library() -> ctypes.CDLL:
-    lib = build.load("flash_cross_attention")
-    _bind(lib, "petr_flash_cross_attention_fwd", [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, *_DROP, _I, _P,
-    ])
-    return lib
+    return build.library("flash_cross_attention", {
+        "petr_flash_cross_attention_fwd": [_P] * 6 + [_I] * 6 + [_STRIDES, ctypes.c_float, *_DROP, _I, _P, _P],
+    })
 
 
 @functools.lru_cache(maxsize=None)
 def _backward_library() -> ctypes.CDLL:
-    lib = build.load("flash_cross_attention_bwd")
-    head = [_P] * 7
-    tail = [_I, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, *_DROP, _P]
-    _bind(lib, "petr_flash_cross_attention_bwd_dkdv", head + [_P, _P, _I, _I, _I, _I, _I] + tail)
-    _bind(lib, "petr_flash_cross_attention_bwd_dq", head + [_P, _I, _I, _I, _I, _I] + tail)
-    return lib
+    head, tail = [_P] * 7, [_I, _STRIDES, ctypes.c_float, *_DROP]
+    return build.library("flash_cross_attention_bwd", {
+        "petr_flash_cross_attention_bwd_dkdv": head + [_P, _P] + [_I] * 5 + tail + [_P],
+        "petr_flash_cross_attention_bwd_dq": head + [_P] + [_I] * 5 + tail + [_I, _P, _P],
+    })

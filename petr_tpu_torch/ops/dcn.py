@@ -246,7 +246,7 @@ def _forward_cuda(x, off_mask, weight, stride, dilation):
         err = lib.petr_deform_conv_tc_fwd(
             xs.data_ptr(), off_mask.data_ptr(), modulation.data_ptr(), wr.data_ptr(), out.data_ptr(),
             B, Cin, Cp, H, W, Cout, Ho, Wo, stride, dilation, stream)
-        _raise_on(lib, err, "bf16")
+        build.check(lib, err, "deform_conv bf16")
         LAUNCHES += 1
     else:
         x = x.contiguous()
@@ -254,25 +254,15 @@ def _forward_cuda(x, off_mask, weight, stride, dilation):
         err = lib.petr_deform_conv_fp32_fwd(
             x.data_ptr(), off_mask.data_ptr(), weight.data_ptr(), out.data_ptr(),
             B, Cin, H, W, Cout, Ho, Wo, stride, dilation, stream)
-        _raise_on(lib, err, "fp32")
+        build.check(lib, err, "deform_conv fp32")
         LAUNCHES_FP32 += 1
     return out
 
 
-def _raise_on(lib, err: int, variant: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"deform_conv {variant} kernel launch failed: "
-                           + lib.petr_cuda_error_string(err).decode())
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = build.load("deform_conv")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.petr_deform_conv_fp32_fwd.argtypes = [P, P, P, P] + [I] * 9 + [P]
-    lib.petr_deform_conv_fp32_fwd.restype = I
-    lib.petr_deform_conv_tc_fwd.argtypes = [P] * 5 + [I] * 10 + [P]
-    lib.petr_deform_conv_tc_fwd.restype = I
-    lib.petr_cuda_error_string.argtypes = [I]
-    lib.petr_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.library("deform_conv", {
+        "petr_deform_conv_fp32_fwd": [P, P, P, P] + [I] * 9 + [P],
+        "petr_deform_conv_tc_fwd": [P] * 5 + [I] * 10 + [P],
+    })

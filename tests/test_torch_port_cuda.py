@@ -119,7 +119,8 @@ def test_tiny_detector_on_the_card_matches_the_cpu(cuda):
 
 
 # The bf16 K1 against its rounding floor (flash_cross_attention_reference
-# with round_p=True), elementwise within atol * max|ref| + rtol * |ref|:
+# with round_p=True, which rounds the same p), elementwise within
+# atol * max|ref| + rtol * |ref|:
 # chip_smoke.py's bf16 KERNEL_TOL (both round one fp32 sum to bf16, in other
 # orders)
 KERNEL_TOL = (2e-5, 2.0 ** -7)
@@ -146,17 +147,18 @@ def _assert_within(got, want, tol):
     assert (err <= bound).all(), f"max abs err {err.max().item():.3e}, max |ref| {w.abs().max().item():.3e}"
 
 
-# Q and L at no multiple of the tiles (32 or 64 query rows, 128 or 256 keys),
-# D = 16, 32 and 64, a fully masked batch row wherever B > 1, both plans
+# Q and L at no multiple of the tiles (64 query rows, 64 keys), D = 16, 32
+# and 64, a fully masked batch row wherever B > 1, the forward's own key
+# splits and three (a merge of partials wherever the keys have the tiles)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("query_warps", [2, 4])
+@pytest.mark.parametrize("splits", [None, 3])
 @pytest.mark.parametrize("B,H,Q,L,D", [(1, 8, 900, 6000, 32), (2, 4, 37, 61, 16), (2, 2, 130, 1000, 64),
                                        (2, 3, 77, 301, 32), (1, 1, 1, 1, 32), (1, 8, 900, 16896, 32),
                                        (1, 8, 900, 12000, 32), (2, 8, 900, 12000, 32), (4, 4, 64, 960, 32)])
-def test_bf16_forward_matches_its_rounding_floor(cuda, rate, query_warps, B, H, Q, L, D):
+def test_bf16_forward_matches_its_rounding_floor(cuda, rate, splits, B, H, Q, L, D):
     q, k, v, mask = _grid_inputs(B, H, Q, L, D, seed=Q + 7 * L, masked_row=B > 1)
     before = ca.LAUNCHES
-    out, lse = ca._forward_cuda(q, k, v, mask, rate, -5, query_warps=query_warps)
+    out, lse = ca._forward_cuda(q, k, v, mask, rate, -5, splits=splits and min(splits, -(-L // ca.KEY_TILE)))
     torch.cuda.synchronize()
     assert ca.LAUNCHES == before + 1
     want, want_lse = ca.flash_cross_attention_reference(q, k, v, mask, rate, -5, round_p=True)
@@ -165,6 +167,38 @@ def test_bf16_forward_matches_its_rounding_floor(cuda, rate, query_warps, B, H, 
     torch.testing.assert_close(lse[live], want_lse[live], atol=1e-3, rtol=0)
     if B > 1:
         assert (out[-1] == 0).all() and (lse[-1] == 1e30).all()
+
+
+def test_tensor_maps_follow_each_call(cuda):
+    """The bf16 K1 and K2 reuse a tensor map encoded before from the same
+    base address, sizes, strides and box. One set of buffers read first as
+    (B, H, ., D) views of a (B, ., H, D) layout, then as a contiguous (B, H,
+    ., D) layout, then refilled in place with other values: each call is
+    held to its own floor and plain backward (a stale map would read the
+    old layout)."""
+    B, H, Q, L, D = 2, 4, 130, 1000, 32
+    first = _grid_inputs(B, H, Q, L, D, seed=11, masked_row=True)
+    second = _grid_inputs(B, H, Q, L, D, seed=12, masked_row=True)
+    bufs = [torch.empty(t.numel(), dtype=t.dtype, device="cuda") for t in first[:3]]
+
+    def placed(t, buf, heads_outer):
+        if heads_outer:
+            return buf.view(t.shape).copy_(t)
+        b, h, n, d = t.shape
+        return buf.view(b, n, h, d).copy_(t.transpose(1, 2)).transpose(1, 2)
+
+    gout = torch.randn(B, Q, H, D, device="cuda").bfloat16().transpose(1, 2)
+    for inputs, heads_outer in ((first, False), (first, True), (second, True)):
+        q, k, v = (placed(t, buf, heads_outer) for t, buf in zip(inputs[:3], bufs))
+        mask = inputs[3]
+        out, lse = ca._forward_cuda(q, k, v, mask, 0.0, None)
+        want, want_lse = ca.flash_cross_attention_reference(q, k, v, mask, round_p=True)
+        _assert_within(out, want, KERNEL_TOL)
+        live = want_lse < 1e29
+        torch.testing.assert_close(lse[live], want_lse[live], atol=1e-3, rtol=0)
+        got = ca._backward_cuda(q, k, v, mask, gout, lse, ca._delta(gout, out, None), 0.0, None)
+        _assert_grads_close(got, ca.flash_cross_attention_backward_reference(
+            q, k, v, mask, out, lse, gout, None, 0.0, None), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
