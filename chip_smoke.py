@@ -329,6 +329,21 @@ K2_PREVIOUS_MS_V2 = {"dkdv": (0.1215, 0.1875), "dq": (0.1426, 0.1861)}  # L = 12
 K3_PREVIOUS_MS = {2: 0.3021, 1: 0.1954}  # the shard shape, forward + backward, by batch
 SYNTH_PREVIOUS_MS = {"flash_cross_attention_fwd_synth": 0.0156, "flash_cross_attention_bwd_dkdv_synth": 0.0066,
                      "flash_cross_attention_bwd_dq_synth": 0.0139}  # dropout 0.1
+# The design of the bf16 K4 and K5 (wgmma), and the device times of the
+# mma.sync kernels they replaced, measured in one chip call beside them
+# (this script's --phases 3 on both trees; PERF.md section 6, NVIDIA H100
+# 80GB HBM3, 700 W), printed in the log beside this run's and kept out of
+# the kernels record, whose numbers are this run's.
+K4_DESIGN = ("wgmma.mma_async m64n128k16, warp-specialised: 8 sampler warps gather the modulated samples into a "
+             "ring of no-swizzle K-major A tiles, the chunk's weight-image tile by one bulk copy, on mbarriers; two "
+             "consumer warpgroups; 64 pixels x 256 channels a block; the weight image laid out once per version")
+K5_DESIGN = ("K6's 3x3 stride-1 plan in bf16: a layout pass into 8-channel planes of the flat padded grid, then "
+             "wgmma.mma_async m64nNk16 on bulk-copied halos (a chunk's 9 taps as row shifts) and weight-image "
+             "slices, a producer warp's mbarrier ring; split K added in split order by the last split")
+K4_PREVIOUS_MS = {"stage3": (0.1838, 0.1475), "stage4": (0.2256, 0.1964)}  # the call, the kernel alone
+K5_PREVIOUS_MS = {"s2": 0.2444, "s3 in256": 0.1829, "s3 in512": 0.3378, "s3": 0.1330, "s4 in512": 0.1183,
+                  "s4 in768": 0.1605, "s4": 0.0607, "s5 in768": 0.0675, "s5 in1024": 0.0771, "s5": 0.0353}
+K5_PREVIOUS_ROUTE_MS = 7.9076  # the 80 launches of a forward
 # The bf16 K4 against the unrounded plain version, as KERNEL_TOL (atol x
 # max|ref| + rtol x |ref|): it rounds the samples and the weight to bf16
 # before their products, as petr_tpu's Pallas kernel does, which moves a sum
@@ -1055,8 +1070,11 @@ def check_dcn(torch, dcn, card):
     operand_dtype=bfloat16 rounds the same values at the same points (its
     rounding floor), so the two differ only in the order of the fp32 sums
     and are held to KERNEL_TOL; the unrounded plain version is held to
-    OPERAND_TOL. The fp32 kernel (CUDA cores) is held to the unrounded plain version under
-    KERNEL_TOL. Each call must move its variant's launch counter only."""
+    OPERAND_TOL. Two identical bf16 calls must give the same bits, and the
+    bf16 offsets and logits the model hands it (its conv's output) are
+    held to the floor on the same values. The fp32 kernel (CUDA cores) is
+    held to the unrounded plain version under KERNEL_TOL. Each call must
+    move its variant's launch counter only."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -1087,6 +1105,13 @@ def check_dcn(torch, dcn, card):
             floor = dcn.modulated_deform_conv_reference(x, om, w, stride, operand_dtype=torch.bfloat16)
             out = counted(lambda: dcn.modulated_deform_conv(x, om, w, stride), True)
             errs[(label, tag, "floor")] = kernel_compare(torch, f"{name} vs its rounding floor", out, floor, tag)
+            again = counted(lambda: dcn.modulated_deform_conv(x, om, w, stride), True)
+            log(f"  {name}: a second identical call gives the same bits: {torch.equal(out, again)}")
+            assert torch.equal(out, again), f"{name}: two identical calls differ"
+            omb = om.bfloat16()  # the model's offsets and logits come from its bf16 conv
+            got_b = counted(lambda: dcn.modulated_deform_conv(x, omb, w, stride), True)
+            floor_b = dcn.modulated_deform_conv_reference(x, omb, w, stride, operand_dtype=torch.bfloat16)
+            kernel_compare(torch, f"{name}, bf16 off_mask, vs its rounding floor", got_b, floor_b, tag)
             atol, rtol = OPERAND_TOL
             r = want.float()
             bound = atol * r.abs().max() + rtol * r.abs()
@@ -1127,8 +1152,10 @@ def check_dcn(torch, dcn, card):
         wb = w.to(torch.bfloat16)
         t = {
             "kernel_ms": cuda_time_ms(lambda: dcn.modulated_deform_conv(x, om, w)),
-            # the whole call (copy of x, weight repack, sigmoid) and the tensor-core kernel alone
-            "device_ms": device_ms(torch, lambda: dcn.modulated_deform_conv(x, om, w), "deform_conv_fwd_tc"),
+            # the whole call (the channels-last copy of x; the weight image is kept from the first call) and the
+            # tensor-core kernel alone
+            "device_ms": device_ms(torch, lambda: dcn.modulated_deform_conv(x, om, w), "deform_conv_fwd_wgmma"),
+            "weight_image_device_ms": device_ms(torch, lambda: dcn.weight_image(w)),
             "plain_ms": cuda_time_ms(lambda: dcn.modulated_deform_conv_reference(x, om, w), warmup=2, iters=10),
             "dense_conv_ms": cuda_time_ms(lambda: F.conv2d(x, wb, padding=1)),
             "dense_conv_device_ms": device_ms(torch, lambda: F.conv2d(x, wb, padding=1)),
@@ -1143,11 +1170,13 @@ def check_dcn(torch, dcn, card):
         }
         timing[label] = t
         dev, tc_dev = t["device_ms"]
+        prev, prev_tc = K4_PREVIOUS_MS[label]
         log(f"  timing bf16 {label} x {tuple(x.shape)} -> {Cout}: kernel_ms {t['kernel_ms']:.4f}, plain_ms "
             f"{t['plain_ms']:.4f}, dense_conv_ms (cuDNN 3x3 conv at the shape, a floor, not DCNv2) "
             f"{t['dense_conv_ms']:.4f} (one call between CUDA events); device time: the call {dev:.4f} (the "
-            f"tensor-core kernel {tc_dev:.4f}, the rest the channels-last copy of x, the weight repack and the "
-            f"sigmoid), cuDNN {t['dense_conv_device_ms']:.4f}; "
+            f"tensor-core kernel {tc_dev:.4f}, the rest the channels-last copy of x; the mma.sync kernel it "
+            f"replaced: {prev:.4f}, alone {prev_tc:.4f}, PERF.md), cuDNN {t['dense_conv_device_ms']:.4f}; the weight "
+            f"image, made once per weight version, {t['weight_image_device_ms']:.4f}; "
             f"bound_ms {b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
             f"{json.dumps({k: round(v, 5) for k, v in parts.items()})}), {flops / tc_dev / 1e9:.1f} TFLOP/s "
             f"[{card}]")
@@ -1171,6 +1200,7 @@ def check_dcn(torch, dcn, card):
         "library_ms": None,  # no PyTorch call computes DCNv2
         "device_ms": t3["device_ms"][0],
         "tc_kernel_device_ms": t3["device_ms"][1],
+        "design": K4_DESIGN,
         "dense_conv_ms": t3["dense_conv_ms"],
         "dense_conv_device_ms": t3["dense_conv_device_ms"],
         "stage4": {k: (v[0] if isinstance(v, tuple) else v) for k, v in t4.items() if not k.startswith("fp32")}
@@ -1436,33 +1466,48 @@ def conv_inputs(torch, gen, C, H, W, Co, dtype, B=CONV_VIEWS):
 
 
 def conv_shape_split(torch, conv, C, H, W, Co, B=CONV_VIEWS):
-    """The split of K the bf16 K5 takes at this shape on this card."""
-    th, tw = conv.conv_tile(H, W)
-    blocks = -(-H // th) * -(-W // tw) * -(-Co // conv.TILE_CHANNELS) * B
-    return conv.conv_split(blocks, -(-C // conv.CHUNK_CHANNELS),
-                           torch.cuda.get_device_properties(0).multi_processor_count)
+    """The split of K the bf16 K5 takes at this shape (its plan)."""
+    return conv.conv_plan(B, C, H, W, Co).splits
 
 
 def check_conv3x3(torch, conv, card):
-    """K5 against its plain version: the bf16 tensor-core kernel at every
-    shape of the flagship's route, the fp32 CUDA-core kernel at stages 2 and
-    4 and an odd shape, with and without the BN/ReLU epilogue at stages 2
-    and 4; then the bf16 kernel timed at every shape beside cuDNN's
-    ``F.conv2d`` (the conv alone: the library time leaves out the epilogue)
-    and its bound, and summed over a forward's 80 launches; the fp32 kernel
-    and the plain version timed at stage 4 (and 2)."""
+    """K5 against its plain version: the bf16 tensor-core pair (the layout
+    pass and the wgmma conv) at every shape of the flagship's route, the
+    fp32 CUDA-core kernel at stages 2 and 4 and an odd shape, with and
+    without the BN/ReLU epilogue at stages 2 and 4 and the odd shapes (one
+    with a ragged last tile, one whose plan splits K 13 ways); two identical
+    bf16 calls must give the same bits, and the layout pass's planes must
+    equal x where x lies and zero elsewhere; then the bf16 kernel timed at
+    every shape beside cuDNN's ``F.conv2d`` (the conv alone: the library
+    time leaves out the epilogue) and its bound, and summed over a
+    forward's 80 launches; the fp32 kernel and the plain version timed at
+    stage 4 (and 2). Returns the records of the bf16 and fp32 kernels and of
+    the layout pass."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     log("phase 3: conv3x3_bn_relu (K5) against its plain version")
-    errs, inputs = {}, {}
+    errs, inputs, layout_errs = {}, {}, []
     cases = [(label, shape, torch.bfloat16, "bf16") for label, (shape, _) in CONV_SHAPES.items()]
     cases += [(label, CONV_SHAPES[label][0], torch.float32, "fp32") for label in ("s2", "s4")]
-    cases += [("odd", (13, 5, 7, 70), torch.float32, "fp32"), ("odd", (13, 5, 7, 70), torch.bfloat16, "bf16")]
+    cases += [("odd", (13, 5, 7, 70), torch.float32, "fp32"), ("odd", (13, 5, 7, 70), torch.bfloat16, "bf16"),
+              ("odd-split", (200, 10, 25, 64), torch.bfloat16, "bf16")]
     for label, (C, H, W, Co), dtype, tag in cases:
-        x, w, mul, add = conv_inputs(torch, gen, C, H, W, Co, dtype, B=1 if label == "odd" else CONV_VIEWS)
+        x, w, mul, add = conv_inputs(torch, gen, C, H, W, Co, dtype, B=1 if label.startswith("odd") else CONV_VIEWS)
         inputs[(label, tag)] = (x, w, mul, add)
-        epilogues = ((True, True), (False, False)) if label in ("s2", "s4", "odd") else ((True, True),)
+        if tag == "bf16" and label in ("s2", "s4", "s5 in1024", "odd", "odd-split"):
+            plan = conv.conv_plan(*x.shape, Co)
+            planes = conv.layout_planes(x, plan)
+            back, zeros = conv.unpack_planes(planes, plan)
+            ok = torch.equal(back, x) and bool((zeros == 0).all())
+            # against the plain version over the grid's rows (the kernel leaves the rows past them unwritten)
+            want = conv.layout_reference(x, plan)
+            layout_errs.append((planes[:, :plan.q_rows].float() - want[:, :plan.q_rows].float()).abs().max().item())
+            log(f"  layout pass bf16 {label} x {tuple(x.shape)}: planes {tuple(planes.shape)} hold x and zeros "
+                f"elsewhere: {ok}; max |planes - plain version| {layout_errs[-1]}")
+            assert ok and layout_errs[-1] == 0.0, f"K5's layout pass at {label}"
+        epilogues = ((True, True), (False, False)) if label in ("s2", "s4") or label.startswith("odd") else (
+            (True, True),)
         for affine, relu in epilogues:
             m, a = (mul, add) if affine else (None, None)
             counter = "LAUNCHES" if tag == "bf16" else "LAUNCHES_FP32"
@@ -1474,10 +1519,14 @@ def check_conv3x3(torch, conv, card):
             want = conv.conv3x3_bn_relu_reference(x, w, m, a, relu)
             errs[(label, tag, affine)] = kernel_compare(
                 torch, f"{tag} {label} x {tuple(x.shape)} -> {Co}, epilogue {affine}", out, want, tag)
+            if tag == "bf16":
+                again = conv.conv3x3_bn_relu(x, w, m, a, relu)
+                assert torch.equal(out, again), f"K5 bf16 {label}: two identical calls differ"
+    log("  every bf16 call above gave the same bits a second time")
 
     log(f"phase 3: K5 timed at each shape of the route (bf16, {CONV_VIEWS} views, BN + ReLU epilogue): one "
         f"call between CUDA events, and the device time per call from the profiler")
-    sums = ("kernel_ms", "device_ms", "library_ms", "library_device_ms", "bound_ms")
+    sums = ("kernel_ms", "device_ms", "tc_device_ms", "library_ms", "library_device_ms", "bound_ms")
     shapes, route = [], dict.fromkeys(sums, 0.0) | {"launches": 0}
     for label, ((C, H, W, Co), per_forward) in CONV_SHAPES.items():
         x, w, mul, add = inputs[(label, "bf16")]
@@ -1491,32 +1540,45 @@ def check_conv3x3(torch, conv, card):
         def library():
             F.conv2d(x, w, padding=1)
         k_ms = cuda_time_ms(call)
-        # the conv kernel and its split-K reduction; the rest is the weight repack
-        dev_ms, tc_ms = device_ms(torch, call, "conv3x3_bn_relu_tc")
+        # the wgmma conv (a split's partials added by its last split, in the same kernel); the rest is the
+        # layout pass (the weight image is kept from the first call)
+        dev_ms, tc_ms = device_ms(torch, call, "conv3x3_bn_relu_wgmma")
         lib_ms, lib_dev_ms = cuda_time_ms(library), device_ms(torch, library)
-        split = conv_shape_split(torch, conv, C, H, W, Co)
-        shapes.append({"label": label, "cin": C, "h": H, "w": W, "co": Co, "tile": list(conv.conv_tile(H, W)),
-                       "split_k": split, "launches_per_forward": per_forward, "kernel_ms": k_ms,
-                       "device_ms": dev_ms, "tc_device_ms": tc_ms, "library_ms": lib_ms,
-                       "library_device_ms": lib_dev_ms, "bound_ms": b_ms, "gflop": flops / 1e9})
+        plan = conv.conv_plan(CONV_VIEWS, C, H, W, Co)
+        shapes.append({"label": label, "cin": C, "h": H, "w": W, "co": Co, "tile": [conv.TILE_M, plan.bn],
+                       "split_k": plan.splits, "stages": [plan.stages, plan.group], "blocks": plan.blocks,
+                       "launches_per_forward": per_forward, "kernel_ms": k_ms,
+                       "device_ms": dev_ms, "tc_device_ms": tc_ms, "layout_device_ms": dev_ms - tc_ms,
+                       "library_ms": lib_ms, "library_device_ms": lib_dev_ms, "bound_ms": b_ms, "gflop": flops / 1e9})
         for key in sums:
             route[key] += per_forward * shapes[-1][key]
         route["launches"] += per_forward
-        log(f"  {label:10s} {C:4d} -> {Co} at {H}x{W}, tile {conv.conv_tile(H, W)}, split K {split}, "
-            f"x{per_forward} per forward: kernel_ms {k_ms:.4f}, library_ms (cuDNN F.conv2d, no epilogue) "
-            f"{lib_ms:.4f} (one call between CUDA events); device time: kernel {dev_ms:.4f} (the conv and its "
-            f"split-K reduction {tc_ms:.4f}, the rest the weight repack), cuDNN {lib_dev_ms:.4f}; bound_ms "
+        log(f"  {label:10s} {C:4d} -> {Co} at {H}x{W}, tile 128 x {plan.bn} ({plan.blocks} blocks), split K "
+            f"{plan.splits}, {plan.stages} stages of {plan.group} taps, x{per_forward} per forward: kernel_ms "
+            f"{k_ms:.4f}, library_ms (cuDNN F.conv2d, no epilogue) {lib_ms:.4f} (one call between CUDA events); "
+            f"device time: kernel {dev_ms:.4f} (the conv {tc_ms:.4f}, the layout pass {dev_ms - tc_ms:.4f}; the "
+            f"mma.sync kernel it replaced {K5_PREVIOUS_MS[label]:.4f}, PERF.md), cuDNN {lib_dev_ms:.4f}; bound_ms "
             f"{b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP), {flops / tc_ms / 1e9:.1f} TFLOP/s [{card}]")
     log(f"  the route's {route['launches']} launches per forward: kernel {route['kernel_ms']:.4f} ms, cuDNN's convs "
-        f"{route['library_ms']:.4f} ms (CUDA events); device time: kernel {route['device_ms']:.4f} ms, cuDNN's "
-        f"convs {route['library_device_ms']:.4f} ms; bound {route['bound_ms']:.4f} ms [{card}]")
+        f"{route['library_ms']:.4f} ms (CUDA events); device time: kernel {route['device_ms']:.4f} ms (the mma.sync "
+        f"kernel it replaced {K5_PREVIOUS_ROUTE_MS:.4f}), cuDNN's convs {route['library_device_ms']:.4f} ms; bound "
+        f"{route['bound_ms']:.4f} ms [{card}]")
     assert route["launches"] == 80
     x, w, _, _ = inputs[("s4", "bf16")]
     wbig = inputs[("s5 in1024", "bf16")][1]
-    repack_ms = device_ms(torch, lambda: conv.repack_weight(w))
-    repack_big_ms = device_ms(torch, lambda: conv.repack_weight(wbig))
-    log(f"  weight repack (OIHW -> (Co, 3, 3, Cp) bf16, inside each call above): {repack_ms:.4f} ms at 192 -> 192, "
-        f"{repack_big_ms:.4f} ms at 1024 -> 224 [{card}]")
+    image_ms = device_ms(torch, lambda: conv.weight_image(w, conv.conv_plan(CONV_VIEWS, *x.shape[1:], 192).bn))
+    image_big_ms = device_ms(torch, lambda: conv.weight_image(wbig, conv.conv_plan(CONV_VIEWS, 1024, 10, 25, 224).bn))
+    log(f"  weight image (OIHW -> the wgmma tiles, bf16; made once per weight version, not in the calls above): "
+        f"{image_ms:.4f} ms at 192 -> 192, {image_big_ms:.4f} ms at 1024 -> 224 [{card}]")
+    # the layout pass alone at stage 4: its bound reads x and writes the planes' rows of the grid
+    plan4 = conv.conv_plan(*x.shape, 192)
+    layout_ms = cuda_time_ms(lambda: conv.layout_planes(x, plan4))
+    layout_plain_ms = cuda_time_ms(lambda: conv.layout_reference(x, plan4), warmup=2, iters=10)
+    layout_bound, layout_by, _ = roofline(0.0, 2 * x.numel() + 2 * plan4.q_rows * plan4.Cp)
+    s4_layout = next(r for r in shapes if r["label"] == "s4")["layout_device_ms"]
+    log(f"  layout pass at s4: ms {layout_ms:.4f} (one call between CUDA events), device {s4_layout:.4f}, plain_ms "
+        f"{layout_plain_ms:.4f}, bound_ms {layout_bound:.4f} ({layout_by}); per forward {route['device_ms'] - route['tc_device_ms']:.4f} "
+        f"ms of device time [{card}]")
 
     timing = {}
     for label in ("s4", "s2"):
@@ -1559,7 +1621,24 @@ def check_conv3x3(torch, conv, card):
         | {"plain_ms": timing["s2"]["plain_ms"]},
         "shapes": shapes,
         "route_per_forward": route,
-        "repack_device_ms": {"192->192": repack_ms, "1024->224": repack_big_ms},
+        "weight_image_device_ms": {"192->192": image_ms, "1024->224": image_big_ms},
+        "design": K5_DESIGN,
+    }
+    layout_rec = {
+        "name": "conv3x3_bn_relu_layout",
+        "route": "cuda",
+        "source": "petr_tpu_torch/csrc/conv3x3_bn_relu.cu",
+        "replaces": "petr_tpu/ops/pallas/conv3x3.py:78::_conv3x3_raw (its input: the padded halo the Pallas "
+                    "kernel reads, laid out for the wgmma conv)",
+        "launches": None,  # filled from the flagship's bf16 forward on the opt-in route
+        "max_abs_err": max(layout_errs),  # against layout_reference at s2, s4, s5 in1024 and the odd shapes
+        "ms": layout_ms,  # stage 4, one call between CUDA events
+        "plain_ms": layout_plain_ms,
+        "bound_ms": layout_bound,
+        "bound_by": layout_by,
+        "library_ms": None,  # no single PyTorch call pads, interleaves and transposes into this layout
+        "device_ms": s4_layout,
+        "device_ms_per_forward": route["device_ms"] - route["tc_device_ms"],
     }
     fp32_rec = {
         "name": "conv3x3_bn_relu_fwd_fp32",
@@ -1576,7 +1655,7 @@ def check_conv3x3(torch, conv, card):
         "device_ms": timing["s4"]["fp32_device_ms"],
         "stage2_ms": timing["s2"]["fp32_ms"],
     }
-    return bf16_rec, fp32_rec
+    return bf16_rec, fp32_rec, layout_rec
 
 
 def make_cams(B, N, H=320, W=800):
@@ -1828,16 +1907,18 @@ def check_serving(torch, ca, conv, card):
             layers.conv3x3_bn_relu = conv_fn
             want = sorted(((CONV_VIEWS, C, H, W), Co) for (C, H, W, Co), n in CONV_SHAPES.values() for _ in range(n))
             assert sorted(seen) == want, f"the route's convs differ from CONV_SHAPES: {sorted(seen)}"
-            conv.LAUNCHES = conv.LAUNCHES_FP32 = conv.SPLITK_LAUNCHES = 0
+            conv.LAUNCHES = conv.LAUNCHES_FP32 = conv.SPLITK_LAUNCHES = conv.LAYOUT_LAUNCHES = 0
             out_k5 = model(*one_t)
             k5_per_forward, splitk_per_forward = conv.LAUNCHES, conv.SPLITK_LAUNCHES
+            layout_per_forward = conv.LAYOUT_LAUNCHES
             want_split = sum(n for (C, H, W, Co), n in CONV_SHAPES.values()
                              if conv_shape_split(torch, conv, C, H, W, Co) > 1)
-            log(f"  K5 launches in one bf16 forward: {k5_per_forward} of the tensor-core kernel (expected {osa}, "
-                f"every shape of CONV_SHAPES), {splitk_per_forward} of them with a split K and its ordered "
-                f"reduction (expected {want_split}), {conv.LAUNCHES_FP32} of the fp32 one (expected 0)")
-            assert (k5_per_forward, splitk_per_forward, conv.LAUNCHES_FP32) == (osa, want_split, 0), (
-                k5_per_forward, splitk_per_forward, conv.LAUNCHES_FP32)
+            log(f"  K5 launches in one bf16 forward: {k5_per_forward} of the tensor-core conv (expected {osa}, "
+                f"every shape of CONV_SHAPES), {layout_per_forward} of its layout pass (expected {osa}), "
+                f"{splitk_per_forward} of them with a split K, the partials added in split order by the last split "
+                f"(expected {want_split}), {conv.LAUNCHES_FP32} of the fp32 one (expected 0)")
+            assert (k5_per_forward, layout_per_forward, splitk_per_forward, conv.LAUNCHES_FP32) == (
+                osa, osa, want_split, 0), (k5_per_forward, layout_per_forward, splitk_per_forward, conv.LAUNCHES_FP32)
             compare_outputs(torch, "K5 route vs cuDNN route (B=1)", out_k5, out_cudnn, ROUTE_TOL, ROUTE_MEAN,
                             (hc.num_layers, 1, hc.num_query))
             k5_dev_ms, k5_shares = profile(torch, lambda: model(*one_t), card)
@@ -1877,7 +1958,7 @@ def check_serving(torch, ca, conv, card):
                     FP32_ROUTE_MEAN, (hc.num_layers, 1, hc.num_query))
     del model32
     return launches["K1"], k5_per_forward, k5_fp32_per_forward, {
-        "splitk_launches": splitk_per_forward,
+        "splitk_launches": splitk_per_forward, "layout_launches": layout_per_forward,
         "forward_ms_cudnn": walls["cudnn"], "forward_ms_k5": walls["cuda"], "forward_device_ms_cudnn": dev_ms,
         "forward_device_ms_k5": k5_dev_ms, "k5_device_ms_per_forward": k5_shares.get("K5", 0.0)}
 
@@ -5274,7 +5355,7 @@ def main() -> int:
         from petr_tpu_torch.ops import conv3x3 as conv
         from petr_tpu_torch.ops import conv_int8 as c8
         from petr_tpu_torch.ops import cross_attention as ca
-        from petr_tpu_torch.ops import dcn
+        from petr_tpu_torch.ops import dcn, sass_check
         from petr_tpu_torch.utils.mfu import device_peak_tflops
     except ImportError as e:
         print(f"chip_smoke: the petr_tpu_torch package is not beside this script ({e})", file=sys.stderr)
@@ -5324,6 +5405,13 @@ def main() -> int:
             for line in report.read_text().splitlines():
                 if any(w in line for w in ("registers", "spill", "Compiling", "Performance Loss")):
                     log("  ptxas:", line.strip())
+    # no instruction may touch a wgmma accumulator while its products are in flight (ops/sass_check.py)
+    for lib in libs:
+        code = sass_check.library_sass(lib)
+        uses = sass_check.inflight_accumulator_uses(code)
+        log(f"  {lib.name}: {code.count('GMMA.')} wgmma instructions, {len(uses)} reads or writes of an "
+            f"accumulator in flight{''.join(f'; {a} {ins}' for _, a, ins in uses[:4])}")
+        assert not uses, f"{lib.name}: an accumulator touched while its products are in flight"
 
     records = []
     stamp(3)
@@ -5331,9 +5419,9 @@ def main() -> int:
         k1, k1_fp32, k1_v2 = check_flash_attention(torch, ca, sm_clock_hz, card)
         k2 = check_flash_backward(torch, ca, sm_clock_hz, card)
         k4, k4_fp32 = check_dcn(torch, dcn, card)
-        k5, k5_fp32 = check_conv3x3(torch, conv, card)
+        k5, k5_fp32, k5_layout = check_conv3x3(torch, conv, card)
         synth = {r["name"]: r for r in check_synth_shapes(torch, ca, dcn, sm_clock_hz, card)}
-        records = [k1, k1_fp32, k1_v2, *k2, k4, k4_fp32, k5, k5_fp32, *synth.values()]
+        records = [k1, k1_fp32, k1_v2, *k2, k4, k4_fp32, k5, k5_fp32, k5_layout, *synth.values()]
     stamp(4)
     if 4 in phases:
         k1_launches, k5_launches, k5_fp32_launches, k5_times = check_serving(torch, ca, conv, card)
@@ -5341,6 +5429,7 @@ def main() -> int:
             k1["launches"], k5["launches"], k5_fp32["launches"] = k1_launches, k5_launches, k5_fp32_launches
             k5_fp32["launches_note"] = "the flagship's fp32 twin, one forward on the route"
             k5.update(k5_times)
+            k5_layout["launches"] = k5_times["layout_launches"]
     stamp(5)
     if 5 in phases:
         train_launches, fp32_launches = training_phase(torch, check_training, torch, ca, card)
@@ -5452,7 +5541,7 @@ def main() -> int:
     seconds = {n: round(stamps[i + 1][1] - t, 1) for i, (n, t) in enumerate(stamps[:-1])}
     log(f"seconds per phase: {json.dumps(seconds)}; the script {time.perf_counter() - t_start:.1f} s")
     if 3 in seconds:
-        log(f"  phase 3 (every kernel checked and timed) {seconds[3]} s; before the wgmma K1 and K2 it took 27.3 s "
+        log(f"  phase 3 (every kernel checked and timed) {seconds[3]} s; before the wgmma K4 and K5 it took 30.5 s "
             "(PERF.md)")
     if phases != ALL_PHASES:
         log(f"only phases {sorted(phases)} ran: no kernels record and no result line")

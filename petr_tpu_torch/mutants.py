@@ -36,8 +36,8 @@ ROOT = Path(__file__).resolve().parents[1]
 MUTANTS = {
     "k5_tap_shift": (
         "csrc/conv3x3_bn_relu.cu",
-        "const int shift = (t / 3) * L.hc + t % 3;",
-        "const int shift = (t / 3) * L.hc + t % 3 + (t == 1);",  # tap (0, 1) reads column kw = 2
+        "const uint32_t aj = a + j * 16 + (j / 3) * step3;",
+        "const uint32_t aj = a + j * 16 + (j / 3) * step3 + (j == 1) * 16;",  # tap (0, 1) reads column kw = 2
         "3",
     ),
     "k2_hash_row_col_swapped": (
@@ -54,8 +54,8 @@ MUTANTS = {
     ),
     "k4_corner_weight_fy_swapped": (
         "csrc/deform_conv.cu",
-        "__fmul_rn(__fmul_rn(cv.at(2, i + u), wx0), wy1)",  # the bf16 kernel: corner (y0 + 1, x0) weighted by 1 - fy
-        "__fmul_rn(__fmul_rn(cv.at(2, i + u), wx0), wy0)",
+        "__fmul_rn(__fmul_rn(cur[i].at(2, e + u), wx0), wy1)",  # the bf16 kernel: corner (y0 + 1, x0) weighted by 1 - fy
+        "__fmul_rn(__fmul_rn(cur[i].at(2, e + u), wx0), wy0)",
         "3",
     ),
     "k6_round_half_away": (

@@ -43,7 +43,6 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from petr_tpu_torch.ops import build
-from petr_tpu_torch.ops.conv3x3 import _sm_count
 
 NEG = -1e30
 LOG2E = 1.4426950408889634
@@ -471,6 +470,11 @@ def _dropout_args(dropout_rate: float, dropout_seed: Optional[int], H: int = 1,
 BLOCK_ROWS = 64
 KEY_TILE = 64
 MAX_SPLIT_TILES = 512  # key tiles of one split (the kernel's shared-memory lists)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def forward_splits(batch_heads: int, Q: int, L: int, sms: int) -> int:

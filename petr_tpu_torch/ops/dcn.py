@@ -16,9 +16,11 @@ logits, taps in row-major (kh, kw) order (`dcn.py:11-14`).
 One ``torch.autograd.Function`` carries it. On a CUDA tensor its forward
 launches K4, a hand-written kernel of ``csrc/deform_conv.cu`` (replacing
 `petr_tpu/ops/pallas/dcn.py::_dcn_pallas_raw`), chosen by x's dtype: bf16
-runs the tensor-core kernel (on a channels-last copy of x and the weight
-repacked to bf16 in petr_tpu's patch order, tap-major), fp32 the CUDA-core
-kernel. On a CPU tensor it runs the plain version,
+runs the tensor-core kernel (wgmma, warp-specialised: sampler warps gather
+from a channels-last copy of x, the weight is an image in petr_tpu's patch
+order, tap-major, laid out once per weight version: ``weight_image``, kept
+by ``weight_images.cached_image``), fp32 the CUDA-core kernel. On a CPU
+tensor it runs the plain version,
 ``modulated_deform_conv_reference``: the XLA gather formulation
 (`dcn.py:62-99`), everything in fp32 and one cast of the output to x's
 dtype. The bf16 kernel rounds the modulated samples and the weight to bf16
@@ -40,10 +42,10 @@ import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
-from petr_tpu_torch.ops import build
-from petr_tpu_torch.ops.conv3x3 import repack_weight
+from petr_tpu_torch.ops import build, weight_images
 from petr_tpu_torch.ops.sampling import bilinear_sample_batched
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -51,6 +53,16 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # K4 launches since the count was last set to 0; only the CUDA path adds.
 LAUNCHES = 0  # the bf16 tensor-core kernel
 LAUNCHES_FP32 = 0  # the fp32 CUDA-core kernel
+# The bf16 kernel's tile (``k4::BM`` output pixels, ``k4::BN`` output
+# channels) and its chunk of the reduction axis (``k4::KC`` channels of one tap)
+TILE_PIXELS = 64
+TILE_CHANNELS = 256
+CHUNK_CHANNELS = 64
+STAGES = 4  # the ring's stages, each the chunk's A (64 x 64) and B (256 x 64) tiles in bf16
+THREADS = 512  # two consumer warpgroups and eight sampler warps
+# its dynamic shared memory (``k4::SMEM_BYTES``): alignment slack, the ring,
+# the corners and fractions of every (tap, pixel), the barriers
+SMEM_BYTES = 1024 + STAGES * 2 * (TILE_PIXELS + TILE_CHANNELS) * CHUNK_CHANNELS + 9 * TILE_PIXELS * 28 + 2 * STAGES * 8
 
 
 # ------------------------------------------------------------ plain version
@@ -216,8 +228,9 @@ def _check_inputs(x, off_mask, weight, stride, dilation):
 
 def channels_last(x: torch.Tensor, Cp: int) -> torch.Tensor:
     """NCHW (B, C, H, W) -> (B, H, W, Cp), zeros past C: the layout in which
-    the bf16 kernel reads a corner's 8 channels as one 16-byte load. One copy
-    kernel (two, with the zero fill, when C is not a multiple of 8)."""
+    the bf16 kernel reads a corner's 8 channels as one 16-byte load. The
+    plain version of the copy the bf16 call makes first
+    (``deform_conv_channels_last_kernel``, in the same launch)."""
     B, C, H, W = x.shape
     out = torch.empty((B, H, W, Cp), dtype=x.dtype, device=x.device)
     if Cp != C:
@@ -226,30 +239,64 @@ def channels_last(x: torch.Tensor, Cp: int) -> torch.Tensor:
     return out
 
 
+def padded_channels(Cin: int) -> int:
+    """Cp: Cin rounded up to 8, the channels-last copy's row."""
+    return -(-Cin // 8) * 8
+
+
+def weight_image(weight: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """OIHW (Cout, Cin, 3, 3) -> the bf16 kernel's weight image (tiles, 9 nct,
+    8, 256, 8) in ``dtype`` (the kernel's: bf16; the CPU tests also take
+    float32), nct = ceil(Cp / 64) chunks a tap: tile t, chunk ch (tap
+    ch // nct, channels 64 (ch % nct) ..) holds output channels 256 t .. 256 t
+    + 255 (zeros past Cout and past Cin) as eight 8-channel groups, groups
+    256 x 16 bytes apart: the no-swizzle K-major tiles the wgmma reads, a
+    chunk one bulk copy. Along K it is petr_tpu's patch order j = tap * Cin +
+    c (its ``weight`` (kh, kw, Cin, Cout) reshaped to (9 Cin, Cout))."""
+    Cout, Cin = weight.shape[:2]
+    nct = -(-padded_channels(Cin) // CHUNK_CHANNELS)
+    tiles = -(-Cout // TILE_CHANNELS)
+    w = weight.to(dtype).permute(0, 2, 3, 1).reshape(Cout, 9, Cin)
+    w = F.pad(w, (0, nct * CHUNK_CHANNELS - Cin, 0, 0, 0, tiles * TILE_CHANNELS - Cout))
+    w = w.reshape(tiles, TILE_CHANNELS, 9, nct, CHUNK_CHANNELS // 8, 8).permute(0, 2, 3, 4, 1, 5)
+    return w.reshape(tiles, 9 * nct, CHUNK_CHANNELS // 8, TILE_CHANNELS, 8).contiguous()
+
+
+def unweight_image(image: torch.Tensor, Cout: int, Cin: int) -> torch.Tensor:
+    """``weight_image``'s inverse, to OIHW (Cout, Cin, 3, 3)."""
+    tiles, chunks, groups, bn, _ = image.shape
+    nct = chunks // 9
+    w = image.reshape(tiles, 9, nct, groups, bn, 8).permute(0, 4, 1, 2, 3, 5).reshape(tiles * bn, 9, nct * groups * 8)
+    return w[:Cout, :, :Cin].reshape(Cout, 3, 3, Cin).permute(0, 3, 1, 2)
+
+
 def _forward_cuda(x, off_mask, weight, stride, dilation):
     """K4 on CUDA tensors: the tensor-core kernel for bf16 x, the CUDA-core
     one for fp32."""
     global LAUNCHES, LAUNCHES_FP32
     B, Cin, H, W, Cout, Ho, Wo = _check_inputs(x, off_mask, weight, stride, dilation)
-    off_mask = off_mask.to(torch.float32).contiguous()
     out = torch.empty((B, Cout, Ho, Wo), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if x.dtype == torch.bfloat16:
-        Cp = -(-Cin // 8) * 8
-        xs = channels_last(x, Cp)
-        wr = repack_weight(weight, torch.bfloat16)  # (Cout, 3, 3, Cp)
-        # the sigmoid the plain version takes, so that both modulate alike
-        modulation = torch.sigmoid(off_mask[:, 18:]).contiguous()
+        Cp = padded_channels(Cin)
+        x = x.contiguous()
+        if x.data_ptr() % 16:
+            x = x.clone()
+        xs = torch.empty((B, H, W, Cp), dtype=x.dtype, device=x.device)  # the kernels' channels-last copy of x
+        wimg = weight_images.cached_image(weight, "deform_conv", weight_image)
+        # the offsets and logits in the model's dtype (the kernel reads bf16 or fp32 exactly)
+        om = off_mask.contiguous() if off_mask.dtype in (torch.bfloat16, torch.float32) else off_mask.float()
         err = lib.petr_deform_conv_tc_fwd(
-            xs.data_ptr(), off_mask.data_ptr(), modulation.data_ptr(), wr.data_ptr(), out.data_ptr(),
-            B, Cin, Cp, H, W, Cout, Ho, Wo, stride, dilation, stream)
+            x.data_ptr(), xs.data_ptr(), om.data_ptr(), int(om.dtype == torch.bfloat16), wimg.data_ptr(),
+            out.data_ptr(), B, Cin, Cp, H, W, Cout, Ho, Wo, stride, dilation, stream)
         build.check(lib, err, "deform_conv bf16")
         LAUNCHES += 1
     else:
         x = x.contiguous()
+        off_mask = off_mask.to(torch.float32).contiguous()
         weight = weight.to(torch.float32).contiguous()
         err = lib.petr_deform_conv_fp32_fwd(
             x.data_ptr(), off_mask.data_ptr(), weight.data_ptr(), out.data_ptr(),
@@ -264,5 +311,5 @@ def _library() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     return build.library("deform_conv", {
         "petr_deform_conv_fp32_fwd": [P, P, P, P] + [I] * 9 + [P],
-        "petr_deform_conv_tc_fwd": [P] * 5 + [I] * 10 + [P],
+        "petr_deform_conv_tc_fwd": [P, P, P, I, P, P] + [I] * 10 + [P],
     })

@@ -2,7 +2,11 @@
 K1 (the forward, with and without dropout), K2 (the backward's dK/dV and dQ
 kernels), both with a shard's hash offsets, K3 (the lse cotangent through
 the autograd Function), K4 (DCNv2,
-forward and the gradients through its Function), K5 (the fused conv3x3) and
+forward and the gradients through its Function; the bf16 kernel also on
+bf16 offsets, and its weight image made once per weight version), K5 (the
+fused conv3x3: the bf16 pair's layout pass and conv at the route's tilings,
+an uneven split K; two identical calls of the bf16 K4 and K5 equal bit for
+bit) and
 K6 (the int8 conv with int32 sums, bf16 and fp32 out, at the classes of V-99's
 shapes and odd ones, every split and store branch, the ties case); K1, K2, K4 and K5 in
 both variants, bf16 on the tensor cores and fp32 on the CUDA cores. The bf16 K1 and K4 are also held to their rounding floors (the plain
@@ -485,18 +489,94 @@ def test_conv3x3_kernel_matches_plain_version(cuda, dtype, affine, relu, B, C, H
     mul = torch.rand(Co, generator=gen, device="cuda") + 0.5 if affine else None
     add = torch.randn(Co, generator=gen, device="cuda") * 0.3 if affine else None
     counter = "LAUNCHES" if dtype == torch.bfloat16 else "LAUNCHES_FP32"
-    before = getattr(conv3x3, counter), conv3x3.SPLITK_LAUNCHES
+    before = getattr(conv3x3, counter), conv3x3.SPLITK_LAUNCHES, conv3x3.LAYOUT_LAUNCHES
     out = conv3x3.conv3x3_bn_relu(x, w, mul, add, relu)
     torch.cuda.synchronize()
     assert getattr(conv3x3, counter) == before[0] + 1
-    th, tw = conv3x3.conv_tile(H, W)
-    blocks = -(-H // th) * -(-W // tw) * -(-Co // conv3x3.TILE_CHANNELS) * B
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    split = dtype == torch.bfloat16 and conv3x3.conv_split(blocks, -(-C // conv3x3.CHUNK_CHANNELS), sms) > 1
+    split = dtype == torch.bfloat16 and conv3x3.conv_plan(B, C, H, W, Co).splits > 1
     assert conv3x3.SPLITK_LAUNCHES == before[1] + split  # stage 4 and the uneven case split K
+    assert conv3x3.LAYOUT_LAUNCHES == before[2] + (dtype == torch.bfloat16)
     want = conv3x3.conv3x3_bn_relu_reference(x, w, mul, add, relu)
     assert out.dtype == dtype and out.shape == want.shape
     _assert_dcn_close(out, want, dtype)
+
+
+@pytest.mark.parametrize("B,C,H,W", [(6, 128, 80, 200), (1, 13, 5, 7), (2, 200, 10, 25), (3, 40, 4, 1)])
+def test_conv3x3_layout_pass_holds_x_and_zeros(cuda, B, C, H, W):
+    """The bf16 K5's layout pass: x where it lies in the flat padded grid's
+    8-channel planes, zeros at every padding pixel and past C."""
+    from petr_tpu_torch.ops import conv3x3
+
+    x = torch.randn(B, C, H, W, device="cuda").bfloat16()
+    plan = conv3x3.conv_plan(B, C, H, W, 64)
+    before = conv3x3.LAYOUT_LAUNCHES
+    planes = conv3x3.layout_planes(x, plan)
+    torch.cuda.synchronize()
+    assert conv3x3.LAYOUT_LAUNCHES == before + 1
+    back, zeros = conv3x3.unpack_planes(planes, plan)
+    assert torch.equal(back, x) and (zeros == 0).all()
+    want = conv3x3.layout_reference(x, plan)[:, :plan.q_rows]
+    assert torch.equal(planes[:, :plan.q_rows], want)
+
+
+@pytest.mark.parametrize("kernel,shape", [
+    ("K4", (6, 256, 32, 88, 256, 1)), ("K4", (2, 5, 7, 9, 3, 2)), ("K4", (2, 40, 9, 20, 300, 1)),
+    ("K5", (6, 192, 20, 50, 192, 0)), ("K5", (1, 200, 10, 25, 64, 0)), ("K5", (1, 13, 5, 7, 70, 0)),
+], ids=["k4-r50-stage3", "k4-odd-stride2", "k4-cout300", "k5-stage4", "k5-split-k", "k5-odd"])
+def test_bf16_kernels_give_the_same_bits_twice(cuda, kernel, shape):
+    """No atomics on the sums and a split K added in split order: two
+    identical calls of the bf16 K4 and K5 are equal bit for bit."""
+    from petr_tpu_torch.ops import conv3x3, dcn
+
+    if kernel == "K4":
+        x, om, w = _dcn_inputs(*shape[:5], shape[5], torch.bfloat16, seed=11)
+        call = lambda: dcn.modulated_deform_conv(x, om, w, shape[5])  # noqa: E731
+    else:
+        B, C, H, W, Co, _ = shape
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        x = torch.randn(B, C, H, W, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(Co, C, 3, 3, generator=gen, device="cuda") * (2.0 / (9 * C)) ** 0.5).bfloat16()
+        mul, add = torch.rand(Co, generator=gen, device="cuda") + 0.5, torch.randn(Co, generator=gen, device="cuda")
+        call = lambda: conv3x3.conv3x3_bn_relu(x, w, mul, add, True)  # noqa: E731
+    first = call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, call())
+
+
+@pytest.mark.parametrize("B,Cin,H,W,Cout,stride", [(6, 256, 32, 88, 256, 1), (2, 5, 7, 9, 3, 2)],
+                         ids=["r50-stage3", "odd-stride2"])
+def test_bf16_dcn_takes_bf16_offsets(cuda, B, Cin, H, W, Cout, stride):
+    """The model's offsets and mask logits come from its bf16 conv: the
+    kernel reads them as they are, held to the floor on the same values."""
+    from petr_tpu_torch.ops import dcn
+
+    x, om, w = _dcn_inputs(B, Cin, H, W, Cout, stride, torch.bfloat16, seed=13)
+    omb = om.bfloat16()
+    out = dcn.modulated_deform_conv(x, omb, w, stride)
+    floor = dcn.modulated_deform_conv_reference(x, omb, w, stride, operand_dtype=torch.bfloat16)
+    _assert_dcn_close(out, floor, torch.bfloat16)
+
+
+def test_weight_image_is_made_once_per_weight_version(cuda):
+    """A served model's K4 and K5 weights are laid out once: a second call
+    reuses the image, an in-place update makes it again."""
+    from petr_tpu_torch.ops import dcn, weight_images
+
+    x, om, w = _dcn_inputs(1, 16, 6, 10, 24, 1, torch.bfloat16, seed=14)
+    made = []
+    image = dcn.weight_image
+    try:
+        dcn.weight_image = lambda wt: made.append(1) or image(wt)
+        a = dcn.modulated_deform_conv(x, om, w)
+        b = dcn.modulated_deform_conv(x, om, w)
+        assert len(made) == 1 and torch.equal(a, b)
+        with torch.no_grad():
+            w.mul_(2.0)
+        c = dcn.modulated_deform_conv(x, om, w)
+        assert len(made) == 2 and not torch.equal(a, c)
+    finally:
+        dcn.weight_image = image
+        weight_images.clear()
 
 
 def test_tiny_r50dcn_detector_on_the_card_matches_the_cpu(cuda):

@@ -189,19 +189,20 @@ def test_bf16_rounding_floor_matches_xla_formulation_and_pallas_kernel(stride, s
 
 @pytest.mark.parametrize("Cin", [5, 8, 40])
 def test_bf16_weight_repack_times_sample_im2col_is_the_plain_conv(Cin):
-    """The bf16 kernel's operands: the weight repacked to (Cout, 3, 3, Cp) in
-    bf16 (j = tap * Cp + c, zero past Cin), times the (P, 9 * Cp) matrix of
-    the modulated samples in the same j order, is the plain version with
+    """The bf16 kernel's operands: its weight image (bf16, chunks of 64
+    channels of one tap) read back in K order, (Cout, 9, Cp64) with j = tap *
+    Cp64 + c and zeros past Cin, times the (P, 9 * Cp64) matrix of the
+    modulated samples in the same j order, is the plain version with
     operand_dtype=bfloat16 (fp32 sums in another order: 1e-5 of the largest
     output)."""
-    from petr_tpu_torch.ops.conv3x3 import repack_weight
-
     x, off_mask, w = dcn_case(1, B=2, H=7, W=10, Cin=Cin, Cout=12, seed=Cin)
     xt, om, wt = nchw(x).bfloat16(), nchw(off_mask), oihw(w)
     B, _, H, W = xt.shape
-    Cp = -(-Cin // 8) * 8
-    wr = repack_weight(wt, torch.bfloat16)
-    assert wr.shape == (12, 3, 3, Cp) and wr.dtype == torch.bfloat16
+    image = dcn.weight_image(wt)
+    tiles, chunks = image.shape[:2]
+    Cp = chunks // 9 * dcn.CHUNK_CHANNELS
+    assert image.dtype == torch.bfloat16 and tiles == 1 and Cp == 64
+    wr = image.permute(0, 3, 1, 2, 4).reshape(dcn.TILE_CHANNELS, 9, Cp)[:12]  # (Cout, tap, c)
     # the modulated samples (B, P, 9, Cin) as the plain version takes them
     K = 9
     o = om.permute(0, 2, 3, 1)
